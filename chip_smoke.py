@@ -12,7 +12,10 @@ Phases, each of which raises (exit code 1) on any fault:
              in float64 on the same float32 inputs, for RBF, Matern-3/2 and
              Matern-5/2, at the serving model's layer shapes (D=8 and D=1,
              M=128, Din=8, n=262,181, a ragged last tile) and at a small odd
-             shape (D=3, M=64, Din=5).
+             shape (D=3, M=64, Din=5). Then its backward kernel likewise, at
+             the training model's layer shapes (n = 100,037) and the small
+             odd shape: all six gradients, and a second run bit for bit
+             equal to the first.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -23,10 +26,21 @@ Phases, each of which raises (exit code 1) on any fault:
              must launch the kernel once per layer. Then one request is held
              to the same request with use_kernels off (same unit normals),
              in a process that asks for TF32: the port stays IEEE fp32.
-4. timing  — CUDA-event times of the kernel and of its plain version at the
-             layers' shapes with n = 1,000,000, beside the fp32 bound of the
-             work these inputs need; then the device time by kernel over one
-             request (torch.profiler).
+4. training — build bench.py's model and data (N=10,000, M=128,
+             DIN=HIDDEN=8, S=10, f32, whitened RBF, num_units=[8]) from the
+             seed; optimize_adam for 20 steps, optimize_nat_adam for 5 + 10,
+             and 2 Adam steps with the kernel hyperparameters and the
+             likelihood frozen. Losses finite and falling, frozen tensors
+             bit for bit unchanged, forward and backward launch counts as
+             the step counts predict (zeroed just before, read just after).
+             Then one loss-and-gradient evaluation on fixed unit normals with
+             the kernels on against the kernels off.
+5. timing  — CUDA-event times of both kernels and of their plain versions at
+             the layers' shapes (forward n = 1,000,000, backward
+             n = 100,000), beside the fp32 bound of the work these inputs
+             need; wall time per Adam step and per Adam+natural-gradient
+             step; the device time by kernel over one request and over three
+             Adam steps (torch.profiler).
 
 The line before the last is one JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}. Without a card, or without
@@ -51,7 +65,16 @@ PEAK_BYTES = 3.35e12
 KINDS = {0: "RBF", 1: "Matern32", 2: "Matern52"}
 DIN, HIDDEN, M, S = 8, 8, 128, 10
 N_REQUEST, N_CHUNKED, CHUNK = 100_000, 1_000_000, 125_000
+N_TRAIN = 10_000    # bench.py's N; a layer's conditional sees S * N_TRAIN points
+ADAM_STEPS, NAT_STEPS_1, NAT_STEPS_2, MASKED_STEPS = 20, 5, 10, 2
 TOL = 1e-4          # kernel vs f64 plain: mean err / max|mean|, var err / v
+# backward kernel vs f64 plain: err / max|that gradient|. dvariance is one
+# number, a signed sum of n*D terms of the size of g_var that largely cancel,
+# so it is held to sum|g_var| instead of its own (small) value
+TOL_BWD = 1e-4
+# kernels on vs off, one loss gradient on fixed normals: two fp32 paths, as
+# for the request
+TOL_GRAD = 1e-3
 # kernel on vs off at the request level: both paths are float32 but sum in
 # other orders (cuBLAS vs the kernel's sequential FMA); layer 1's rounding
 # reaches layer 2 through the sampled inputs and the v - ||A||^2
@@ -134,6 +157,57 @@ def check_kernel(kind, D, Mi, Din, n, seed):
     if not ok:
         raise AssertionError(f"{KINDS[kind]} kernel disagrees with its plain version")
     return max(em, ev)
+
+
+BACKWARD_OUTPUTS = ("dPinv", "dXs", "dZs", "dvariance", "dq_mu", "dSq")
+
+
+def check_backward(kind, D, Mi, Din, n, seed):
+    """Kernel #2 through autograd of the wrapper, against the plain backward
+    in float64 on the same float32 inputs: each of the six gradients within
+    TOL_BWD of its own largest magnitude; and a second run on the same inputs
+    bit for bit equal to the first (the slabs are summed in a fixed order)."""
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    args = fused_inputs(kind, D, Mi, Din, n, seed, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    g = [torch.randn((n, D), generator=gen, device=DEVICE) for _ in range(2)]
+
+    def kernel_grads():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = cfr.FusedConditional.backward_launches
+        out = cfr.fused_conditional_white_stationary(kind, *leaves)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=g)
+        sync()
+        if cfr.FusedConditional.backward_launches != before + 1:
+            raise AssertionError("the backward did not launch its kernel")
+        return grads
+
+    got = kernel_grads()
+    again = kernel_grads()
+    with torch.no_grad():
+        want = cfr.fused_conditional_backward_plain(
+            kind, *[a.double() for a in args], *[x.double() for x in g])
+    worst, report = 0.0, []
+    for name, a, b, w in zip(BACKWARD_OUTPUTS, got, again, want):
+        if a.shape != w.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{KINDS[kind]} {name}: bad shape or non-finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"{KINDS[kind]} {name}: two runs differ")
+        err = float((a.double() - w).abs().max())
+        scale = (float(g[1].abs().sum()) if name == "dvariance"
+                 else float(w.abs().max()))
+        report.append(f"{name} {err / scale:.2e}")
+        worst = max(worst, err)
+        if not err <= TOL_BWD * scale:
+            raise AssertionError(
+                f"{KINDS[kind]} D={D} M={Mi} Din={Din} n={n}: {name} off by "
+                f"{err:.3e}, {err / scale:.2e} of its scale {scale:.3e}")
+    log(f"[kernels] backward {KINDS[kind]:8s} D={D} M={Mi} Din={Din} n={n}: "
+        f"err / max|plain f64| (dvariance: / sum|g_var|; tol {TOL_BWD}): "
+        f"{', '.join(report)}; "
+        f"repeat bit-equal ok")
+    return worst
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -257,6 +331,133 @@ def compare_paths(model):
 # -- phase 4 --------------------------------------------------------------------
 
 
+def training_model(seed=0):
+    """bench.py's model and data, built from the seed with numpy."""
+    from dgp_tpu_torch.models.dgp import DGP
+    from dgp_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(0, 1, size=(N_TRAIN, DIN))
+    Y = (np.sin(3 * X[:, :1]) + 0.5 * np.cos(5 * X[:, 1:2])
+         + 0.05 * rng.normal(size=(N_TRAIN, 1)))
+    Z = X[rng.choice(N_TRAIN, M, replace=False)].copy()
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
+               K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
+    return DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=True,
+               device=DEVICE, dtype=torch.float32)
+
+
+def counts():
+    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
+
+    return FC.launches, FC.backward_launches
+
+
+def train(model, gpu):
+    """The training path through the entry points a user calls; returns the
+    forward and backward kernels' launch counts over it."""
+    from dgp_tpu_torch.models import training
+    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
+
+    n_layers = len(model.params.layers)
+    state = lambda: {k: v.clone() for k, v in model.params.state_dict().items()}
+    start = state()
+    FC.launches = FC.backward_launches = 0
+
+    losses, dt = timed(lambda: model.optimize_adam(iterations=ADAM_STEPS,
+                                                   messages=0))
+    losses = losses.cpu().numpy()
+    if losses.shape != (ADAM_STEPS,) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"optimize_adam: bad losses {losses}")
+    if not losses[-5:].mean() < losses[0]:
+        raise AssertionError(f"optimize_adam: the loss did not fall: {losses}")
+    expect = ADAM_STEPS * n_layers
+    if counts() != (expect, expect):
+        raise AssertionError(f"optimize_adam: launches {counts()}, expected "
+                             f"{expect} forward and {expect} backward")
+    log(f"[training] optimize_adam {ADAM_STEPS} steps (first-use warm-up "
+        f"included): {1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> "
+        f"{losses[-5:].mean():.1f} (mean of the last 5), launches "
+        f"{counts()} ({gpu})")
+
+    losses, dt = timed(lambda: model.optimize_nat_adam(
+        iterations1=NAT_STEPS_1, iterations2=NAT_STEPS_2, messages=0))
+    losses = losses.cpu().numpy()
+    if (losses.shape != (NAT_STEPS_1 + NAT_STEPS_2,)
+            or not np.all(np.isfinite(losses))):
+        raise AssertionError(f"optimize_nat_adam: bad losses {losses}")
+    # one evaluation per Adam step, two per Adam+natural-gradient step
+    expect += (NAT_STEPS_1 + 2 * NAT_STEPS_2) * n_layers
+    if counts() != (expect, expect):
+        raise AssertionError(f"optimize_nat_adam: launches {counts()}, "
+                             f"expected {expect} of each")
+    log(f"[training] optimize_nat_adam {NAT_STEPS_1} + {NAT_STEPS_2} steps: "
+        f"{1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> {losses[-1]:.1f}, "
+        f"launches {counts()} ({gpu})")
+    moved = state()
+    if any(torch.equal(moved[k], start[k]) for k in start):
+        raise AssertionError("a trained tensor did not move")
+
+    # bench.py's model has no mean-function weights (Identity, then Zero),
+    # so the frozen-tensor check freezes the hyperparameters instead
+    mask = training.make_mask(model.params,
+                              frozen_fields=("kernel", "likelihood"))
+    loss_fn, batch = model._loss_spec()
+    training.adam_run(loss_fn, model.params, mask, model.generator,
+                      steps=MASKED_STEPS, data=batch)
+    expect += MASKED_STEPS * n_layers
+    after = state()
+    frozen = [k for k in after if not mask[k]]
+    if len(frozen) != 5 or counts() != (expect, expect):
+        raise AssertionError(f"masked phase: frozen {frozen}, launches {counts()}")
+    for k in after:
+        if torch.equal(after[k], moved[k]) != (k in frozen):
+            raise AssertionError(f"masked phase: {k} "
+                                 f"{'moved' if k in frozen else 'did not move'}")
+    log(f"[training] {MASKED_STEPS} Adam steps with {len(frozen)} frozen "
+        f"tensors: frozen bit for bit unchanged, the rest moved; launches on "
+        f"the training path: {counts()[0]} forward, {counts()[1]} backward")
+    return counts()
+
+
+def compare_gradients(model):
+    """One loss-and-gradient evaluation on fixed unit normals, kernels on
+    against kernels off."""
+    from dgp_tpu_torch.config import kernels_scope
+    from dgp_tpu_torch.models.dgp import elbo
+
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    zs = [torch.randn((S, N_TRAIN, l.num_outputs), generator=gen, device=DEVICE)
+          for l in model.params.layers]
+    params = dict(model.params.named_parameters())
+
+    def evaluate():
+        loss = -elbo(model.params, *model.data, S, zs=zs)
+        return loss.detach(), torch.autograd.grad(loss, list(params.values()))
+
+    before = counts()
+    loss_on, on = evaluate()
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    with kernels_scope(False):
+        loss_off, off = evaluate()
+    if launched != (2, 2) or counts() != tuple(b + 2 for b in before):
+        raise AssertionError(f"gradient evaluation launched {launched}")
+    worst = abs(float(loss_on - loss_off)) / abs(float(loss_off))
+    report = [f"loss {worst:.2e}"]
+    for name, a, b in zip(params, on, off):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        report.append(f"{name} {err:.2e}")
+        worst = max(worst, err)
+    log(f"[training] kernels on vs off, loss and gradients on fixed normals, "
+        f"err / max|off| (tol {TOL_GRAD}): {', '.join(report)}")
+    if not worst <= TOL_GRAD:
+        raise AssertionError("the gradients differ with the kernels off")
+
+
+# -- phase 5 --------------------------------------------------------------------
+
+
 def event_ms(fn, reps):
     for _ in range(2):
         fn()
@@ -304,23 +505,93 @@ def time_kernel(kind, D, Din, n, gpu):
     return ms, plain_ms, bound, by
 
 
-def profile_request(model, gpu):
-    """Device time by kernel over one warm request (torch.profiler)."""
+def backward_bound_ms(Pinv, Xs, q_mu, Sq):
+    """Least time for the fused conditional's backward on these inputs, as
+    :func:`fused_bound_ms` reckons it. Six M x M products per output count
+    the nonzeros of Pinv and Sq (triangular on the whitened path): a, dkuf
+    and dPinv on Pinv's pattern, b_d, Sq[d]^T gb_d and dSq[d] on Sq's (only
+    those entries of dPinv and dSq reach a parameter), where the kernel
+    spends 2M^2 on each full square."""
+    n, Din = Xs.shape
+    Mi, D = q_mu.shape
+    nnz = int(torch.count_nonzero(Pinv)) + int(torch.count_nonzero(Sq))
+    per_point = (2 * Mi * Din            # cross term z.x
+                 + 3 * 2 * nnz           # the six triangular products
+                 + 2 * Mi + 2 * Mi * D   # t1, t2
+                 + 4 * Mi * D            # q_mu g_mean^T, dq_mu
+                 + 2 * Mi                # sum(dkuf kuf)
+                 + 4 * Mi * Din)         # dsq^T zs, dsq xs
+    flops = float(n) * per_point
+    small = Mi * Mi + Mi * Din + 1 + Mi * D + D * Mi * Mi
+    nbytes = 4.0 * (n * Din + small + 2 * n * D      # inputs, g_mean, g_var
+                    + n * Din + small)               # dXs and the summed outputs
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_backward(kind, D, Din, n, gpu):
+    """The backward kernel with its slab reduction, through the wrapper's
+    launch (scratch allocation included), beside its plain version."""
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    args = fused_inputs(kind, D, M, Din, n, 12, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g = [torch.randn((n, D), generator=gen, device="cuda") for _ in range(2)]
+    with torch.no_grad():
+        ms = event_ms(lambda: cfr._launch_backward(kind, *args, *g), 10)
+        plain_ms = event_ms(
+            lambda: cfr.fused_conditional_backward_plain(kind, *args, *g), 5)
+    Pinv, Xs, _, _, q_mu, Sq = args
+    bound, by = backward_bound_ms(Pinv, Xs, q_mu, Sq)
+    blocks = cfr._library().dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D)
+    scratch_mb = 4e-6 * blocks * cfr.backward_slab_floats(M, Din, D)
+    # each 64-point tile reads and writes the (1 + D) M x M squares of its
+    # block's slab once (reckoned from the shapes, not measured)
+    rmw_gb = 8e-9 * -(-n // 64) * (1 + D) * M * M
+    log(f"[timing] fused conditional backward {KINDS[kind]} D={D} M={M} "
+        f"Din={Din} n={n}: kernel+reduce {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; "
+        f"{blocks} blocks, scratch {scratch_mb:.1f} MB, slab read-modify-write "
+        f"{rmw_gb:.2f} GB per call ({gpu})")
+    return ms, plain_ms, bound, by
+
+
+def time_steps(model, gpu, steps=10, rounds=3):
+    """Wall time per training step, synchronised around a run of steps.
+    Host-clock times spread with the load on the machine's CPU cores, so
+    each is taken ``rounds`` times and all are shown."""
+    phases = {
+        "Adam step": lambda: model.optimize_adam(
+            iterations=steps, messages=0, shrink_inner=False),
+        "Adam + natural-gradient step": lambda: model.optimize_nat_adam(
+            iterations1=0, iterations2=steps, messages=0, shrink_inner=False),
+    }
+    for what, run in phases.items():
+        run()
+        ms = sorted(1e3 * timed(run)[1] / steps for _ in range(rounds))
+        log(f"[timing] {what} (N={N_TRAIN}, S={S}, 2 layers), ms per step "
+            f"over {steps} steps, {rounds} rounds: "
+            f"{', '.join(f'{t:.2f}' for t in ms)}; best {1e3 / ms[0]:.1f} "
+            f"steps/s ({gpu})")
+
+
+def profile_run(what, fn, gpu):
+    """Device time by kernel over one warm run of ``fn`` (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
-    Xr = np.random.default_rng(2).uniform(0, 1, size=(N_REQUEST, DIN))
-    timed(lambda: model.predict_y(Xr, S))
+    timed(fn)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = timed(lambda: model.predict_y(Xr, S))
+        _, wall = timed(fn)
     kernels = [e for e in prof.key_averages()
                if str(e.device_type).endswith("CUDA")
                and e.self_device_time_total > 0]
     if not kernels:
-        log("[profile] the profiler saw no device time: not measured")
+        log(f"[profile] {what}: the profiler saw no device time: not measured")
         return
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] one request under the profiler: wall {1e3 * wall:.2f} ms, "
-        f"device busy {busy:.2f} ms ({busy / (1e3 * wall):.1%}) ({gpu})")
+    log(f"[profile] {what} under the profiler: wall {1e3 * wall:.2f} ms, "
+        f"device busy {busy:.2f} ms ({busy / (1e3 * wall):.1%}), idle "
+        f"{1 - busy / (1e3 * wall):.1%} ({gpu})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
             f"{e.key[:100]}")
@@ -336,34 +607,64 @@ def main():
     log(gpu)
     build()
 
-    err = 0.0
+    err = err_bwd = 0.0
     for kind in KINDS:
         for seed, (D, Mi, Din, n) in enumerate([
                 (HIDDEN, M, DIN, 262_144 + 37),   # layer 1 of the model
                 (1, M, HIDDEN, 262_144 + 37),     # layer 2
                 (3, 64, 5, 10_007)]):             # small odd shape
             err = max(err, check_kernel(kind, D, Mi, Din, n, 10 * kind + seed))
+    for kind in KINDS:
+        for seed, (D, Mi, Din, n) in enumerate([
+                (HIDDEN, M, DIN, S * N_TRAIN + 37),   # layer 1, training
+                (1, M, HIDDEN, S * N_TRAIN + 37),     # layer 2
+                (3, 64, 5, 10_007)]):
+            err_bwd = max(err_bwd, check_backward(kind, D, Mi, Din, n,
+                                                  100 + 10 * kind + seed))
 
     model = serving_model()
-    launches = serve(model, gpu)
-    log(f"[serving] fused conditional launches on the main path: {launches}")
+    served = serve(model, gpu)
+    log(f"[serving] fused conditional launches on the serving path: {served}")
     compare_paths(model)
+
+    trained = training_model()
+    fwd_launches, bwd_launches = train(trained, gpu)
+    compare_gradients(trained)
 
     ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
-    profile_request(model, gpu)
+    bwd = time_backward(0, HIDDEN, DIN, S * N_TRAIN, gpu)
+    time_backward(0, 1, HIDDEN, S * N_TRAIN, gpu)
+    time_steps(trained, gpu)
+    Xr = np.random.default_rng(2).uniform(0, 1, size=(N_REQUEST, DIN))
+    profile_run("one request", lambda: model.predict_y(Xr, S), gpu)
+    profile_run("three Adam steps", lambda: trained.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
 
+    source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     kernels = [{
         "name": "conditional_fused_rbf",
         "route": "cuda",
-        "source": "dgp_tpu_torch/csrc/conditional_fused_rbf.cu",
+        "source": source,
         "replaces": "dgp_tpu/ops/conditional_fused_rbf.py:131",
-        "launches": launches,
+        "launches": served + fwd_launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "library_ms": None,
+    }, {
+        "name": "conditional_fused_rbf_bwd",
+        "route": "cuda",
+        "source": source,
+        "replaces": "dgp_tpu/ops/conditional_fused_rbf.py:145",
+        "launches": bwd_launches,
+        "max_abs_err": err_bwd,
+        "ms": bwd[0],
+        "plain_ms": bwd[1],
+        "bound_ms": bwd[2],
+        "bound_by": bwd[3],
         "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
-"""Carry a ``dgp_tpu`` model's weights into the port.
+"""Carry a ``dgp_tpu`` model's weights into the port, and the port's back
+out.
 
 :func:`numpy_tree_from_reference` reads a ``dgp_tpu`` ``DGPParams`` by
 attribute name with ``np.asarray`` (it imports nothing of JAX or of the JAX
 package), and :func:`dgp_from_numpy` builds the port's ``DGPParams`` from
 that tree of numpy arrays, so both packages compute from the same numbers.
+:func:`numpy_tree_from_port` gives the same tree for the port's own
+``DGPParams``, so parameters trained in both packages can be compared.
 
 The tree is plain data::
 
@@ -34,6 +37,12 @@ _STATIONARY = ("RBF", "Matern32", "Matern52")
 _VARIANCE_ONLY = ("Linear", "White")
 
 
+def _np(a):
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _dims(active_dims):
     return None if active_dims is None else [int(d) for d in active_dims]
 
@@ -42,10 +51,10 @@ def _kernel_tree(kern):
     name = type(kern).__name__
     if name in ("Sum", "Product"):
         return {"type": name, "kernels": [_kernel_tree(k) for k in kern.kernels]}
-    tree = {"type": name, "variance_raw": np.asarray(kern.variance_raw),
+    tree = {"type": name, "variance_raw": _np(kern.variance_raw),
             "active_dims": _dims(kern.active_dims)}
     if name in _STATIONARY:
-        tree["lengthscales_raw"] = np.asarray(kern.lengthscales_raw)
+        tree["lengthscales_raw"] = _np(kern.lengthscales_raw)
     elif name not in _VARIANCE_ONLY:
         raise TypeError(f"no port of kernel {name}")
     return tree
@@ -58,12 +67,14 @@ def _mean_tree(mf):
     if name == "Identity":
         return {"type": name}
     if name == "LinearMean":
-        return {"type": name, "W": np.asarray(mf.W)}
+        return {"type": name, "W": _np(mf.W)}
     raise TypeError(f"no port of mean function {name}")
 
 
 def numpy_tree_from_reference(params) -> dict:
-    """The tree of a ``dgp_tpu.models.dgp.DGPParams`` as numpy arrays."""
+    """The tree of a ``dgp_tpu.models.dgp.DGPParams`` as numpy arrays (the
+    two packages name their fields alike, so the port's ``DGPParams`` reads
+    the same way: :func:`numpy_tree_from_port`)."""
     layers = []
     for layer in params.layers:
         if getattr(layer, "augmented", False):
@@ -71,9 +82,9 @@ def numpy_tree_from_reference(params) -> dict:
                             "multi-fidelity models")
         layers.append({
             "kernel": _kernel_tree(layer.kernel),
-            "z": np.asarray(layer.z),
-            "q_mu": np.asarray(layer.q_mu),
-            "q_sqrt": np.asarray(layer.q_sqrt),
+            "z": _np(layer.z),
+            "q_mu": _np(layer.q_mu),
+            "q_sqrt": _np(layer.q_sqrt),
             "mean_function": _mean_tree(layer.mean_function),
             "num_outputs": int(layer.num_outputs),
             "white": bool(layer.white),
@@ -84,7 +95,13 @@ def numpy_tree_from_reference(params) -> dict:
         raise TypeError(f"no port of likelihood {type(lik).__name__}")
     return {"layers": layers,
             "likelihood": {"type": "Gaussian",
-                           "variance_raw": np.asarray(lik.variance_raw)}}
+                           "variance_raw": _np(lik.variance_raw)}}
+
+
+def numpy_tree_from_port(params) -> dict:
+    """The tree of the port's ``DGPParams``, in the layout
+    :func:`numpy_tree_from_reference` gives."""
+    return numpy_tree_from_reference(params)
 
 
 def _array(a, device, dtype):

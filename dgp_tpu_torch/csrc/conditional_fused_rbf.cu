@@ -1,6 +1,8 @@
-// Fused whitened stationary-SVGP conditional, forward, for Hopper (sm_90a).
+// Fused whitened stationary-SVGP conditional, forward and backward, for
+// Hopper (sm_90a).
 //
-// Replaces the TPU kernel dgp_tpu/ops/conditional_fused_rbf.py:_fwd_kernel.
+// FORWARD. Replaces the TPU kernel
+// dgp_tpu/ops/conditional_fused_rbf.py:_fwd_kernel.
 // For every point x (a row of Xs = X / lengthscales) and inducing input z
 // (a row of Zs = Z / lengthscales):
 //
@@ -38,8 +40,57 @@
 //     other computes.
 // Later work for speed: skipping the zero halves of the triangular Pinv and
 // Sq, wgmma/TMA, 3xTF32 for the cancellation-free b product.
+//
+// BACKWARD. Replaces the TPU kernel
+// dgp_tpu/ops/conditional_fused_rbf.py:_bwd_kernel. Given the cotangents
+// g_mean, g_var [n][D] it recomputes sq, kuf, a and b_d per point tile and
+// chains them to every tensor input:
+//
+//   gv_d  = g_var_d where (v - t1) + t2_d > 0, else 0
+//   gb_d  = 2 b_d gv_d
+//   da    = sum_d Sq[d]^T gb_d - 2 a sum_d gv_d + q_mu g_mean^T
+//   dkuf  = Pinv^T da
+//   dPinv = da kuf^T       dq_mu = a g_mean       dSq[d] = gb_d a^T
+//   dv    = sum(dkuf kuf) / v + sum(gv)           (Kuf = v f(sq), Kff = v)
+//   dsq   = (dk/dsq) dkuf where sq > 0, else 0    (smooth Matern forms in sq)
+//   dXs   = 2 Xs sum_m dsq - 2 dsq^T Zs           dZs = 2 Zs sum_n dsq - 2 dsq Xs
+//
+// What bounds it: 2 M^2 (3 + 3 D) FLOP per point on full squares (six M x M
+// products per output, three times the forward) against 4 (2 Din + 2 D)
+// bytes per point: fp32 arithmetic again, in plain IEEE FMA like the forward.
+// What is new is that every output but dXs is a sum over all points. The TPU
+// kernel zeroed its accumulators on grid step 0 and added into them on a grid
+// that runs in order; here blocks run concurrently. One slab of partial sums
+// per point tile would need (1 + D) M^2 floats for each 64 points (0.9 GB at
+// n = 100,000, M = 128, D = 8), so instead:
+//   * A persistent grid: as many blocks as the card holds at once (one per
+//     SM at M = 128), block b taking tiles b, b + grid, b + 2 grid, ... The
+//     assignment is static, so every sum has one fixed order.
+//   * Each block owns one slab [(1 + D) M^2 + M Din + M D + 1] in device
+//     memory (the wrapper's scratch: about 78 MB for 132 blocks at M = 128,
+//     D = 8, Din = 8, whatever n is). dZs, dq_mu and dv accumulate in shared
+//     memory and registers and are written once; the M x M sums dPinv and
+//     dSq[d] do not fit in registers beside the products, so each tile's
+//     da kuf^T and gb_d a^T are added into the slab by the thread that owns
+//     the element (a read-modify-write only that thread ever touches; about
+//     128 KB of traffic per tile per square, mostly from L2).
+//   * A second kernel, reduce_slabs, adds the slabs in block order into the
+//     outputs. No float atomics anywhere: two runs on the same inputs give
+//     the same bits.
+//   * Shared memory holds the staged operand W (64 KB at M = 128) and three
+//     [MP][TN + 4] tiles: kuf (later dsq), a, and gb_d (later da); the row
+//     stride is padded so the a gb^T products read both tiles without bank
+//     conflicts. 196,160 bytes at M = 128, Din = D = 8: one block per SM.
+//     Sq[d] is staged once per tile and read in both orientations
+//     (b_d = Sq[d] a down its columns, Sq[d]^T gb_d along its rows); Pinv is
+//     staged at the end of a tile for dkuf and stays for the next tile's a.
+//   * Rows past n read g_mean = g_var = 0, which makes every one of their
+//     contributions 0; padded rows of M hold kuf = 0 and are masked in dsq.
+// The clamp masks are recomputed from (v - t1) + t2 and sq, as on the TPU.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -108,8 +159,8 @@ __device__ __forceinline__ void stage(float* W, const float* __restrict__ G,
   }
 }
 
-// acc[r][c] = sum_k W[k][ty*RM + r] * T[k][tx*4 + c]
-template <int RM>
+// acc[r][c] = sum_k W[k][ty*RM + r] * T[k][tx*4 + c]; T has row stride TS_
+template <int RM, int TS_ = TN>
 __device__ __forceinline__ void tile_product(const float* W, const float* T,
                                              int ty, int tx, float (&acc)[RM][4]) {
   constexpr int MP = 16 * RM;
@@ -128,7 +179,7 @@ __device__ __forceinline__ void tile_product(const float* W, const float* T,
       a[4 * q + 2] = w.z;
       a[4 * q + 3] = w.w;
     }
-    const float4 t = *reinterpret_cast<const float4*>(T + k * TN + tx * 4);
+    const float4 t = *reinterpret_cast<const float4*>(T + k * TS_ + tx * 4);
     const float b[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
     for (int r = 0; r < RM; ++r)
@@ -260,22 +311,459 @@ fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
   }
 }
 
+// -- backward -------------------------------------------------------------------
+
+constexpr int TS = TN + 4;  // row stride of the backward's tiles: 8 threads
+                            // reading float4 from 8 consecutive rows then hit
+                            // 32 distinct banks
+
+struct BwdLayout {  // offsets in floats; total floats
+  int ku, at, gb, zs, xs, xx, zz, red, t1, gv, ss, gm, gvar, qm, dzs, dqm, wsum, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int MP, int M, int Din, int D) {
+  BwdLayout L;
+  int o = MP * MP;                        // W: the staged operand [MP][MP]
+  L.ku = o;   o += MP * TS;               // kuf, then dsq
+  L.at = o;   o += MP * TS;               // a
+  L.gb = o;   o += MP * TS;               // gb_d, then da
+  L.zs = o;   o += round4(MP * Din);
+  L.xs = o;   o += round4(Din * TN);      // xs^T [Din][TN]
+  L.xx = o;   o += TN;
+  L.zz = o;   o += MP;
+  L.red = o;  o += NWARP * TN;            // per-warp column partials
+  L.t1 = o;   o += TN;
+  L.gv = o;   o += TN;                    // gv_d of the current d
+  L.ss = o;   o += TN;                    // sum_d gv_d
+  L.gm = o;   o += round4(TN * D);        // g_mean tile [TN][D]
+  L.gvar = o; o += round4(TN * D);        // g_var tile [TN][D]
+  L.qm = o;   o += round4(M * D);
+  L.dzs = o;  o += round4(MP * Din);      // dZs, summed over this block's tiles
+  L.dqm = o;  o += round4(M * D);         // dq_mu, likewise
+  L.wsum = o; o += 2 * NWARP;
+  L.total = o;
+  return L;
+}
+
+inline long long bwd_smem_bytes(int M, int Din, int D) {
+  return static_cast<long long>(sizeof(float)) * bwd_layout(padded_m(M), M, Din, D).total;
+}
+
+inline bool bwd_fits(int M, int Din, int D) {
+  return M >= 1 && M <= 128 && Din >= 1 && D >= 1 && bwd_smem_bytes(M, Din, D) <= MAX_SMEM;
+}
+
+// Floats of one block's slab and of the summed output:
+// dPinv [M][M], dSq [D][M][M], dZs [M][Din], dq_mu [M][D], dv.
+__host__ __device__ inline long long slab_floats(int M, int Din, int D) {
+  return static_cast<long long>(1 + D) * M * M + M * Din + M * D + 1;
+}
+
+template <int KIND>
+__device__ __forceinline__ float dkuf_dsq(float v, float sq, float kuf) {
+  if (KIND == 0) return -0.5f * kuf;
+  const float r = sqrtf(sq);
+  if (KIND == 1) return -(1.5f * v) * expf(-1.7320508075688772f * r);
+  const float a = 2.2360679774997896f;
+  return -((5.0f / 6.0f) * v) * (1.0f + a * r) * expf(-a * r);
+}
+
+// acc[r][c] += sum_k W[ty*RM + r][k] * T[k][tx*4 + c]: the staged operand
+// read along its rows, i.e. the product with its transpose. T has stride TS.
+template <int RM>
+__device__ __forceinline__ void tile_product_t(const float* W, const float* T,
+                                               int ty, int tx, float (&acc)[RM][4]) {
+  constexpr int MP = 16 * RM;
+#pragma unroll 2
+  for (int k = 0; k < MP; k += 4) {
+    float t[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 t4 = *reinterpret_cast<const float4*>(T + (k + q) * TS + tx * 4);
+      t[q][0] = t4.x;
+      t[q][1] = t4.y;
+      t[q][2] = t4.z;
+      t[q][3] = t4.w;
+    }
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const float4 w4 = *reinterpret_cast<const float4*>(W + (ty * RM + r) * MP + k);
+      const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(w[q], t[q][c], acc[r][c]);
+    }
+  }
+}
+
+// slab[i][k] (+)= sum_j P[i][j] * Q[k][j] over the tile's TN points, for
+// i, k < M. The thread owns rows ty*RM + r and columns c*16 + tx in every
+// tile, so the read-modify-write of the slab races with nobody.
+template <int RM>
+__device__ __forceinline__ void outer_accumulate(float* slab, const float* P,
+                                                 const float* Q, int M, int ty,
+                                                 int tx, bool first) {
+  float acc[RM][RM];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int c = 0; c < RM; ++c) acc[r][c] = 0.0f;
+#pragma unroll 1
+  for (int j = 0; j < TN; j += 4) {
+    float4 p[RM];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      p[r] = *reinterpret_cast<const float4*>(P + (ty * RM + r) * TS + j);
+#pragma unroll
+    for (int c = 0; c < RM; ++c) {
+      const float4 q = *reinterpret_cast<const float4*>(Q + (c * 16 + tx) * TS + j);
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        acc[r][c] = fmaf(p[r].w, q.w, fmaf(p[r].z, q.z, fmaf(p[r].y, q.y,
+                         fmaf(p[r].x, q.x, acc[r][c]))));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RM; ++r) {
+    const int row = ty * RM + r;
+    if (row >= M) continue;
+#pragma unroll
+    for (int c = 0; c < RM; ++c) {
+      const int col = c * 16 + tx;
+      if (col >= M) continue;
+      float* g = slab + row * M + col;
+      *g = first ? acc[r][c] : *g + acc[r][c];
+    }
+  }
+}
+
 template <int KIND, int RM>
-cudaError_t launch(const float* pinvT, const float* xs, const float* zs,
-                   const float* v, const float* qmu, const float* sqT,
-                   float* mean, float* var, long long n, int M, int Din, int D,
-                   cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(smem_bytes(M, Din, D));
-  auto kern = fused_fwd<KIND, RM>;
+__global__ void __launch_bounds__(NT, 1)
+fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
+          const float* __restrict__ zs, const float* __restrict__ vptr,
+          const float* __restrict__ qmu, const float* __restrict__ sqT,
+          const float* __restrict__ gmean, const float* __restrict__ gvar,
+          float* __restrict__ dxs, float* scratch,
+          long long n, int M, int Din, int D) {
+  constexpr int MP = 16 * RM;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const BwdLayout L = bwd_layout(MP, M, Din, D);
+  float* W = smem;
+  float* KU = smem + L.ku;
+  float* AT = smem + L.at;
+  float* GB = smem + L.gb;
+  float* zsS = smem + L.zs;
+  float* xsS = smem + L.xs;
+  float* xx = smem + L.xx;
+  float* zz = smem + L.zz;
+  float* red = smem + L.red;
+  float* t1s = smem + L.t1;
+  float* gvS = smem + L.gv;
+  float* sS = smem + L.ss;
+  float* gmS = smem + L.gm;
+  float* gvarS = smem + L.gvar;
+  float* qm = smem + L.qm;
+  float* dzsS = smem + L.dzs;
+  float* dqmS = smem + L.dqm;
+  float* wsum = smem + L.wsum;
+
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const float v = __ldg(vptr);
+  const long long MM = static_cast<long long>(M) * M;
+  float* slab = scratch + blockIdx.x * slab_floats(M, Din, D);
+  float* s_dpinv = slab;
+  float* s_dsq = slab + MM;
+  float* s_dzs = s_dsq + D * MM;
+  float* s_dqm = s_dzs + M * Din;
+  float* s_dv = s_dqm + M * D;
+
+  // once per block: q_mu, Zs, Pinv^T, and the block's own accumulators
+  for (int e = tid; e < M * D; e += NT) {
+    qm[e] = __ldg(qmu + e);
+    dqmS[e] = 0.0f;
+  }
+  for (int e = tid; e < MP * Din; e += NT) {
+    zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
+    dzsS[e] = 0.0f;
+  }
+  stage<MP>(W, pinvT, M, tid);
+  __syncthreads();
+  if (tid < MP) {
+    float s = 0.0f;
+    for (int c = 0; c < Din; ++c) s = fmaf(zsS[tid * Din + c], zsS[tid * Din + c], s);
+    zz[tid] = s;
+  }
+  float dv_kuf = 0.0f;  // this thread's share of sum(dkuf * kuf)
+  float dv_gv = 0.0f;   // and of sum(gv)
+
+  const long long ntiles = (n + TN - 1) / TN;
+  bool first = true;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, first = false) {
+    const long long p0 = tile * TN;
+    const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
+
+    // phase 0: this tile's points and cotangents; rows past n read as 0
+    for (int e = tid; e < TN * Din; e += NT) {
+      const int j = e / Din, c = e % Din;
+      xsS[c * TN + j] = j < nt ? __ldg(xs + (p0 + j) * Din + c) : 0.0f;
+    }
+    for (int e = tid; e < TN * D; e += NT) {
+      const bool in = e < nt * D;
+      gmS[e] = in ? __ldg(gmean + p0 * D + e) : 0.0f;
+      gvarS[e] = in ? __ldg(gvar + p0 * D + e) : 0.0f;
+    }
+    __syncthreads();
+    if (tid < TN) {
+      float s = 0.0f;
+      for (int c = 0; c < Din; ++c) s = fmaf(xsS[c * TN + tid], xsS[c * TN + tid], s);
+      xx[tid] = s;
+      sS[tid] = 0.0f;
+    }
+    __syncthreads();
+
+    // phase 1: the kuf tile; padded rows are 0
+    for (int e = tid; e < MP * TN; e += NT) {
+      const int m = e / TN, j = e % TN;
+      float k = 0.0f;
+      if (m < M) {
+        float cross = 0.0f;
+        for (int c = 0; c < Din; ++c) cross = fmaf(zsS[m * Din + c], xsS[c * TN + j], cross);
+        k = kuf_of<KIND>(v, fmaxf((xx[j] - 2.0f * cross) + zz[m], 0.0f));
+      }
+      KU[m * TS + j] = k;
+    }
+    __syncthreads();
+
+    // phase 2: a = Pinv @ kuf (W holds Pinv^T), t1
+    float acc[RM][4];
+    tile_product<RM, TS>(W, KU, ty, tx, acc);
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+      *reinterpret_cast<float4*>(AT + (ty * RM + r) * TS + tx * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    colsumsq_partials<RM>(acc, red, tid);
+    __syncthreads();
+    if (tid < TN) t1s[tid] = colsum(red, tid);
+
+    // phase 3: per output d, b_d, the clamp mask, gb_d, and the sums over d
+    float da[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) da[r][c] = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      __syncthreads();  // W, red, gvS and GB are free again
+      stage<MP>(W, sqT + d * MM, M, tid);
+      __syncthreads();
+      tile_product<RM, TS>(W, AT, ty, tx, acc);  // b_d = Sq[d] @ a
+      colsumsq_partials<RM>(acc, red, tid);
+      __syncthreads();
+      if (tid < TN) {
+        const float lin = (v - t1s[tid]) + colsum(red, tid);
+        const float g = lin > 0.0f ? gvarS[tid * D + d] : 0.0f;
+        gvS[tid] = g;
+        sS[tid] += g;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+        *reinterpret_cast<float4*>(GB + (ty * RM + r) * TS + tx * 4) = make_float4(
+            2.0f * acc[r][0] * gvS[tx * 4 + 0], 2.0f * acc[r][1] * gvS[tx * 4 + 1],
+            2.0f * acc[r][2] * gvS[tx * 4 + 2], 2.0f * acc[r][3] * gvS[tx * 4 + 3]);
+      __syncthreads();
+      tile_product_t<RM>(W, GB, ty, tx, da);                            // += Sq[d]^T gb_d
+      outer_accumulate<RM>(s_dsq + d * MM, GB, AT, M, ty, tx, first);  // dSq[d] += gb_d a^T
+    }
+    __syncthreads();
+
+    // phase 4: da complete, into GB; Pinv^T back into W
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = ty * RM + r;
+      const float4 a4 = *reinterpret_cast<const float4*>(AT + row * TS + tx * 4);
+      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
+      float out[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx * 4 + c;
+        float qg = 0.0f;
+        if (row < M)
+          for (int d = 0; d < D; ++d) qg = fmaf(qm[row * D + d], gmS[col * D + d], qg);
+        out[c] = (da[r][c] - 2.0f * a[c] * sS[col]) + qg;
+      }
+      *reinterpret_cast<float4*>(GB + row * TS + tx * 4) =
+          make_float4(out[0], out[1], out[2], out[3]);
+    }
+    stage<MP>(W, pinvT, M, tid);
+    __syncthreads();
+
+    // dq_mu += a g_mean
+    for (int e = tid; e < M * D; e += NT) {
+      const int m = e / D, d = e % D;
+      float s = 0.0f;
+      for (int j = 0; j < TN; ++j) s = fmaf(AT[m * TS + j], gmS[j * D + d], s);
+      dqmS[e] += s;
+    }
+    // dkuf = Pinv^T da (into acc); dPinv += da kuf^T
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+    tile_product_t<RM>(W, GB, ty, tx, acc);
+    outer_accumulate<RM>(s_dpinv, GB, KU, M, ty, tx, first);
+    __syncthreads();  // every read of the kuf tile is done
+
+    // dv's kuf share, and dsq over kuf in place (own elements only)
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = ty * RM + r;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int col = tx * 4 + c;
+        const float k = KU[row * TS + col];
+        dv_kuf = fmaf(acc[r][c], k, dv_kuf);
+        float ds = 0.0f;
+        if (row < M) {
+          float cross = 0.0f;
+          for (int q = 0; q < Din; ++q) cross = fmaf(zsS[row * Din + q], xsS[q * TN + col], cross);
+          const float sq = fmaxf((xx[col] - 2.0f * cross) + zz[row], 0.0f);
+          if (sq > 0.0f) ds = dkuf_dsq<KIND>(v, sq, k) * acc[r][c];
+        }
+        KU[row * TS + col] = ds;
+      }
+    }
+    if (tid < TN) dv_gv += sS[tid];
+    __syncthreads();
+
+    // dXs = 2 xs sum_m dsq - 2 dsq^T zs: this tile's rows, one contiguous run
+    for (int o = tid; o < nt * Din; o += NT) {
+      const int j = o / Din, c = o % Din;
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int m = 0; m < M; ++m) {
+        const float ds = KU[m * TS + j];
+        s1 += ds;
+        s2 = fmaf(ds, zsS[m * Din + c], s2);
+      }
+      dxs[p0 * Din + o] = 2.0f * xsS[c * TN + j] * s1 - 2.0f * s2;
+    }
+    // dZs += 2 zs sum_n dsq - 2 dsq xs
+    for (int e = tid; e < M * Din; e += NT) {
+      const int m = e / Din, c = e % Din;
+      float s1 = 0.0f, s2 = 0.0f;
+      for (int j = 0; j < TN; ++j) {
+        const float ds = KU[m * TS + j];
+        s1 += ds;
+        s2 = fmaf(ds, xsS[c * TN + j], s2);
+      }
+      dzsS[e] += 2.0f * zsS[e] * s1 - 2.0f * s2;
+    }
+    __syncthreads();  // the next tile overwrites KU, xsS, gmS
+  }
+
+  // the block's sums that lived on chip, into its slab
+  for (int e = tid; e < M * Din; e += NT) s_dzs[e] = dzsS[e];
+  for (int e = tid; e < M * D; e += NT) s_dqm[e] = dqmS[e];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    dv_kuf += __shfl_down_sync(0xffffffffu, dv_kuf, off);
+    dv_gv += __shfl_down_sync(0xffffffffu, dv_gv, off);
+  }
+  if ((tid & 31) == 0) {
+    wsum[tid >> 5] = dv_kuf;
+    wsum[NWARP + (tid >> 5)] = dv_gv;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float a = 0.0f, b = 0.0f;
+    for (int w = 0; w < NWARP; ++w) {
+      a += wsum[w];
+      b += wsum[NWARP + w];
+    }
+    *s_dv = a / v + b;
+  }
+}
+
+// out[e] = sum over the blocks' slabs, in block order
+__global__ void reduce_slabs(const float* __restrict__ scratch, float* __restrict__ out,
+                             int blocks, long long len) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= len) return;
+  float s = 0.0f;
+  for (int b = 0; b < blocks; ++b) s += scratch[b * len + e];
+  out[e] = s;
+}
+
+// -- host side ------------------------------------------------------------------
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// f(Int<KIND>, Int<RM>) for the kernel kind and the padded M
+template <typename F>
+auto dispatch(int kind, int M, F f) {
+  const bool small = padded_m(M) == 64;
+  switch (kind) {
+    case 0: return small ? f(Int<0>{}, Int<4>{}) : f(Int<0>{}, Int<8>{});
+    case 1: return small ? f(Int<1>{}, Int<4>{}) : f(Int<1>{}, Int<8>{});
+    default: return small ? f(Int<2>{}, Int<4>{}) : f(Int<2>{}, Int<8>{});
+  }
+}
+
+template <typename K>
+cudaError_t allow_shared_memory(K kern, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  return cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+template <int KIND, int RM>
+cudaError_t launch_fwd(const float* pinvT, const float* xs, const float* zs,
+                       const float* v, const float* qmu, const float* sqT,
+                       float* mean, float* var, long long n, int M, int Din, int D,
+                       cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(smem_bytes(M, Din, D));
+  auto kern = fused_fwd<KIND, RM>;
+  const cudaError_t err = allow_shared_memory(kern, bytes);
   if (err != cudaSuccess) return err;
   const unsigned grid = static_cast<unsigned>((n + TN - 1) / TN);
   kern<<<grid, NT, bytes, stream>>>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D);
   return cudaGetLastError();
+}
+
+template <int KIND, int RM>
+cudaError_t launch_bwd(const float* pinvT, const float* xs, const float* zs,
+                       const float* v, const float* qmu, const float* sqT,
+                       const float* gmean, const float* gvar, float* dxs,
+                       float* scratch, long long n, int M, int Din, int D,
+                       int blocks, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, Din, D));
+  auto kern = fused_bwd<KIND, RM>;
+  const cudaError_t err = allow_shared_memory(kern, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<blocks, NT, bytes, stream>>>(pinvT, xs, zs, v, qmu, sqT, gmean, gvar, dxs,
+                                      scratch, n, M, Din, D);
+  return cudaGetLastError();
+}
+
+// Blocks the card holds at once for this backward kernel (its persistent
+// grid), capped at the number of point tiles; 0 on a CUDA error.
+template <int KIND, int RM>
+int bwd_resident_blocks(long long n, int M, int Din, int D) {
+  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, Din, D));
+  auto kern = fused_bwd<KIND, RM>;
+  int dev = 0, sms = 0, per_sm = 0;
+  if (allow_shared_memory(kern, bytes) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, bytes) != cudaSuccess)
+    return 0;
+  const long long tiles = (n + TN - 1) / TN;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  return static_cast<int>(tiles < resident ? tiles : resident);
 }
 
 }  // namespace
@@ -292,28 +780,53 @@ int dgp_fused_rbf_fwd(int kind, const float* pinvT, const float* xs,
   if (kind < 0 || kind > 2 || n < 1 || !fits(M, Din, D))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const bool small = padded_m(M) == 64;
-  switch (kind) {
-    case 0:
-      err = small ? launch<0, 4>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s)
-                  : launch<0, 8>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s);
-      break;
-    case 1:
-      err = small ? launch<1, 4>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s)
-                  : launch<1, 8>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s);
-      break;
-    default:
-      err = small ? launch<2, 4>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s)
-                  : launch<2, 8>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s);
-      break;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch(kind, M, [&](auto K, auto R) {
+    return launch_fwd<decltype(K)::value, decltype(R)::value>(
+        pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s);
+  }));
 }
 
-// 1 if the shared-memory plan covers (M, Din, D), else 0: the wrapper's
-// dispatch gate. The forward returns cudaErrorInvalidValue where it is 0.
+// 1 if the forward's shared-memory plan covers (M, Din, D), else 0: the
+// wrapper's dispatch gate. The forward returns cudaErrorInvalidValue where
+// it is 0.
 int dgp_fused_rbf_supported(int M, int Din, int D) { return fits(M, Din, D) ? 1 : 0; }
+
+// The same for the backward's plan, which is larger.
+int dgp_fused_rbf_bwd_supported(int M, int Din, int D) { return bwd_fits(M, Din, D) ? 1 : 0; }
+
+// How many slabs of slab_floats(M, Din, D) floats the backward needs as
+// scratch for n points: its persistent grid. 0 if the sizes are outside the
+// plan or CUDA reports an error.
+int dgp_fused_rbf_bwd_blocks(int kind, long long n, int M, int Din, int D) {
+  if (kind < 0 || kind > 2 || n < 1 || !bwd_fits(M, Din, D)) return 0;
+  return dispatch(kind, M, [&](auto K, auto R) {
+    return bwd_resident_blocks<decltype(K)::value, decltype(R)::value>(n, M, Din, D);
+  });
+}
+
+// Launches the backward and then the slab reduction on `stream`. Inputs as
+// the forward's, plus gmean, gvar [n][D]. Outputs: dxs [n][Din], and out
+// [slab_floats] = dPinv [M][M], dSq [D][M][M] (in Sq's own layout),
+// dZs [M][Din], dq_mu [M][D], dv. scratch holds `blocks` slabs, with
+// blocks = dgp_fused_rbf_bwd_blocks(...). Returns cudaGetLastError().
+int dgp_fused_rbf_bwd(int kind, const float* pinvT, const float* xs,
+                      const float* zs, const float* v, const float* qmu,
+                      const float* sqT, const float* gmean, const float* gvar,
+                      float* dxs, float* scratch, float* out, long long n,
+                      int M, int Din, int D, int blocks, void* stream) {
+  if (kind < 0 || kind > 2 || n < 1 || !bwd_fits(M, Din, D) || blocks < 1 ||
+      blocks > (n + TN - 1) / TN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = dispatch(kind, M, [&](auto K, auto R) {
+    return launch_bwd<decltype(K)::value, decltype(R)::value>(
+        pinvT, xs, zs, v, qmu, sqT, gmean, gvar, dxs, scratch, n, M, Din, D, blocks, s);
+  });
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long len = slab_floats(M, Din, D);
+  reduce_slabs<<<static_cast<unsigned>((len + 255) / 256), 256, 0, s>>>(scratch, out, blocks, len);
+  return static_cast<int>(cudaGetLastError());
+}
 
 const char* dgp_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

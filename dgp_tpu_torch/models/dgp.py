@@ -3,10 +3,9 @@
 
 The model is an ``nn.Module`` (``DGPParams``) plus plain functions
 (``propagate``/``elbo``/``predict_*``); the ``DGP`` class is a thin stateful
-wrapper with the reference's API. Their products run as IEEE fp32
-(``config.ieee_fp32``), whatever TF32 setting the process has. This slice
-serves: the ELBO is forward only, and training (``optimize_*``) comes with
-the training slice.
+wrapper with the reference's API, training included (``optimize_adam``,
+``optimize_nat_adam``, on the loops of ``training.py``). Their products run
+as IEEE fp32 (``config.ieee_fp32``), whatever TF32 setting the process has.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from ..config import default_float, ieee_fp32, resolve_device
 from ..layers.initializations import init_layers_linear
 from ..layers.svgp import layer_kl, sample_from_conditional, stack_projections
 from ..ops.likelihoods import Gaussian
+from . import training
 
 
 class DGPParams(nn.Module):
@@ -29,6 +29,12 @@ class DGPParams(nn.Module):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.likelihood = likelihood
+
+    def forward(self, fn, *args):
+        """``fn(self, *args)``. It lets ``torch.func.functional_call``
+        evaluate a function of the model with some parameters replaced by
+        other tensors (the natural-gradient step's candidate q)."""
+        return fn(self, *args)
 
 
 def _like(params: DGPParams, X):
@@ -71,15 +77,28 @@ def predict_f(params: DGPParams, X, S: int, generator=None, full_cov=False,
 
 
 @ieee_fp32()
-def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None):
-    """Monte-Carlo ELBO over the full data: sum_n E_q[log p(y|f)] - sum KL
-    (forward only; the minibatch scaling comes with training)."""
+def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None,
+         num_data: Optional[int] = None, row_weights=None):
+    """Monte-Carlo ELBO: scale * sum_n E_q[log p(y|f)] - sum KL.
+
+    :param num_data: full-dataset size when (X, Y) is a minibatch.
+    :param row_weights: optional [N] 0/1 weights — rows with weight 0 are
+        shape padding (training.pad_to_bucket) and contribute nothing to the
+        data term; the effective row count is sum(row_weights).
+    """
     Y = _like(params, Y)
     Fmean, Fvar = predict_f(params, X, num_samples, generator, zs=zs)
     var_exp = params.likelihood.variational_expectations(Fmean, Fvar, Y)
-    L = torch.sum(torch.mean(var_exp, dim=0))
+    per_row = torch.mean(var_exp, dim=0)  # [N, D]
+    if row_weights is None:
+        L = torch.sum(per_row)
+        denom = Y.shape[0]
+    else:
+        L = torch.sum(row_weights[:, None] * per_row)
+        denom = torch.sum(row_weights)
     kl = sum(layer_kl(layer, layer.z) for layer in params.layers)
-    return L - kl
+    scale = 1.0 if num_data is None else num_data / denom
+    return L * scale - kl
 
 
 def predict_y(params: DGPParams, X, S: int, generator=None, zs=None):
@@ -102,6 +121,59 @@ def moment_matched(y_means, y_vars):
     return mean, var
 
 
+@torch.no_grad()
+def shrink_inner_q_sqrt(params: DGPParams, factor=1e-3) -> DGPParams:
+    """Scale inner-layer q_sqrt (in place) for optimization stability."""
+    for layer in params.layers[:-1]:
+        layer.q_sqrt.mul_(factor)
+    return params
+
+
+# -- variational-parameter plumbing for natural gradients -------------------------
+
+
+def get_qs(params: DGPParams, indices):
+    return [(params.layers[i].q_mu, params.layers[i].q_sqrt) for i in indices]
+
+
+@torch.no_grad()
+def set_qs(params: DGPParams, indices, qs) -> DGPParams:
+    """Write (q_mu, q_sqrt) into the selected layers, in place."""
+    for i, (q_mu, q_sqrt) in zip(indices, qs):
+        params.layers[i].q_mu.copy_(q_mu)
+        params.layers[i].q_sqrt.copy_(q_sqrt)
+    return params
+
+
+# -- loss factories ---------------------------------------------------------------
+
+
+def full_batch_loss(num_samples: int):
+    """-ELBO over a full (possibly row-padded) batch; batch = (X, Y, w, n)."""
+
+    def loss(params, generator, batch):
+        X, Y, w, num_data = batch
+        return -elbo(params, X, Y, num_samples, generator, num_data=num_data,
+                     row_weights=w)
+
+    return loss
+
+
+def minibatch_loss(num_samples: int, batch_size: int):
+    """-ELBO over a uniform random minibatch drawn from the generator;
+    batch = (X, Y, n_true). Padded rows (if any) sit past n_true and are
+    never sampled."""
+
+    def loss(params, generator, batch):
+        X, Y, n_true = batch
+        idx = torch.randint(0, n_true, (batch_size,), generator=generator,
+                            device=X.device)
+        return -elbo(params, X[idx], Y[idx], num_samples, generator,
+                     num_data=n_true)
+
+    return loss
+
+
 # -- stateful wrapper -------------------------------------------------------------
 
 
@@ -110,6 +182,10 @@ class DGP:
 
     :param kernels: list of kernel modules (len(num_units)+1).
     :param num_units: hidden widths, e.g. [1, 1] for the notebook's [1,1,1] arch.
+    :param minibatch_size: with a value below N, each training evaluation
+        draws a uniform random batch and rescales the data term to the full N.
+    :param n_bucket: pad (X, Y) to the next multiple of this many rows with
+        zero-weight rows, so shapes stay stable while a BO loop grows N.
     :param device: where the model lives and runs; the card unless given.
         With no card and no ``device``, construction raises.
     :param dtype: working dtype (default ``config.default_float()``).
@@ -119,7 +195,9 @@ class DGP:
 
     def __init__(self, X, Y, Z, kernels, num_units,
                  likelihood: Optional[Gaussian] = None, num_outputs=None,
-                 mean_function=None, white=False, num_samples=1, seed=0,
+                 mean_function=None, white=False, num_samples=1,
+                 minibatch_size: Optional[int] = None,
+                 n_bucket: Optional[int] = None, seed=0,
                  device=None, dtype=None):
         device = resolve_device(device)
         dtype = dtype or default_float()
@@ -128,23 +206,28 @@ class DGP:
                 X, Y, Z, kernels, num_units, num_outputs=num_outputs,
                 mean_function=mean_function, white=white, dtype=dtype,
                 device=device)
-        self._setup(X, Y, layers, likelihood, num_samples, seed, device, dtype)
+        self._setup(X, Y, layers, likelihood, num_samples, minibatch_size,
+                    n_bucket, seed, device, dtype)
 
     @classmethod
-    def from_layers(cls, X, Y, layers, likelihood=None, num_samples=1, seed=0,
+    def from_layers(cls, X, Y, layers, likelihood=None, num_samples=1,
+                    minibatch_size=None, n_bucket=None, seed=0,
                     device=None, dtype=None):
         """Build a DGP from a custom layer stack."""
         self = cls.__new__(cls)
-        self._setup(X, Y, layers, likelihood, num_samples, seed,
-                    resolve_device(device), dtype or default_float())
+        self._setup(X, Y, layers, likelihood, num_samples, minibatch_size,
+                    n_bucket, seed, resolve_device(device),
+                    dtype or default_float())
         return self
 
-    def _setup(self, X, Y, layers, likelihood, num_samples, seed, device,
-               dtype):
+    def _setup(self, X, Y, layers, likelihood, num_samples, minibatch_size,
+               n_bucket, seed, device, dtype):
         likelihood = likelihood or Gaussian.create(1.0, dtype=dtype)
         self.params = DGPParams(layers, likelihood).to(device=device,
                                                        dtype=dtype)
         self.num_samples = num_samples
+        self.minibatch_size = minibatch_size
+        self.n_bucket = n_bucket
         self.device, self.dtype = device, dtype
         self.data = (
             torch.as_tensor(np.asarray(X), dtype=dtype, device=device),
@@ -154,6 +237,25 @@ class DGP:
 
     def _as_input(self, X):
         return torch.as_tensor(X, dtype=self.dtype, device=self.device)
+
+    def _loss_spec(self):
+        """(loss_fn, batch) for the training loops.
+
+        With ``minibatch_size`` set, each evaluation draws a uniform random
+        batch and rescales the data term to the full N. With ``n_bucket``
+        set, (X, Y) is padded to the next row bucket with zero-weight rows.
+        (Data-parallel training over several cards is not ported yet, so
+        there is no ``mesh``.)"""
+        X, Y = self.data
+        S, B, N = self.num_samples, self.minibatch_size, X.shape[0]
+        if B is not None and B < N:
+            if self.n_bucket:
+                X, Y, _ = training.pad_to_bucket(X, Y, self.n_bucket)
+            return minibatch_loss(S, B), (X, Y, N)
+        if self.n_bucket:
+            Xp, Yp, w = training.pad_to_bucket(X, Y, self.n_bucket)
+            return full_batch_loss(S), (Xp, Yp, w, None)
+        return full_batch_loss(S), (X, Y, None, None)
 
     # -- reference API ------------------------------------------------------------
     @torch.no_grad()
@@ -186,3 +288,86 @@ class DGP:
         y_m, y_v = self.predict_y(Xnew, num_samples)
         mean, var = moment_matched(y_m, y_v)
         return mean.cpu().numpy(), var.cpu().numpy()
+
+    def number_parameters(self, trainable=True):
+        mask = training.make_mask(self.params)
+        return sum(t.numel() for name, t in training.named_tensors(self.params)
+                   if mask[name] or not trainable)
+
+    def _checkpoint_fn(self, checkpoint_path):
+        return (training.make_checkpoint_fn(checkpoint_path)
+                if checkpoint_path else None)
+
+    def optimize_adam(
+        self, iterations=5000, lr=0.01, beta_1=0.9, beta_2=0.999,
+        epsilon=1e-7, messages=100, checkpoint_path=None, checkpoint_every=0,
+        shrink_inner=True,
+    ):
+        """Plain Adam on everything, inner q_sqrt shrunk 1e-3; returns the
+        losses [iterations].
+
+        The JAX package trains under a scope that drops the TPU's cotangent
+        products to one bf16 pass; that has no counterpart here: the port
+        trains in IEEE fp32 (``config.ieee_fp32``).
+
+        :param checkpoint_path: with ``checkpoint_every`` > 0, the
+            parameters are saved here every that many steps, so a long run
+            survives preemption (restore via utils.checkpoint.load).
+        :param shrink_inner: scale inner-layer q_sqrt by 1e-3 before the run
+            (the reference does this at the top of every optimize call —
+            correct for cold/warm full training, destructive for short warm
+            refits, which pass False)."""
+        if shrink_inner:
+            shrink_inner_q_sqrt(self.params)
+        mask = training.make_mask(self.params)
+        loss_fn, batch = self._loss_spec()
+        _, losses = training.adam_run(
+            loss_fn, self.params, mask, self.generator,
+            steps=iterations, lr=lr, b1=beta_1, b2=beta_2, eps=epsilon,
+            messages=messages, data=batch,
+            checkpoint_every=checkpoint_every,
+            checkpoint_fn=self._checkpoint_fn(checkpoint_path),
+        )
+        return losses
+
+    def optimize_nat_adam(
+        self, iterations1=100, iterations2=5000, lr_adam=0.01, lr_gamma=0.01,
+        beta_1=0.9, beta_2=0.999, epsilon=1e-7, ng_all=True, messages=100,
+        checkpoint_path=None, checkpoint_every=0, shrink_inner=True,
+    ):
+        """Two-phase Adam -> Adam+NatGrad training, in IEEE fp32 (see
+        :meth:`optimize_adam`); returns the losses
+        [iterations1 + iterations2].
+
+        :param ng_all: natural gradients on every layer's (q_mu, q_sqrt), or
+            on the last layer's only.
+        :param shrink_inner: scale inner-layer q_sqrt by 1e-3 first
+            (reference parity); warm refits pass False — repeating the
+            shrink per refit collapses the trained inner posterior by 1e-3
+            each time."""
+        if shrink_inner:
+            shrink_inner_q_sqrt(self.params)
+        n_layers = len(self.params.layers)
+        sel = tuple(range(n_layers)) if ng_all else (n_layers - 1,)
+        frozen = {i: {"q_mu", "q_sqrt"} for i in sel}
+        euclid_mask = training.make_mask(self.params,
+                                         frozen_layer_fields=frozen)
+        loss_fn, batch = self._loss_spec()
+        ckpt_fn = self._checkpoint_fn(checkpoint_path)
+
+        _, losses1 = training.adam_run(
+            loss_fn, self.params, euclid_mask, self.generator,
+            steps=iterations1, lr=lr_adam, b1=beta_1, b2=beta_2, eps=epsilon,
+            messages=messages, data=batch,
+            checkpoint_every=checkpoint_every, checkpoint_fn=ckpt_fn,
+        )
+        _, losses2 = training.nat_adam_run(
+            loss_fn, self.params, euclid_mask,
+            get_qs=lambda p: get_qs(p, sel),
+            set_qs=lambda p, qs: set_qs(p, sel, qs),
+            generator=self.generator,
+            steps=iterations2, lr_adam=lr_adam, gamma=lr_gamma,
+            b1=beta_1, b2=beta_2, eps=epsilon, messages=messages, data=batch,
+            checkpoint_every=checkpoint_every, checkpoint_fn=ckpt_fn,
+        )
+        return torch.cat([losses1, losses2]) if iterations1 else losses2

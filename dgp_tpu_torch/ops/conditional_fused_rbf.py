@@ -12,12 +12,22 @@ which replaces the TPU's ``conditional_fused_rbf._fwd_kernel``) computes
 
 on the scaled inputs ``Xs = X / ls``, ``Zs = Z / ls`` (the lengthscale
 division stays outside). It is bound by fp32 arithmetic; see the source for
-the design. This slice ports the forward only: the backward kernel comes
-with training, and until then :class:`FusedConditional`'s backward raises.
+the design.
 
-:func:`fused_conditional_plain` is the same function in plain PyTorch. The
-wrapper takes it only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises.
+The backward is a second CUDA kernel in the same source (it replaces the
+TPU's ``conditional_fused_rbf._bwd_kernel``): per point tile it recomputes
+sq, Kuf, A and B and chains the cotangents of (mean, var) to all six tensor
+inputs. ``dXs`` is written per tile; ``dPinv``, ``dZs``, ``dvariance``,
+``dq_mu`` and ``dSq`` are sums over all points, which a fixed number of
+persistent blocks accumulate into one slab each, and a second kernel adds
+the slabs in a fixed order (deterministic; the scratch is bounded by the
+number of blocks, not by n). Autograd handles what surrounds the kernel: the
+lengthscale scaling, the softplus of the variance, Pinv's Cholesky and solve,
+and Sq's tril and transpose.
+
+:func:`fused_conditional_plain` and :func:`fused_conditional_backward_plain`
+are the same functions in plain PyTorch. The wrapper takes them only for
+tensors on the CPU; for CUDA tensors it launches the kernels or raises.
 """
 
 from __future__ import annotations
@@ -34,17 +44,26 @@ _LIB = "conditional_fused_rbf"
 
 
 def supported(M, Din, D):
-    """Whether the kernel's shared-memory plan covers these sizes. The plan
-    lives in the CUDA source, so this asks the built library (and builds it
-    on first use)."""
+    """Whether the forward kernel's shared-memory plan covers these sizes.
+    The plan lives in the CUDA source, so this asks the built library (and
+    builds it on first use)."""
     return bool(_library().dgp_fused_rbf_supported(M, Din, D))
+
+
+def backward_supported(M, Din, D):
+    """Whether the backward kernel's (larger) shared-memory plan covers
+    these sizes."""
+    return bool(_library().dgp_fused_rbf_bwd_supported(M, Din, D))
 
 
 def fused_kind(kernel, Sq, X):
     """Kernel-kind id (0=RBF, 1=Matern32, 2=Matern52) if the fused kernel
     applies, else None: a plain full-dimension stationary kernel (no
     active_dims), float32 CUDA tensors, and sizes within the kernel's
-    shared-memory plan."""
+    shared-memory plan. Where a gradient will be asked for (grad mode is on
+    and the points, the variational factor or a kernel hyperparameter
+    require one), the sizes must be within the backward kernel's plan too:
+    a forward that launched where the backward cannot would fail mid-step."""
     from .kernels import RBF, Matern32, Matern52
 
     kind = {RBF: 0, Matern32: 1, Matern52: 2}.get(type(kernel))
@@ -53,7 +72,13 @@ def fused_kind(kernel, Sq, X):
     if not (X.is_cuda and X.dtype == torch.float32
             and Sq.dtype == torch.float32):
         return None
-    if not supported(Sq.shape[1], X.shape[1], Sq.shape[0]):
+    sizes = (Sq.shape[1], X.shape[1], Sq.shape[0])
+    if not supported(*sizes):
+        return None
+    wants_grad = torch.is_grad_enabled() and (
+        Sq.requires_grad or X.requires_grad
+        or any(p.requires_grad for p in kernel.parameters()))
+    if wants_grad and not backward_supported(*sizes):
         return None
     return kind
 
@@ -70,21 +95,71 @@ def _kuf_tile(kind, v, sqd):
     return v * (1.0 + a * r + (5.0 / 3.0) * sqd) * torch.exp(-a * r)
 
 
-@ieee_fp32()
-def fused_conditional_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
-    """The kernel's function in plain PyTorch, on any device and dtype:
-    (mean [n, D], var [n, D])."""
+def _dkuf_dsq(kind, v, sqd, kuf):
+    """d kuf / d sq. The 1/(2r) of dr/dsq cancels analytically, so every
+    branch is smooth at sq == 0 and needs no epsilon."""
+    if kind == 0:
+        return -0.5 * kuf
+    r = torch.sqrt(sqd)
+    if kind == 1:
+        return -(1.5 * v) * torch.exp(-math.sqrt(3.0) * r)
+    a = math.sqrt(5.0)
+    return -((5.0 / 6.0) * v) * (1.0 + a * r) * torch.exp(-a * r)
+
+
+def _sq_kuf_a(kind, Pinv, Xs, Zs, variance):
     xx = torch.sum(Xs * Xs, dim=1)[None, :]            # [1, n]
     zz = torch.sum(Zs * Zs, dim=1)[:, None]            # [M, 1]
     sqd = torch.clamp_min((xx - 2.0 * (Zs @ Xs.T)) + zz, 0.0)
     kuf = _kuf_tile(kind, variance, sqd)               # [M, n]
-    A = Pinv @ kuf
+    return sqd, kuf, Pinv @ kuf
+
+
+@ieee_fp32()
+def fused_conditional_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
+    """The kernel's function in plain PyTorch, on any device and dtype:
+    (mean [n, D], var [n, D])."""
+    _, _, A = _sq_kuf_a(kind, Pinv, Xs, Zs, variance)
     mean = A.T @ q_mu                                  # [n, D]
     t1 = torch.sum(A * A, dim=0)                       # [n]
     B = Sq @ A                                         # [D, M, n]
     t2 = torch.sum(B * B, dim=1)                       # [D, n]
     var = torch.clamp_min((variance - t1) + t2, 0.0).T
     return mean, var
+
+
+@ieee_fp32()
+def fused_conditional_backward_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq,
+                                     g_mean, g_var):
+    """The backward kernel's function in plain PyTorch: the cotangents
+    (dPinv, dXs, dZs, dvariance, dq_mu, dSq) of (mean, var) weighted by
+    (g_mean, g_var) [n, D].
+
+    This is the kernel's hand-derived chain written out on whole tensors,
+    not autograd of :func:`fused_conditional_plain`: the gradient passes
+    only where the recomputed ``(v - t1) + t2`` and ``sq`` are strictly
+    positive, and the Matern chain works in sq (:func:`_dkuf_dsq`)."""
+    sqd, kuf, A = _sq_kuf_a(kind, Pinv, Xs, Zs, variance)
+    B = Sq @ A                                         # [D, M, n]
+    t1 = torch.sum(A * A, dim=0)
+    t2 = torch.sum(B * B, dim=1)                       # [D, n]
+    lin = (variance - t1) + t2
+    gv = g_var.T * (lin > 0.0)                         # [D, n]
+    gb = (2.0 * B) * gv[:, None, :]                    # [D, M, n]
+    dA = (torch.sum(Sq.transpose(1, 2) @ gb, dim=0)
+          - (2.0 * A) * torch.sum(gv, dim=0)[None, :]
+          + q_mu @ g_mean.T)                           # [M, n]
+    dkuf = Pinv.T @ dA
+    dPinv = dA @ kuf.T
+    dq_mu = A @ g_mean
+    dSq = gb @ A.T                                     # [D, M, M]
+    # Kuf = v f(sq) and Kff = v
+    dv = torch.sum(dkuf * kuf) / variance + torch.sum(gv)
+    dsqd = _dkuf_dsq(kind, variance, sqd, kuf) * dkuf * (sqd > 0.0)
+    # sq = xx + zz - 2 zs @ xs
+    dXs = (2.0 * Xs) * torch.sum(dsqd, dim=0)[:, None] - 2.0 * (dsqd.T @ Zs)
+    dZs = (2.0 * Zs) * torch.sum(dsqd, dim=1)[:, None] - 2.0 * (dsqd @ Xs)
+    return dPinv, dXs, dZs, dv.reshape(variance.shape), dq_mu, dSq
 
 
 def _library():
@@ -96,15 +171,24 @@ def _library():
         lib.dgp_fused_rbf_fwd.restype = i
         lib.dgp_fused_rbf_supported.argtypes = [i, i, i]
         lib.dgp_fused_rbf_supported.restype = i
+        lib.dgp_fused_rbf_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p,
+                                          ctypes.c_longlong, i, i, i, i, p]
+        lib.dgp_fused_rbf_bwd.restype = i
+        lib.dgp_fused_rbf_bwd_supported.argtypes = [i, i, i]
+        lib.dgp_fused_rbf_bwd_supported.restype = i
+        lib.dgp_fused_rbf_bwd_blocks.argtypes = [i, ctypes.c_longlong, i, i, i]
+        lib.dgp_fused_rbf_bwd_blocks.restype = i
     return lib
 
 
-def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
+def _checked(Pinv, Xs, Zs, variance, q_mu, Sq, **cotangents):
+    """Device, dtype and shape checks shared by both launches; returns
+    (n, Din, D, M)."""
     dev = Xs.device
     n, Din = Xs.shape
     D, M = Sq.shape[0], Sq.shape[1]
-    args = {"Pinv": Pinv, "Zs": Zs, "variance": variance, "q_mu": q_mu,
-            "Sq": Sq}
+    args = dict(Pinv=Pinv, Zs=Zs, variance=variance, q_mu=q_mu, Sq=Sq,
+                **cotangents)
     for name, t in args.items():
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, Xs on {dev}")
@@ -112,42 +196,100 @@ def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
         if t.dtype != torch.float32:
             raise TypeError(f"the fused kernel takes float32; {name} is {t.dtype}")
     if (Pinv.shape != (M, M) or Zs.shape != (M, Din) or q_mu.shape != (M, D)
-            or Sq.shape != (D, M, M) or variance.numel() != 1):
+            or Sq.shape != (D, M, M) or variance.numel() != 1
+            or any(g.shape != (n, D) for g in cotangents.values())):
         raise ValueError(
             f"shapes Pinv {tuple(Pinv.shape)}, Xs {tuple(Xs.shape)}, Zs "
             f"{tuple(Zs.shape)}, q_mu {tuple(q_mu.shape)}, Sq {tuple(Sq.shape)}"
-            " do not form one conditional")
+            + "".join(f", {k} {tuple(g.shape)}" for k, g in cotangents.items())
+            + " do not form one conditional")
+    return n, Din, D, M
+
+
+def _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq):
+    """Contiguous operands in the kernels' layouts: they stage k-major
+    panels, Pinv^T and Sq^T = tril(q_sqrt)."""
+    return (Pinv.T.contiguous(), Xs.contiguous(), Zs.contiguous(),
+            variance.reshape(1).contiguous(), q_mu.contiguous(),
+            Sq.transpose(1, 2).contiguous())
+
+
+def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
+    dev = Xs.device
+    n, Din, D, M = _checked(Pinv, Xs, Zs, variance, q_mu, Sq)
     mean = torch.empty((n, D), dtype=torch.float32, device=dev)
     var = torch.empty((n, D), dtype=torch.float32, device=dev)
     if n == 0:
         return mean, var
-    # the kernel stages k-major operands: Pinv^T and Sq^T = tril(q_sqrt)
-    pinvT = Pinv.T.contiguous()
-    sqT = Sq.transpose(1, 2).contiguous()
-    xs, zs, qmu = Xs.contiguous(), Zs.contiguous(), q_mu.contiguous()
-    v = variance.reshape(1).contiguous()
+    operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dgp_fused_rbf_fwd(
-            kind, pinvT.data_ptr(), xs.data_ptr(), zs.data_ptr(),
-            v.data_ptr(), qmu.data_ptr(), sqT.data_ptr(), mean.data_ptr(),
+            kind, *[t.data_ptr() for t in operands], mean.data_ptr(),
             var.data_ptr(), n, M, Din, D, stream)
     _build.check(lib, err, "fused conditional kernel launch")
     FusedConditional.launches += 1
     return mean, var
 
 
-class FusedConditional(torch.autograd.Function):
-    """(mean, var) of the whitened stationary conditional: the CUDA kernel
-    for CUDA tensors, the plain version for CPU tensors.
+def backward_slab_floats(M, Din, D):
+    """Floats in one block's slab of partial sums, and in the summed output:
+    dPinv [M, M], dSq [D, M, M], dZs [M, Din], dq_mu [M, D], dvariance."""
+    return (1 + D) * M * M + M * Din + M * D + 1
 
-    ``launches`` counts kernel launches (never plain-version calls)."""
+
+def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
+    dev = Xs.device
+    n, Din, D, M = _checked(Pinv, Xs, Zs, variance, q_mu, Sq, g_mean=g_mean,
+                            g_var=g_var)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if n == 0:
+        return (torch.zeros_like(Pinv), torch.zeros_like(Xs),
+                torch.zeros_like(Zs), torch.zeros_like(variance),
+                torch.zeros_like(q_mu), torch.zeros_like(Sq))
+    operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
+    gm, gv = g_mean.contiguous(), g_var.contiguous()
+    lib = _library()
+    with torch.cuda.device(dev):
+        blocks = lib.dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D)
+        if blocks < 1:
+            raise RuntimeError(
+                f"the fused conditional's backward kernel does not take "
+                f"kind {kind}, M={M}, Din={Din}, D={D}")
+        # one slab of partial sums per persistent block: bounded by the
+        # card's block count, whatever n is
+        slab = backward_slab_floats(M, Din, D)
+        scratch = torch.empty((blocks, slab), **f32)
+        out = torch.empty((slab,), **f32)
+        dXs = torch.empty((n, Din), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.dgp_fused_rbf_bwd(
+            kind, *[t.data_ptr() for t in operands], gm.data_ptr(),
+            gv.data_ptr(), dXs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            n, M, Din, D, blocks, stream)
+    _build.check(lib, err, "fused conditional backward kernel launch")
+    FusedConditional.backward_launches += 1
+    dPinv, dSq, dZs, dq_mu, dv = torch.split(
+        out, [M * M, D * M * M, M * Din, M * D, 1])
+    return (dPinv.view(M, M), dXs, dZs.view(M, Din),
+            dv.view(variance.shape), dq_mu.view(M, D), dSq.view(D, M, M))
+
+
+class FusedConditional(torch.autograd.Function):
+    """(mean, var) of the whitened stationary conditional and its gradient:
+    the CUDA kernels for CUDA tensors, the plain versions for CPU tensors.
+
+    ``launches`` counts forward-kernel launches and ``backward_launches``
+    backward-kernel launches (never plain-version calls)."""
 
     launches = 0
+    backward_launches = 0
 
     @staticmethod
     def forward(ctx, kind, Pinv, Xs, Zs, variance, q_mu, Sq):
+        ctx.kind = kind
+        ctx.save_for_backward(Pinv, Xs, Zs, variance, q_mu, Sq)
         if Xs.is_cuda:
             return _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq)
         if Xs.device.type != "cpu":
@@ -156,9 +298,13 @@ class FusedConditional(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_mean, g_var):
-        raise NotImplementedError(
-            "the fused conditional's backward kernel is ported in the "
-            "training slice")
+        saved = ctx.saved_tensors
+        if saved[1].is_cuda:
+            grads = _launch_backward(ctx.kind, *saved, g_mean, g_var)
+        else:
+            grads = fused_conditional_backward_plain(ctx.kind, *saved, g_mean,
+                                                     g_var)
+        return (None, *grads)
 
 
 def fused_conditional_white_stationary(kind, Pinv, Xs, Zs, variance, q_mu,

@@ -200,13 +200,19 @@ def test_fused_gate_keeps_cpu_and_f64_on_plain_path():
 
 
 def test_fused_backward_raises():
+    """While the port had no backward this call raised. It now returns the
+    plain backward's gradients (CPU tensors) and raises nothing."""
     kind = 0
     _, tk, Z, X, q_mu, q_sqrt = fused_inputs(kind)
     Xs = t(X).requires_grad_(True)
     Zt, q_sqrt_t = t(Z), t(q_sqrt)
-    proj = tcond.precompute_projection(tk, Zt, q_sqrt_t, True)
-    mean, var = tcfr.fused_conditional_white_stationary(
-        kind, proj.Pinv, Xs, Zt, tk.variance, t(q_mu),
-        torch.tril(q_sqrt_t).transpose(-1, -2))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        (mean.sum() + var.sum()).backward()
+    with torch.no_grad():
+        proj = tcond.precompute_projection(tk, Zt, q_sqrt_t, True)
+        args = (proj.Pinv, Xs, Zt, tk.variance.detach(), t(q_mu),
+                torch.tril(q_sqrt_t).transpose(-1, -2))
+    mean, var = tcfr.fused_conditional_white_stationary(kind, *args)
+    (mean.sum() + var.sum()).backward()
+    want = tcfr.fused_conditional_backward_plain(
+        kind, *[a.detach() for a in args], torch.ones_like(mean),
+        torch.ones_like(var))
+    assert torch.equal(Xs.grad, want[1]) and float(Xs.grad.abs().max()) > 0

@@ -85,13 +85,130 @@ def test_kernel_refuses_float64(cuda):
         cfr.fused_conditional_white_stationary(0, *args)
 
 
+def kernel_grads(kind, args, g):
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = cfr.fused_conditional_white_stationary(kind, *leaves)
+    grads = torch.autograd.grad(out, leaves, grad_outputs=g)
+    torch.cuda.synchronize()
+    return grads
+
+
 @pytest.mark.cuda
-def test_backward_raises_on_cuda(cuda):
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("D,M,Din,n", [(3, 64, 5, 1037), (8, 128, 8, 4101)])
+def test_backward_kernel_matches_plain(cuda, kind, D, M, Din, n):
+    """Backward kernel vs its plain version in f64 on the same f32 inputs:
+    each gradient within 1e-4 of its own largest magnitude (dvariance, a
+    signed sum of n*D terms that cancel, within 1e-4 of sum|g_var|); and a
+    second run bit for bit equal (the slabs are summed in a fixed order)."""
+    args = inputs(kind, D, M, Din, n, cuda, seed=kind)
+    gen = torch.Generator(device=cuda).manual_seed(kind)
+    g = [torch.randn((n, D), generator=gen, device=cuda) for _ in range(2)]
+    before = (cfr.FusedConditional.launches,
+              cfr.FusedConditional.backward_launches)
+    got = kernel_grads(kind, args, g)
+    assert (cfr.FusedConditional.launches,
+            cfr.FusedConditional.backward_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    again = kernel_grads(kind, args, g)
+    want = cfr.fused_conditional_backward_plain(
+        kind, *[a.double() for a in args], *[x.double() for x in g])
+    names = ("dPinv", "dXs", "dZs", "dvariance", "dq_mu", "dSq")
+    for name, a, b, w, leaf in zip(names, got, again, want, args):
+        assert a.shape == leaf.shape and a.dtype == torch.float32, name
+        assert torch.equal(a, b), name
+        scale = (float(g[1].abs().sum()) if name == "dvariance"
+                 else float(w.abs().max()))
+        assert float((a.double() - w).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_backward_kernel_size_gate(cuda):
+    """The backward's shared-memory plan is larger than the forward's and
+    has its own gate; where a gradient is wanted, fused_kind answers for
+    both, so no step launches a forward whose backward cannot follow."""
+    assert cfr.backward_supported(128, 8, 8) and cfr.backward_supported(64, 5, 3)
+    assert not cfr.backward_supported(129, 8, 8)
+    # a width only the forward's plan takes (the backward keeps three tiles
+    # and per-output cotangent tiles beside the staged operand)
+    D = next(D for D in range(8, 200) if cfr.supported(128, 8, D)
+             and not cfr.backward_supported(128, 8, D))
+    f32 = dict(dtype=torch.float32, device=cuda)
+    kern = K.RBF.create(lengthscales=[1.0] * 8, **f32)
+    Sq = torch.zeros((D, 128, 128), **f32)
+    X = torch.zeros((10, 8), **f32)
+    with torch.no_grad():
+        assert cfr.fused_kind(kern, Sq, X) == 0
+    assert cfr.fused_kind(kern, Sq, X) is None       # kernel parameters want a gradient
+    assert cfr.fused_kind(kern, Sq[:8], X) == 0      # within both plans
     args = list(inputs(0, 2, 64, 3, 100, cuda))
-    args[1] = args[1].clone().requires_grad_(True)
-    mean, var = cfr.fused_conditional_white_stationary(0, *args)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        (mean.sum() + var.sum()).backward()
+    g = torch.ones((100, 2), **f32)
+    with pytest.raises(TypeError, match="float32"):
+        cfr._launch_backward(0, *args, g, g.double())
+    with pytest.raises(ValueError, match="do not form"):
+        cfr._launch_backward(0, *args, g, g[:50])
+
+
+@pytest.mark.cuda
+def test_backward_of_no_points(cuda):
+    args = list(inputs(0, 2, 64, 3, 100, cuda))
+    args[1] = args[1][:0]
+    before = cfr.FusedConditional.backward_launches
+    grads = kernel_grads(0, args, [torch.zeros((0, 2), device=cuda)] * 2)
+    assert cfr.FusedConditional.backward_launches == before
+    assert all(g.shape == a.shape and not g.any() for g, a in zip(grads, args))
+
+
+@pytest.mark.cuda
+def test_optimize_adam_goes_through_both_kernels(cuda):
+    """Three Adam steps on a 2-layer whitened model: one forward and one
+    backward launch per layer per step, finite losses, and the first step's
+    gradients equal to the kernels-off path's to 1e-3 of each one's scale."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(300, 4))
+    Y = np.sin(3 * X[:, :1])
+    f32 = dict(dtype=torch.float32, device=cuda)
+    # lengthscale 0.5: with 1.0 the 64 inducing inputs make Kuu so
+    # ill-conditioned that Pinv's large entries carry the two fp32 paths'
+    # rounding into z's gradient past 1e-3 of its scale
+    kernels = [K.RBF.create(lengthscales=[0.5] * 4, **f32),
+               K.Matern52.create(lengthscales=[0.5] * 4, **f32)]
+    model = tdgp.DGP(X, Y, X[:64], kernels, [4], white=True, num_samples=5,
+                     dtype=torch.float32)
+    with torch.no_grad():
+        for layer in model.params.layers:
+            M, D = layer.q_mu.shape
+            layer.q_mu.copy_(torch.tensor(rng.normal(size=(M, D)), **f32))
+            layer.q_sqrt.copy_(torch.tensor(
+                np.tril(0.05 * rng.normal(size=(D, M, M)) + np.eye(M)), **f32))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    zs = [torch.randn((5, 300, l.num_outputs), generator=gen, **f32)
+          for l in model.params.layers]
+    params = list(model.params.parameters())
+
+    def grads():
+        loss = -tdgp.elbo(model.params, *model.data, 5, zs=zs)
+        return torch.autograd.grad(loss, params)
+
+    before = (cfr.FusedConditional.launches,
+              cfr.FusedConditional.backward_launches)
+    on = grads()
+    assert (cfr.FusedConditional.launches,
+            cfr.FusedConditional.backward_launches) == (before[0] + 2,
+                                                        before[1] + 2)
+    with kernels_scope(False):
+        off = grads()
+    for (name, _), a, b in zip(model.params.named_parameters(), on, off):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), name
+
+    before = (cfr.FusedConditional.launches,
+              cfr.FusedConditional.backward_launches)
+    losses = model.optimize_adam(iterations=3, messages=0, shrink_inner=False)
+    assert (cfr.FusedConditional.launches,
+            cfr.FusedConditional.backward_launches) == (before[0] + 6,
+                                                        before[1] + 6)
+    assert losses.shape == (3,) and losses.is_cuda
+    assert bool(torch.isfinite(losses).all())
 
 
 @pytest.mark.cuda

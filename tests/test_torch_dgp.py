@@ -160,3 +160,89 @@ def test_elbo_matches_reference_with_fixed_normals():
         got = tdgp.elbo(port, torch.as_tensor(X), torch.as_tensor(Y), S,
                         zs=[torch.as_tensor(z) for z in zs])
     np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
+
+
+def step_model(N=50, M=25, num_units=(1, 1), num_samples=10, **kw):
+    """The nb_DGP_regression 1-D step function set-up of tests/test_dgp.py,
+    built by the port."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 1, size=(N, 1))
+    Y = (X > 0.5).astype(float) + rng.normal(0, 1e-2, size=(N, 1))
+    Z = np.linspace(X.min(), X.max(), M)[:, None]
+    kernels = [TK.RBF.create(variance=1.0, lengthscales=[1.0], dtype=F64)
+               for _ in range(len(num_units) + 1)]
+    model = tdgp.DGP(X, Y, Z, kernels, list(num_units),
+                     num_samples=num_samples, device="cpu", dtype=F64, **kw)
+    return model, X, Y
+
+
+def test_optimize_adam_improves_elbo():
+    """tests/test_dgp.py::test_adam_improves_elbo through the port (Adam on
+    a DGP is non-monotone early: finiteness and net progress)."""
+    model, _, _ = step_model(N=30, M=10, num_samples=5)
+    losses = model.optimize_adam(iterations=120, lr=0.01, messages=0).numpy()
+    assert losses.shape == (120,) and np.all(np.isfinite(losses))
+    assert np.min(losses[50:]) < losses[0]
+
+
+def test_optimize_nat_adam_shapes_and_single_layer_optimum():
+    model, X, Y = step_model(N=30, M=10)
+    losses = model.optimize_nat_adam(iterations1=3, iterations2=3, messages=0)
+    assert losses.shape == (6,) and bool(torch.isfinite(losses).all())
+    mean, var = model.predict(X, num_samples=20)
+    assert mean.shape == var.shape == (30, 1) and np.all(var > 0)
+    # a 1-layer DGP with Z = X: one gamma=1 step reaches the exact GP log
+    # marginal likelihood (tests/test_dgp.py)
+    from scipy.stats import multivariate_normal
+    rng = np.random.default_rng(3)
+    X = rng.uniform(0, 1, size=(20, 1))
+    Y = np.sin(6 * X) + 0.05 * rng.normal(size=(20, 1))
+    kern = TK.RBF.create(variance=1.0, lengthscales=[0.5], dtype=F64)
+    model = tdgp.DGP(X, Y, X.copy(), [kern], [], num_samples=7, device="cpu",
+                     dtype=F64)
+    losses = model.optimize_nat_adam(iterations1=0, iterations2=1,
+                                     lr_adam=0.0, lr_gamma=1.0, messages=0)
+    assert losses.shape == (1,)
+    with torch.no_grad():
+        Kxx = kern.K(torch.as_tensor(X)).numpy()
+    noise = float(model.params.likelihood.variance.detach())
+    log_ml = multivariate_normal.logpdf(Y[:, 0], mean=np.zeros(20),
+                                        cov=Kxx + noise * np.eye(20))
+    np.testing.assert_allclose(float(model.ELBO()), log_ml, rtol=1e-5)
+
+
+def test_optimize_shrink_inner_flag():
+    """tests/test_dgp.py::test_optimize_shrink_inner_flag through the port:
+    lr=0 Adam makes the update exactly zero, isolating the shrink."""
+    model, _, _ = step_model(N=20, M=5, num_units=(1,), num_samples=3)
+    norm = lambda: float(torch.linalg.norm(
+        model.params.layers[0].q_sqrt.detach()))
+    outer0 = model.params.layers[1].q_sqrt.detach().clone()
+    norm0 = norm()
+    model.optimize_nat_adam(iterations1=1, iterations2=0, lr_adam=0.0,
+                            messages=0, shrink_inner=False)
+    assert norm() == pytest.approx(norm0, rel=1e-12)
+    model.optimize_nat_adam(iterations1=1, iterations2=0, lr_adam=0.0,
+                            messages=0)
+    n_cold = norm()
+    assert n_cold == pytest.approx(1e-3 * norm0, rel=1e-6)
+    model.optimize_adam(iterations=1, lr=0.0, messages=0, shrink_inner=False)
+    assert norm() == pytest.approx(n_cold, rel=1e-12)
+    assert torch.equal(model.params.layers[1].q_sqrt, outer0)  # never the last
+
+
+def test_optimize_adam_checkpoints(tmp_path):
+    from dgp_tpu_torch.utils import checkpoint
+    model, _, _ = step_model(N=20, M=5, num_units=(1,), num_samples=2)
+    path = str(tmp_path / "dgp.npz")
+    model.optimize_adam(iterations=3, messages=0, checkpoint_path=path,
+                        checkpoint_every=2)
+    after3 = {k: v.clone() for k, v in model.params.state_dict().items()}
+    restored = checkpoint.load(path, step_model(N=20, M=5, num_units=(1,))[0].params)
+    # saved after step 2 of 3: differs from the final state, equals a 2-step run
+    again, _, _ = step_model(N=20, M=5, num_units=(1,), num_samples=2)
+    again.optimize_adam(iterations=2, messages=0)
+    for k, v in restored.state_dict().items():
+        assert torch.equal(v, again.params.state_dict()[k]), k
+    assert not torch.equal(after3["layers.0.q_mu"],
+                           restored.state_dict()["layers.0.q_mu"])

@@ -34,6 +34,9 @@ def port_sources():
 def test_no_jax_imports_in_port():
     sources = list(port_sources())
     assert len(sources) > 10
+    rel = {os.path.relpath(p, PKG) for p in sources}
+    assert {"models/training.py", "variational/natgrad.py",
+            "utils/checkpoint.py", "convert.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -58,6 +61,11 @@ m = DGP(X, Y, X[:5], [K.RBF.create(lengthscales=[1.0, 1.0]),
 mean, var = m.predict_y(X, 3)
 assert mean.shape == var.shape == (3, 20, 1)
 assert bool(torch.isfinite(var).all())
+losses = m.optimize_nat_adam(iterations1=1, iterations2=2, messages=0)
+assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
+from dgp_tpu_torch.utils import checkpoint
+from dgp_tpu_torch import convert
+assert len(convert.numpy_tree_from_port(m.params)["layers"]) == 2
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")

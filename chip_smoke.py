@@ -5,9 +5,9 @@
 
 Phases, each of which raises (exit code 1) on any fault:
 
-1. build   — compile every CUDA source of the port with nvcc (sm_90a);
-             print the build time, ptxas's register and spill report, and
-             the card's name and power limit.
+1. build   — compile every CUDA source of the port with nvcc (sm_90a), the
+             jobs started together; print the build time, ptxas's register
+             and spill report, and the card's name and power limit.
 2. kernels — hold the fused-conditional kernel to its plain PyTorch version
              in float64 on the same float32 inputs, for RBF, Matern-3/2 and
              Matern-5/2, at the serving model's layer shapes (D=8 and D=1,
@@ -15,7 +15,9 @@ Phases, each of which raises (exit code 1) on any fault:
              shape (D=3, M=64, Din=5). Then its backward kernel likewise, at
              the training model's layer shapes (n = 100,037) and the small
              odd shape: all six gradients, and a second run bit for bit
-             equal to the first.
+             equal to the first. Then the quadform kernel and its backward,
+             with and without t1, at the same layer shapes and at two small
+             ones (D=3, M=64 and D=2, M=100, which the plan pads to 128).
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -26,6 +28,10 @@ Phases, each of which raises (exit code 1) on any fault:
              must launch the kernel once per layer. Then one request is held
              to the same request with use_kernels off (same unit normals),
              in a process that asks for TF32: the port stays IEEE fp32.
+             The same model non-whitened (white=False, the constructor's
+             default) answers 3 requests of N=100,000 rows through the
+             quadform kernel (one launch per layer, none of the fused
+             conditional's) and is held to the kernels-off path likewise.
 4. training — build bench.py's model and data (N=10,000, M=128,
              DIN=HIDDEN=8, S=10, f32, whitened RBF, num_units=[8]) from the
              seed; optimize_adam for 20 steps, optimize_nat_adam for 5 + 10,
@@ -34,13 +40,18 @@ Phases, each of which raises (exit code 1) on any fault:
              bit for bit unchanged, forward and backward launch counts as
              the step counts predict (zeroed just before, read just after).
              Then one loss-and-gradient evaluation on fixed unit normals with
-             the kernels on against the kernels off.
-5. timing  — CUDA-event times of both kernels and of their plain versions at
-             the layers' shapes (forward n = 1,000,000, backward
+             the kernels on against the kernels off. The same model
+             non-whitened, from its prior (q_sqrt = chol(Kuu)): 10 Adam steps
+             and 3 + 5 Adam+natural-gradient steps through the quadform
+             kernels; and the same gradient comparison on a non-whitened copy
+             with q moved off the prior.
+5. timing  — CUDA-event times of every kernel and of its plain version at
+             the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the fp32 bound of the work these inputs
              need; wall time per Adam step and per Adam+natural-gradient
-             step; the device time by kernel over one request and over three
-             Adam steps (torch.profiler).
+             step (whitened) and per Adam step (non-whitened); the device
+             time by kernel over one request and over three Adam steps of
+             both models (torch.profiler).
 
 The line before the last is one JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}. Without a card, or without
@@ -50,6 +61,7 @@ either.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,7 +79,9 @@ DIN, HIDDEN, M, S = 8, 8, 128, 10
 N_REQUEST, N_CHUNKED, CHUNK = 100_000, 1_000_000, 125_000
 N_TRAIN = 10_000    # bench.py's N; a layer's conditional sees S * N_TRAIN points
 ADAM_STEPS, NAT_STEPS_1, NAT_STEPS_2, MASKED_STEPS = 20, 5, 10, 2
-TOL = 1e-4          # kernel vs f64 plain: mean err / max|mean|, var err / v
+NONWHITE_ADAM_STEPS, NONWHITE_NAT_STEPS = 10, (3, 5)
+TOL = 1e-4          # kernel vs f64 plain: mean err / max|mean|, var err / v,
+                    # t2 (t1) err / max|t2| (max|t1|)
 # backward kernel vs f64 plain: err / max|that gradient|. dvariance is one
 # number, a signed sum of n*D terms of the size of g_var that largely cancel,
 # so it is held to sum|g_var| instead of its own (small) value
@@ -102,11 +116,18 @@ def build():
 
     t0 = time.perf_counter()
     logs = _build.build()
-    log(f"[build] {len(logs)} source(s) in {time.perf_counter() - t0:.1f} s")
+    log(f"[build] {len(logs)} source(s), nvcc jobs started together, in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
+        kernel = ""
         for line in (text or "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {name}: {line.strip()}")
+            entry = re.search(r"Compiling entry function .*?([a-z]+_(?:fwd|bwd)|"
+                              r"reduce_slabs)(I(?:Li\d+E)+E)?", line)
+            if entry:
+                args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+                kernel = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {name} {kernel}: {line.strip()}")
 
 
 # -- phase 2 --------------------------------------------------------------------
@@ -210,14 +231,101 @@ def check_backward(kind, D, Mi, Din, n, seed):
     return worst
 
 
+def quadform_inputs(D, Mi, n, seed, device):
+    """Seeded float32 Sq (upper-triangular, as tril(q_sqrt)^T is on the
+    conditional's path), A [M, n] and cotangents g2 [D, n], g1 [n]."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    Sq = torch.triu(torch.randn((D, Mi, Mi), generator=gen, **f32)) / Mi ** 0.5
+    A = torch.randn((Mi, n), generator=gen, **f32)
+    g2 = torch.randn((D, n), generator=gen, **f32)
+    g1 = torch.randn((n,), generator=gen, **f32)
+    return Sq, A, g2, g1
+
+
+def check_quadform(D, Mi, n, with_t1, seed):
+    """Kernel #5 against its plain version in float64 on the same float32
+    inputs: t2 within TOL of max|t2|, and t1 within TOL of max|t1|."""
+    from dgp_tpu_torch.ops import quadform as qf
+
+    Sq, A, _, _ = quadform_inputs(D, Mi, n, seed, DEVICE)
+    before = qf.QuadForm.launches
+    with torch.no_grad():
+        got = qf.QuadForm.apply(Sq, A, with_t1)
+        sync()
+        d = lambda x: x.double()
+        want = (qf.quadform_t2_t1_reference(d(Sq), d(A)) if with_t1
+                else qf.quadform_t2_reference(d(Sq), d(A)))
+    if qf.QuadForm.launches != before + 1:
+        raise AssertionError("the quadform did not launch its kernel")
+    got, want = (got, want) if with_t1 else ((got,), (want,))
+    worst, report = 0.0, []
+    for name, g, w in zip(("t2", "t1"), got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"quadform {name}: bad shape or non-finite")
+        err = float((g.double() - w).abs().max())
+        scale = float(w.abs().max())
+        report.append(f"{name} {err / scale:.2e}")
+        worst = max(worst, err)
+        if not err <= TOL * scale:
+            raise AssertionError(f"quadform D={D} M={Mi} n={n}: {name} off by "
+                                 f"{err:.3e}, {err / scale:.2e} of its scale")
+    log(f"[kernels] quadform{' +t1' if with_t1 else ''} D={D} M={Mi} n={n}: "
+        f"err / max|plain f64| (tol {TOL}): {', '.join(report)} ok")
+    return worst
+
+
+def check_quadform_backward(D, Mi, n, with_t1, seed):
+    """Kernel #6 through autograd of the wrapper, against the plain backward
+    in float64 on the same float32 inputs: dSq and dA each within TOL_BWD of
+    its largest magnitude; a second run bit for bit equal to the first."""
+    from dgp_tpu_torch.ops import quadform as qf
+
+    Sq, A, g2, g1 = quadform_inputs(D, Mi, n, seed, DEVICE)
+    cotangents = (g2, g1) if with_t1 else (g2,)
+
+    def kernel_grads():
+        leaves = [Sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
+        before = qf.QuadForm.backward_launches
+        out = qf.QuadForm.apply(*leaves, with_t1)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=cotangents)
+        sync()
+        if qf.QuadForm.backward_launches != before + 1:
+            raise AssertionError("the quadform's backward did not launch its kernel")
+        return grads
+
+    got, again = kernel_grads(), kernel_grads()
+    d = lambda x: x.double()
+    with torch.no_grad():
+        want = qf.quadform_backward_plain(d(Sq), d(A), d(g2),
+                                          d(g1) if with_t1 else None)
+    worst, report = 0.0, []
+    for name, a, b, w in zip(("dSq", "dA"), got, again, want):
+        if a.shape != w.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"quadform {name}: bad shape or non-finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"quadform {name}: two runs differ")
+        err = float((a.double() - w).abs().max())
+        scale = float(w.abs().max())
+        report.append(f"{name} {err / scale:.2e}")
+        worst = max(worst, err)
+        if not err <= TOL_BWD * scale:
+            raise AssertionError(f"quadform backward D={D} M={Mi} n={n}: {name} "
+                                 f"off by {err:.3e}, {err / scale:.2e} of its scale")
+    log(f"[kernels] quadform backward{' +t1' if with_t1 else ''} D={D} M={Mi} "
+        f"n={n}: err / max|plain f64| (tol {TOL_BWD}): {', '.join(report)}; "
+        f"repeat bit-equal ok")
+    return worst
+
+
 # -- phase 3 --------------------------------------------------------------------
 
 
-def serving_model(seed=0, N_train=2_000):
+def serving_model(white=True, seed=0, N_train=2_000):
     """benchmarks/predict_throughput.py's model, on the card, with the
     variational parameters of both layers perturbed (at the reference init,
-    whitened q_sqrt = I makes t2 == t1, so var == v and mean == 0 would hide
-    any error in A or B)."""
+    q_sqrt = I (whitened) or chol(Kuu) makes t2 == t1, so var == v and
+    mean == 0 would hide any error in A or B)."""
     from dgp_tpu_torch.models.dgp import DGP
     from dgp_tpu_torch.ops import kernels as K
 
@@ -228,15 +336,27 @@ def serving_model(seed=0, N_train=2_000):
     f32 = dict(dtype=torch.float32, device=DEVICE)
     kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
                K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
-    model = DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=True,
+    model = DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=white,
                 device=DEVICE, dtype=torch.float32)
+    perturb(model, rng)
+    return model
+
+
+def perturb(model, rng):
+    """Move both layers' q off the prior: q_mu ~ N(0, 1); q_sqrt = tril(I +
+    0.05 N) (whitened) or chol(Kuu) with each entry moved by 5 %. At the
+    prior the ELBO does not depend on Z, so Z's gradient holds only
+    rounding."""
+    f32 = dict(dtype=torch.float32, device=DEVICE)
     with torch.no_grad():
         for layer in model.params.layers:
-            D = layer.num_outputs
-            layer.q_mu.copy_(torch.tensor(rng.normal(size=(M, D)), **f32))
-            layer.q_sqrt.copy_(torch.tensor(
-                np.tril(0.05 * rng.normal(size=(D, M, M)) + np.eye(M)), **f32))
-    return model
+            Mi, D = layer.q_mu.shape
+            layer.q_mu.copy_(torch.tensor(rng.normal(size=(Mi, D)), **f32))
+            noise = torch.tensor(rng.normal(size=(D, Mi, Mi)), **f32)
+            if layer.white:
+                layer.q_sqrt.copy_(torch.tril(0.05 * noise) + torch.eye(Mi, **f32))
+            else:
+                layer.q_sqrt.mul_(1.0 + 0.05 * noise)
 
 
 def sync():
@@ -252,52 +372,81 @@ def timed(fn):
     return out, time.perf_counter() - t0
 
 
+def counts():
+    """Launch counts of kernels #1, #2 (the fused conditional and its
+    backward) and #5, #6 (the quadform and its backward)."""
+    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
+    from dgp_tpu_torch.ops.quadform import QuadForm as QF
+
+    return FC.launches, FC.backward_launches, QF.launches, QF.backward_launches
+
+
+def zero_counts():
+    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
+    from dgp_tpu_torch.ops.quadform import QuadForm as QF
+
+    FC.launches = FC.backward_launches = QF.launches = QF.backward_launches = 0
+
+
+def expected_counts(white, forwards, backwards=0):
+    """counts() after `forwards` conditionals and `backwards` gradients of
+    them: the whitened RBF model runs kernels #1/#2, the non-whitened one
+    #5/#6, and neither runs the other's."""
+    return ((forwards, backwards, 0, 0) if white
+            else (0, 0, forwards, backwards))
+
+
 def serve(model, gpu):
-    """The main path: requests through the entry points a user calls."""
+    """The main path: requests through the entry points a user calls; for
+    the whitened model also one chunked request."""
     from dgp_tpu_torch.models.dgp import moment_matched, predict_y
-    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional
     from dgp_tpu_torch.parallel.serving import predict_in_chunks
 
     rng = np.random.default_rng(1)
     requests = [rng.uniform(0, 1, size=(N_REQUEST, DIN)) for _ in range(3)]
-    X_big = rng.uniform(0, 1, size=(N_CHUNKED, DIN))
     n_layers = len(model.params.layers)
+    white = model.params.layers[0].white
+    what = "whitened" if white else "non-whitened"
 
-    FusedConditional.launches = 0
+    zero_counts()
     for i, Xr in enumerate(requests):
-        before = FusedConditional.launches
+        before = counts()
         (mean, var), dt = timed(lambda: model.predict_y(Xr, S))
         mm, mv = moment_matched(mean, var)
-        launched = FusedConditional.launches - before
-        if launched != n_layers:
-            raise AssertionError(f"request {i}: {launched} kernel launches, "
-                                 f"expected {n_layers}")
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        if launched != expected_counts(white, n_layers):
+            raise AssertionError(f"request {i}: kernel launches {launched}, "
+                                 f"expected {expected_counts(white, n_layers)}")
         if mean.shape != (S, N_REQUEST, 1) or mm.shape != (N_REQUEST, 1):
             raise AssertionError(f"request {i}: shapes {tuple(mean.shape)}, {tuple(mm.shape)}")
         if not (torch.isfinite(mean).all() and torch.isfinite(var).all()
                 and (var > 0).all() and (mv > 0).all()):
             raise AssertionError(f"request {i}: non-finite or non-positive output")
-        log(f"[serving] request {i}: N={N_REQUEST} S={S}: {1e3 * dt:.2f} ms, "
-            f"{N_REQUEST / dt:,.0f} points/s, {launched} kernel launches ({gpu})")
+        log(f"[serving] {what} request {i}: N={N_REQUEST} S={S}: "
+            f"{1e3 * dt:.2f} ms, {N_REQUEST / dt:,.0f} points/s, kernel "
+            f"launches (#1, #2, #5, #6) {launched} ({gpu})")
+    if not white:
+        return counts()
 
-    before = FusedConditional.launches
+    X_big = rng.uniform(0, 1, size=(N_CHUNKED, DIN))
+    before = counts()
     predict = lambda p, Xc, g: predict_y(p, Xc, S, g)
     with torch.no_grad():
         (cm, cv), dt = timed(lambda: predict_in_chunks(
             predict, model.params, X_big, model.generator, CHUNK,
             device=DEVICE))
-    expect = n_layers * (N_CHUNKED // CHUNK)
-    launched = FusedConditional.launches - before
+    expect = expected_counts(white, n_layers * (N_CHUNKED // CHUNK))
+    launched = tuple(a - b for a, b in zip(counts(), before))
     if launched != expect:
-        raise AssertionError(f"chunked: {launched} kernel launches, "
+        raise AssertionError(f"chunked: kernel launches {launched}, "
                              f"expected {expect}")
     if cm.shape != (S, N_CHUNKED, 1) or not (torch.isfinite(cm).all()
                                              and (cv > 0).all()):
         raise AssertionError("chunked request: bad output")
     log(f"[serving] chunked request: N={N_CHUNKED} in {CHUNK} chunks, S={S}: "
-        f"{1e3 * dt:.2f} ms, {N_CHUNKED / dt:,.0f} points/s, {launched} kernel "
-        f"launches ({gpu})")
-    return FusedConditional.launches
+        f"{1e3 * dt:.2f} ms, {N_CHUNKED / dt:,.0f} points/s, kernel launches "
+        f"(#1, #2, #5, #6) {launched} ({gpu})")
+    return counts()
 
 
 def compare_paths(model):
@@ -321,7 +470,8 @@ def compare_paths(model):
         torch.set_float32_matmul_precision("highest")
     em = float((mk - mp).abs().max()) / float(mp.abs().max())
     ev = float((vk - vp).abs().max()) / float(vp.abs().max())
-    log(f"[serving] kernels on vs off, one request, TF32 asked for: "
+    what = "whitened" if model.params.layers[0].white else "non-whitened"
+    log(f"[serving] {what}: kernels on vs off, one request, TF32 asked for: "
         f"mean err {em:.3e}, "
         f"var err {ev:.3e} of scale (tol {TOL_REQUEST})")
     if not (em <= TOL_REQUEST and ev <= TOL_REQUEST):
@@ -331,8 +481,9 @@ def compare_paths(model):
 # -- phase 4 --------------------------------------------------------------------
 
 
-def training_model(seed=0):
-    """bench.py's model and data, built from the seed with numpy."""
+def training_model(white=True, seed=0):
+    """bench.py's model and data, built from the seed with numpy; the
+    non-whitened model starts from the prior q_sqrt = chol(Kuu)."""
     from dgp_tpu_torch.models.dgp import DGP
     from dgp_tpu_torch.ops import kernels as K
 
@@ -344,60 +495,59 @@ def training_model(seed=0):
     f32 = dict(dtype=torch.float32, device=DEVICE)
     kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
                K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
-    return DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=True,
+    return DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=white,
                device=DEVICE, dtype=torch.float32)
 
 
-def counts():
-    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
-
-    return FC.launches, FC.backward_launches
-
-
-def train(model, gpu):
+def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     """The training path through the entry points a user calls; returns the
-    forward and backward kernels' launch counts over it."""
+    kernels' launch counts over it (counts())."""
     from dgp_tpu_torch.models import training
-    from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
 
+    white = model.params.layers[0].white
+    what = "whitened" if white else "non-whitened"
     n_layers = len(model.params.layers)
     state = lambda: {k: v.clone() for k, v in model.params.state_dict().items()}
     start = state()
-    FC.launches = FC.backward_launches = 0
+    zero_counts()
 
-    losses, dt = timed(lambda: model.optimize_adam(iterations=ADAM_STEPS,
+    losses, dt = timed(lambda: model.optimize_adam(iterations=adam_steps,
                                                    messages=0))
     losses = losses.cpu().numpy()
-    if losses.shape != (ADAM_STEPS,) or not np.all(np.isfinite(losses)):
+    if losses.shape != (adam_steps,) or not np.all(np.isfinite(losses)):
         raise AssertionError(f"optimize_adam: bad losses {losses}")
     if not losses[-5:].mean() < losses[0]:
         raise AssertionError(f"optimize_adam: the loss did not fall: {losses}")
-    expect = ADAM_STEPS * n_layers
-    if counts() != (expect, expect):
+    evaluations = adam_steps * n_layers
+    expect = expected_counts(white, evaluations, evaluations)
+    if counts() != expect:
         raise AssertionError(f"optimize_adam: launches {counts()}, expected "
-                             f"{expect} forward and {expect} backward")
-    log(f"[training] optimize_adam {ADAM_STEPS} steps (first-use warm-up "
-        f"included): {1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> "
-        f"{losses[-5:].mean():.1f} (mean of the last 5), launches "
-        f"{counts()} ({gpu})")
+                             f"{expect}")
+    log(f"[training] {what} optimize_adam {adam_steps} steps (first-use "
+        f"warm-up included): {1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> "
+        f"{losses[-5:].mean():.1f} (mean of the last 5), launches (#1, #2, "
+        f"#5, #6) {counts()} ({gpu})")
 
+    n1, n2 = nat_steps
     losses, dt = timed(lambda: model.optimize_nat_adam(
-        iterations1=NAT_STEPS_1, iterations2=NAT_STEPS_2, messages=0))
+        iterations1=n1, iterations2=n2, messages=0))
     losses = losses.cpu().numpy()
-    if (losses.shape != (NAT_STEPS_1 + NAT_STEPS_2,)
-            or not np.all(np.isfinite(losses))):
+    if losses.shape != (n1 + n2,) or not np.all(np.isfinite(losses)):
         raise AssertionError(f"optimize_nat_adam: bad losses {losses}")
     # one evaluation per Adam step, two per Adam+natural-gradient step
-    expect += (NAT_STEPS_1 + 2 * NAT_STEPS_2) * n_layers
-    if counts() != (expect, expect):
+    evaluations += (n1 + 2 * n2) * n_layers
+    expect = expected_counts(white, evaluations, evaluations)
+    if counts() != expect:
         raise AssertionError(f"optimize_nat_adam: launches {counts()}, "
-                             f"expected {expect} of each")
-    log(f"[training] optimize_nat_adam {NAT_STEPS_1} + {NAT_STEPS_2} steps: "
+                             f"expected {expect}")
+    log(f"[training] {what} optimize_nat_adam {n1} + {n2} steps: "
         f"{1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> {losses[-1]:.1f}, "
         f"launches {counts()} ({gpu})")
     moved = state()
     if any(torch.equal(moved[k], start[k]) for k in start):
         raise AssertionError("a trained tensor did not move")
+    if not masked_steps:
+        return counts()
 
     # bench.py's model has no mean-function weights (Identity, then Zero),
     # so the frozen-tensor check freezes the hyperparameters instead
@@ -405,25 +555,28 @@ def train(model, gpu):
                               frozen_fields=("kernel", "likelihood"))
     loss_fn, batch = model._loss_spec()
     training.adam_run(loss_fn, model.params, mask, model.generator,
-                      steps=MASKED_STEPS, data=batch)
-    expect += MASKED_STEPS * n_layers
+                      steps=masked_steps, data=batch)
+    evaluations += masked_steps * n_layers
     after = state()
     frozen = [k for k in after if not mask[k]]
-    if len(frozen) != 5 or counts() != (expect, expect):
+    if (len(frozen) != 5
+            or counts() != expected_counts(white, evaluations, evaluations)):
         raise AssertionError(f"masked phase: frozen {frozen}, launches {counts()}")
     for k in after:
         if torch.equal(after[k], moved[k]) != (k in frozen):
             raise AssertionError(f"masked phase: {k} "
                                  f"{'moved' if k in frozen else 'did not move'}")
-    log(f"[training] {MASKED_STEPS} Adam steps with {len(frozen)} frozen "
+    log(f"[training] {masked_steps} Adam steps with {len(frozen)} frozen "
         f"tensors: frozen bit for bit unchanged, the rest moved; launches on "
-        f"the training path: {counts()[0]} forward, {counts()[1]} backward")
+        f"the training path (#1, #2, #5, #6): {counts()}")
     return counts()
 
 
 def compare_gradients(model):
     """One loss-and-gradient evaluation on fixed unit normals, kernels on
-    against kernels off."""
+    against kernels off. The model's q must be off the prior (perturb), or
+    Z's gradient is rounding; after a few natural-gradient steps the last
+    layer's q_sqrt is small and t2 barely reaches the loss."""
     from dgp_tpu_torch.config import kernels_scope
     from dgp_tpu_torch.models.dgp import elbo
 
@@ -436,12 +589,16 @@ def compare_gradients(model):
         loss = -elbo(model.params, *model.data, S, zs=zs)
         return loss.detach(), torch.autograd.grad(loss, list(params.values()))
 
+    white = model.params.layers[0].white
+    n_layers = len(model.params.layers)
     before = counts()
     loss_on, on = evaluate()
     launched = tuple(a - b for a, b in zip(counts(), before))
     with kernels_scope(False):
         loss_off, off = evaluate()
-    if launched != (2, 2) or counts() != tuple(b + 2 for b in before):
+    expect = expected_counts(white, n_layers, n_layers)
+    if launched != expect or counts() != tuple(
+            b + e for b, e in zip(before, expect)):
         raise AssertionError(f"gradient evaluation launched {launched}")
     worst = abs(float(loss_on - loss_off)) / abs(float(loss_off))
     report = [f"loss {worst:.2e}"]
@@ -449,8 +606,9 @@ def compare_gradients(model):
         err = float((a - b).abs().max()) / float(b.abs().max())
         report.append(f"{name} {err:.2e}")
         worst = max(worst, err)
-    log(f"[training] kernels on vs off, loss and gradients on fixed normals, "
-        f"err / max|off| (tol {TOL_GRAD}): {', '.join(report)}")
+    what = "whitened" if white else "non-whitened"
+    log(f"[training] {what}: kernels on vs off, loss and gradients on fixed "
+        f"normals, err / max|off| (tol {TOL_GRAD}): {', '.join(report)}")
     if not worst <= TOL_GRAD:
         raise AssertionError("the gradients differ with the kernels off")
 
@@ -556,21 +714,72 @@ def time_backward(kind, D, Din, n, gpu):
     return ms, plain_ms, bound, by
 
 
-def time_steps(model, gpu, steps=10, rounds=3):
+def quadform_bound_ms(Sq, n, backward=False):
+    """Least time for the quadform (t2 without t1) or its backward on these
+    inputs, as :func:`fused_bound_ms` reckons it: each M x M product counts
+    the nonzeros of Sq (upper-triangular on the conditional's path, M(M+1)/2
+    per output), where the kernels spend 2M^2 on the full square. Forward:
+    b_d = Sq[d] a and ||b_d||^2; backward: b_d, gb_d = 2 b_d g_d,
+    Sq[d]^T gb_d and gb_d a^T (only Sq's pattern of dSq reaches q_sqrt)."""
+    D, Mi = Sq.shape[0], Sq.shape[1]
+    nnz = int(torch.count_nonzero(Sq))
+    if backward:
+        per_point = 3 * 2 * nnz + 2 * D * Mi
+        # A, g2 and Sq read; dA and dSq written
+        nbytes = 4.0 * (2 * Mi * n + D * n + 2 * D * Mi * Mi)
+    else:
+        per_point = 2 * nnz + 2 * D * Mi
+        nbytes = 4.0 * (Mi * n + D * n + D * Mi * Mi)  # A, Sq read; t2 written
+    t_ops, t_bytes = float(n) * per_point / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_quadform(D, n, gpu, backward=False):
+    """Kernel #5 (or #6 with its slab reduction, through the wrapper's
+    launch, scratch allocation included) beside its plain version."""
+    from dgp_tpu_torch.ops import quadform as qf
+
+    Sq, A, g2, _ = quadform_inputs(D, M, n, 13, "cuda")
+    with torch.no_grad():
+        if backward:
+            ms = event_ms(lambda: qf._launch_backward(Sq, A, g2, None), 10)
+            plain_ms = event_ms(lambda: qf.quadform_backward_plain(Sq, A, g2), 5)
+        else:
+            ms = event_ms(lambda: qf._launch(Sq, A, False), 10)
+            plain_ms = event_ms(lambda: qf.quadform_t2_reference(Sq, A), 5)
+    bound, by = quadform_bound_ms(Sq, n, backward)
+    extra = ""
+    if backward:
+        blocks = qf._library().dgp_quadform_bwd_blocks(n, M, D)
+        # each 64-point tile reads and writes its block's D M x M slab once
+        # (reckoned from the shapes, not measured)
+        rmw_gb = 8e-9 * -(-n // 64) * D * M * M
+        extra = (f"; {blocks} blocks, scratch {4e-6 * blocks * D * M * M:.1f} "
+                 f"MB, slab read-modify-write {rmw_gb:.2f} GB per call")
+    log(f"[timing] quadform{' backward' if backward else ''} D={D} M={M} "
+        f"n={n}: kernel{'+reduce' if backward else ''} {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {bound / ms:.1%} of "
+        f"the bound{extra} ({gpu})")
+    return ms, plain_ms, bound, by
+
+
+def time_steps(model, gpu, steps=10, rounds=3, nat=True):
     """Wall time per training step, synchronised around a run of steps.
     Host-clock times spread with the load on the machine's CPU cores, so
     each is taken ``rounds`` times and all are shown."""
     phases = {
         "Adam step": lambda: model.optimize_adam(
             iterations=steps, messages=0, shrink_inner=False),
-        "Adam + natural-gradient step": lambda: model.optimize_nat_adam(
-            iterations1=0, iterations2=steps, messages=0, shrink_inner=False),
     }
-    for what, run in phases.items():
+    if nat:
+        phases["Adam + natural-gradient step"] = lambda: model.optimize_nat_adam(
+            iterations1=0, iterations2=steps, messages=0, shrink_inner=False)
+    what = "whitened" if model.params.layers[0].white else "non-whitened"
+    for step, run in phases.items():
         run()
         ms = sorted(1e3 * timed(run)[1] / steps for _ in range(rounds))
-        log(f"[timing] {what} (N={N_TRAIN}, S={S}, 2 layers), ms per step "
-            f"over {steps} steps, {rounds} rounds: "
+        log(f"[timing] {what} {step} (N={N_TRAIN}, S={S}, 2 layers), ms per "
+            f"step over {steps} steps, {rounds} rounds: "
             f"{', '.join(f'{t:.2f}' for t in ms)}; best {1e3 / ms[0]:.1f} "
             f"steps/s ({gpu})")
 
@@ -595,6 +804,10 @@ def profile_run(what, fn, gpu):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<3d} "
             f"{e.key[:100]}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    log(f"[profile] host, self time: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms x{e.count}"
+        for e in host[:6]))
 
 
 def main():
@@ -622,26 +835,66 @@ def main():
             err_bwd = max(err_bwd, check_backward(kind, D, Mi, Din, n,
                                                   100 + 10 * kind + seed))
 
+    err_qf = err_qf_bwd = 0.0
+    for seed, (D, Mi, n) in enumerate([
+            (HIDDEN, M, 262_144 + 37),    # layer 1 of the model
+            (1, M, 262_144 + 37),         # layer 2
+            (3, 64, 10_007),              # small odd shapes; M = 100 is
+            (2, 100, 1_037)]):            # padded to 128 in the kernels
+        for with_t1 in (False, True):
+            err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 200 + seed))
+    for seed, (D, Mi, n) in enumerate([
+            (HIDDEN, M, S * N_TRAIN + 37),    # layer 1, training
+            (1, M, S * N_TRAIN + 37),         # layer 2
+            (3, 64, 10_007),
+            (2, 100, 1_037)]):
+        for with_t1 in (False, True):
+            err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
+                D, Mi, n, with_t1, 300 + seed))
+
     model = serving_model()
-    served = serve(model, gpu)
+    served = serve(model, gpu)[0]
     log(f"[serving] fused conditional launches on the serving path: {served}")
     compare_paths(model)
+    model_nw = serving_model(white=False)
+    served_nw = serve(model_nw, gpu)[2]
+    log(f"[serving] quadform launches on the non-whitened serving path: "
+        f"{served_nw}")
+    compare_paths(model_nw)
 
     trained = training_model()
-    fwd_launches, bwd_launches = train(trained, gpu)
+    fwd_launches, bwd_launches, _, _ = train(
+        trained, gpu, ADAM_STEPS, (NAT_STEPS_1, NAT_STEPS_2), MASKED_STEPS)
     compare_gradients(trained)
+    trained_nw = training_model(white=False)
+    _, _, qf_launches, qf_bwd_launches = train(
+        trained_nw, gpu, NONWHITE_ADAM_STEPS, NONWHITE_NAT_STEPS)
+    off_prior = training_model(white=False)
+    perturb(off_prior, np.random.default_rng(3))
+    compare_gradients(off_prior)
 
     ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
     bwd = time_backward(0, HIDDEN, DIN, S * N_TRAIN, gpu)
     time_backward(0, 1, HIDDEN, S * N_TRAIN, gpu)
+    qf = time_quadform(HIDDEN, S * N_REQUEST, gpu)
+    time_quadform(1, S * N_REQUEST, gpu)
+    time_quadform(HIDDEN, 10_000, gpu)  # a small n: where would plain win?
+    qf_bwd = time_quadform(HIDDEN, S * N_TRAIN, gpu, backward=True)
+    time_quadform(1, S * N_TRAIN, gpu, backward=True)
     time_steps(trained, gpu)
+    time_steps(trained_nw, gpu, nat=False)
     Xr = np.random.default_rng(2).uniform(0, 1, size=(N_REQUEST, DIN))
-    profile_run("one request", lambda: model.predict_y(Xr, S), gpu)
-    profile_run("three Adam steps", lambda: trained.optimize_adam(
+    profile_run("one whitened request", lambda: model.predict_y(Xr, S), gpu)
+    profile_run("three whitened Adam steps", lambda: trained.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
+    profile_run("one non-whitened request", lambda: model_nw.predict_y(Xr, S),
+                gpu)
+    profile_run("three non-whitened Adam steps", lambda: trained_nw.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
+    qf_source = "dgp_tpu_torch/csrc/quadform.cu"
     kernels = [{
         "name": "conditional_fused_rbf",
         "route": "cuda",
@@ -665,6 +918,30 @@ def main():
         "plain_ms": bwd[1],
         "bound_ms": bwd[2],
         "bound_by": bwd[3],
+        "library_ms": None,
+    }, {
+        "name": "quadform",
+        "route": "cuda",
+        "source": qf_source,
+        "replaces": "dgp_tpu/ops/quadform_pallas.py:103",
+        "launches": served_nw + qf_launches,
+        "max_abs_err": err_qf,
+        "ms": qf[0],
+        "plain_ms": qf[1],
+        "bound_ms": qf[2],
+        "bound_by": qf[3],
+        "library_ms": None,
+    }, {
+        "name": "quadform_bwd",
+        "route": "cuda",
+        "source": qf_source,
+        "replaces": "dgp_tpu/ops/quadform_pallas.py:117",
+        "launches": qf_bwd_launches,
+        "max_abs_err": err_qf_bwd,
+        "ms": qf_bwd[0],
+        "plain_ms": qf_bwd[1],
+        "bound_ms": qf_bwd[2],
+        "bound_by": qf_bwd[3],
         "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels}))

@@ -2,13 +2,14 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``build/lib<name>-<hash>.so`` beside the package (the hash covers the
-source and the flags, so an edited source never loads a stale library).
-The build runs on first use.
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+never loads a stale library). The build runs on first use.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -18,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("conditional_fused_rbf",)
+SOURCES = ("conditional_fused_rbf", "quadform")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,17 +39,20 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [os.path.join(CSRC, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
 def build(names=SOURCES) -> dict:
-    """Compile every named source that has no current library, one blocking
-    ``nvcc`` each (there is one source; start the jobs together once there
-    are more). Returns ``{name: nvcc output}`` (``None`` for a library that
-    was already built); raises if ``nvcc`` fails."""
-    logs = {}
+    """Compile every named source that has no current library: all the
+    ``nvcc`` jobs start together, then each is waited on. Returns
+    ``{name: nvcc output}`` (``None`` for a library that was already
+    built); raises if any ``nvcc`` fails."""
+    logs, jobs = {}, {}
     for name in names:
         so = library_path(name)
         if os.path.exists(so):
@@ -56,13 +60,25 @@ def build(names=SOURCES) -> dict:
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
+        # each job's output goes to a file: pipes read one after another
+        # could fill and stall a job that is not being read yet
+        log = open(f"{tmp}.log", "w+")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        logs[name] = proc.stdout
+        jobs[name] = (so, tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, log, proc) in jobs.items():
+        proc.wait()
+        log.seek(0)
+        logs[name] = log.read()
+        log.close()
+        os.remove(log.name)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return logs
 
 

@@ -16,6 +16,7 @@ import torch
 
 from ..config import default_jitter, ieee_fp32, use_kernels
 from .linalg import cho_solve, eye_like
+from .quadform import quadform_t2, quadform_t2_t1
 
 
 class SVGPProjection(NamedTuple):
@@ -85,12 +86,6 @@ def precompute_projections(items, jitter=None):
     ]
 
 
-def quadform_t2_reference(Sq, A):
-    """t2[d, n] = ||Sq[d] @ A[:, n]||^2, materializing B = Sq @ A."""
-    B = Sq @ A[None]                           # [D, M, n]
-    return torch.sum(B * B, dim=1)
-
-
 @ieee_fp32()
 def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
                      proj: SVGPProjection | None = None):
@@ -102,10 +97,15 @@ def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
     :param X: [n, Din]
     :return: mean [n, D], var [n, D]  (mean excludes the mean function)
 
-    Dispatch order as in the JAX package: the fused stationary kernel for
-    whitened f32 RBF/Matern layers on the card; then (in the JAX package) the
-    Kuf-consuming fused kernel and the quadform kernel, which are still to be
-    ported and so take the plain path below here.
+    Dispatch order as in the JAX package. A whitened f32 RBF/Matern layer
+    on the card goes through the fused stationary kernel
+    (``conditional_fused_rbf``). Any other layer computes Kuf, A, the mean
+    and (non-whitened) t1 in PyTorch, and its variational quadform t2 (with
+    t1 = ||A||^2 on the whitened path) through ``quadform``: the CUDA kernel
+    for f32 CUDA tensors within its plan, the plain version otherwise. The
+    JAX package's Kuf-consuming fused kernel for the other whitened layers
+    sits between the two and is not ported yet: those layers take the
+    quadform.
     """
     if proj is None:
         proj = precompute_projection(kernel, Z, q_sqrt, white, jitter)
@@ -134,10 +134,10 @@ def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
     #   white:      var = Kff - ||A||^2        + ||q_sqrt^T A||^2
     #   non-white:  var = Kff - sum(Kuf * A)   + ||q_sqrt^T A||^2
     if white:
-        t1 = torch.sum(A * A, dim=0)
+        t2, t1 = quadform_t2_t1(Sq, A)         # [D, n], [n]
     else:
         t1 = torch.sum(Kuf * A, dim=0)
-    t2 = quadform_t2_reference(Sq, A)          # [D, n]
+        t2 = quadform_t2(Sq, A)                # [D, n]
     Kff = kernel.K_diag(X)                     # [n]
     # clamp: rounding in the final subtraction can push var below 0
     var = torch.clamp_min((Kff[None, :] - t1[None, :] + t2).T, 0.0)

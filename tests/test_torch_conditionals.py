@@ -18,6 +18,10 @@ from dgp_tpu_torch.ops import conditional_fused_rbf as tcfr
 from dgp_tpu_torch.ops import conditionals as tcond
 from dgp_tpu_torch.ops import kernels as TK
 
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
+
 F64 = torch.float64
 RTOL = 1e-10
 KINDS = {0: "RBF", 1: "Matern32", 2: "Matern52"}

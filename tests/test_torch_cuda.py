@@ -14,6 +14,19 @@ from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 from dgp_tpu_torch.ops import conditionals as C
 from dgp_tpu_torch.ops import kernels as K
+from dgp_tpu_torch.ops import quadform as qf
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch's intra-op threads would oversubscribe the cores that the
+    other test workers share. Every test_torch_*.py module imports this
+    fixture (this one imports no JAX)."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
 
 KINDS = {0: "RBF", 1: "Matern32", 2: "Matern52"}
 
@@ -261,3 +274,139 @@ def check_predict_y_through_kernel(cuda, device):
     for got, want in ((mk, mp), (vk, vp)):
         assert got.shape == want.shape == (5, 300, 1)
         assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+
+def quadform_inputs(D, M, n, device, seed=0):
+    """Seeded float32 Sq (upper-triangular, as tril(q_sqrt)^T is), A and
+    the cotangents g2, g1."""
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    Sq = torch.tensor(np.triu(rng.normal(size=(D, M, M))) / np.sqrt(M), **f32)
+    A = torch.tensor(rng.normal(size=(M, n)), **f32)
+    g2 = torch.tensor(rng.normal(size=(D, n)), **f32)
+    g1 = torch.tensor(rng.normal(size=(n,)), **f32)
+    return Sq, A, g2, g1
+
+
+# M = 64 and 128 stage with float4 copies; 50 and 100 take the padded path
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", [(3, 64, 1037), (8, 128, 4101), (2, 50, 65),
+                                   (1, 100, 64)])
+def test_quadform_kernels_match_plain(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 against their plain versions in f64 on the same
+    f32 inputs: t2 (and t1) within 1e-4 of their largest value, dSq and dA
+    within 1e-4 of their largest magnitude, and a second backward bit for
+    bit equal to the first (the slabs are summed in a fixed order)."""
+    Sq, A, g2, g1 = quadform_inputs(D, M, n, cuda, seed=D + M)
+    cotangents = (g2, g1) if with_t1 else (g2,)
+    before = (qf.QuadForm.launches, qf.QuadForm.backward_launches)
+
+    def kernel_grads():
+        leaves = [Sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
+        out = qf.QuadForm.apply(*leaves, with_t1)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=cotangents)
+        torch.cuda.synchronize()
+        return (out if with_t1 else (out,)), grads
+
+    out, grads = kernel_grads()
+    _, again = kernel_grads()
+    assert (qf.QuadForm.launches, qf.QuadForm.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+    d = lambda x: x.double()
+    want = (qf.quadform_t2_t1_reference(d(Sq), d(A)) if with_t1
+            else (qf.quadform_t2_reference(d(Sq), d(A)),))
+    for got, w in zip(out, want):
+        assert got.shape == w.shape and got.dtype == torch.float32
+        assert float((got.double() - w).abs().max()) <= 1e-4 * float(w.max())
+    want = qf.quadform_backward_plain(d(Sq), d(A), d(g2),
+                                      d(g1) if with_t1 else None)
+    for name, g, g_again, w in zip(("dSq", "dA"), grads, again, want):
+        assert g.shape == w.shape and torch.equal(g, g_again), name
+        assert float((g.double() - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+
+
+@pytest.mark.cuda
+def test_quadform_size_gate(cuda):
+    """The plans take M <= 128 and any D; a CUDA tensor outside them raises
+    at launch rather than falling back, float64 included."""
+    assert qf.supported(128, 8) and qf.backward_supported(128, 8)
+    assert qf.supported(1, 1) and qf.backward_supported(64, 40)
+    assert not qf.supported(129, 1) and not qf.backward_supported(256, 8)
+    Sq, A, g2, _ = quadform_inputs(2, 129, 100, cuda)
+    assert not qf.applicable(Sq, A)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        qf.QuadForm.apply(Sq, A, False)
+    with pytest.raises(TypeError, match="float32"):
+        qf.QuadForm.apply(Sq[:, :64, :64].double(), A[:64].double(), False)
+    with pytest.raises(ValueError, match="do not form"):
+        qf._launch_backward(Sq, A, g2[:, :50], None)
+
+
+@pytest.mark.cuda
+def test_quadform_of_no_points(cuda):
+    Sq, A, g2, g1 = quadform_inputs(2, 64, 0, cuda)
+    leaves = [Sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
+    before = (qf.QuadForm.launches, qf.QuadForm.backward_launches)
+    t2, t1 = qf.QuadForm.apply(*leaves, True)
+    grads = torch.autograd.grad((t2, t1), leaves, grad_outputs=(g2, g1))
+    assert (qf.QuadForm.launches, qf.QuadForm.backward_launches) == before
+    assert t2.shape == (2, 0) and t1.shape == (0,)
+    assert all(g.shape == a.shape and not g.any() for g, a in zip(grads, leaves))
+
+
+@pytest.mark.cuda
+def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
+    """A 2-layer non-whitened model (the constructor's default): one request
+    launches the quadform kernel once per layer and kernel #1 never; one
+    Adam step launches it and its backward once per layer; the request and
+    the first step's gradients equal the kernels-off path's to 1e-3 of each
+    one's scale."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(300, 4))
+    Y = np.sin(3 * X[:, :1])
+    f32 = dict(dtype=torch.float32, device=cuda)
+    kernels = [K.RBF.create(lengthscales=[0.5] * 4, **f32),
+               K.Matern52.create(lengthscales=[0.5] * 4, **f32)]
+    model = tdgp.DGP(X, Y, X[:64], kernels, [4], num_samples=5,
+                     dtype=torch.float32)
+    assert not any(l.white for l in model.params.layers)
+    with torch.no_grad():
+        # off the prior q_sqrt = chol(Kuu), where z's gradient is ~0 and
+        # holds only rounding
+        for layer in model.params.layers:
+            M, D = layer.q_mu.shape
+            layer.q_mu.copy_(torch.tensor(rng.normal(size=(M, D)), **f32))
+            layer.q_sqrt.mul_(1.0 + 0.05 * torch.tensor(
+                rng.normal(size=(D, M, M)), **f32))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    zs = [torch.randn((5, 300, l.num_outputs), generator=gen, **f32)
+          for l in model.params.layers]
+    counts = lambda: (qf.QuadForm.launches, qf.QuadForm.backward_launches,
+                      cfr.FusedConditional.launches)
+    before = counts()
+    with torch.no_grad():
+        on = tdgp.predict_y(model.params, X, 5, zs=zs)
+        assert counts() == (before[0] + 2, before[1], before[2])
+        with kernels_scope(False):
+            off = tdgp.predict_y(model.params, X, 5, zs=zs)
+    for got, want in zip(on, off):
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+    params = list(model.params.parameters())
+
+    def grads():
+        loss = -tdgp.elbo(model.params, *model.data, 5, zs=zs)
+        return torch.autograd.grad(loss, params)
+
+    before = counts()
+    on = grads()
+    assert counts() == (before[0] + 2, before[1] + 2, before[2])
+    with kernels_scope(False):
+        off = grads()
+    for (name, _), a, b in zip(model.params.named_parameters(), on, off):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), name
+    before = counts()
+    losses = model.optimize_adam(iterations=1, messages=0)
+    assert counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert bool(torch.isfinite(losses).all())

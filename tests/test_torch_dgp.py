@@ -12,15 +12,23 @@ import jax
 import jax.numpy as jnp
 
 from dgp_tpu.models import dgp as jdgp
+from dgp_tpu.ops import conditionals as jcond
 from dgp_tpu.ops import kernels as JK
 from dgp_tpu_torch import convert
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import conditionals as tcond
 from dgp_tpu_torch.ops import kernels as TK
+
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
 
 F64 = torch.float64
 RTOL = 1e-10
 # one compiled program per shape: much cheaper than JAX's op-by-op compiles
 jax_propagate = jax.jit(jdgp.propagate, static_argnums=(3, 4))
+jax_conditional_diag = jax.jit(functools.partial(jcond.conditional_diag,
+                                                 white=False))
 
 
 def perturbed(model, seed):
@@ -86,6 +94,44 @@ def test_weights_carried_through_convert():
                                   np.asarray(params.layers[0].mean_function.W))
     np.testing.assert_array_equal(npy(port.likelihood.variance_raw),
                                   np.asarray(params.likelihood.variance_raw))
+
+
+def assert_same_tree(got, want, path="params"):
+    assert type(got) is type(want), path
+    if isinstance(want, dict):
+        assert got.keys() == want.keys(), path
+        for k in want:
+            assert_same_tree(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same_tree(g, w, f"{path}.{i}")
+    elif isinstance(want, np.ndarray):
+        np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, path
+
+
+def test_nonwhite_convert_round_trip_and_conditional():
+    """A non-whitened dgp_tpu model crosses convert and comes back
+    unchanged, and each layer's conditional through the port (whose
+    quadform dispatch takes the plain version on the CPU) is dgp_tpu's."""
+    params, X, _ = reference_model(white=False)
+    tree = convert.numpy_tree_from_reference(params)
+    port = convert.dgp_from_numpy(tree, "cpu", F64)
+    assert not any(l["white"] for l in tree["layers"])
+    assert_same_tree(convert.numpy_tree_from_port(port), tree)
+    rng = np.random.default_rng(4)
+    for lj, lt in zip(params.layers, port.layers):
+        Xl = X if lj.z.shape[1] == X.shape[1] else rng.normal(
+            size=(7, lj.z.shape[1]))
+        want = jax_conditional_diag(lj.kernel, lj.z, lj.q_mu, lj.q_sqrt,
+                                    jnp.asarray(Xl))
+        with torch.no_grad():
+            got = tcond.conditional_diag(lt.kernel, lt.z, lt.q_mu, lt.q_sqrt,
+                                         torch.as_tensor(Xl), white=False)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(npy(g), np.asarray(w), rtol=RTOL)
 
 
 @pytest.mark.parametrize("white", [True, False])

@@ -15,7 +15,12 @@ from dgp_tpu_torch.config import ieee_fp32
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
+from dgp_tpu_torch.ops import quadform as TQ
 from dgp_tpu_torch.parallel.serving import predict_in_chunks
+
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(dgp_tpu_torch.__file__))
@@ -36,7 +41,7 @@ def test_no_jax_imports_in_port():
     assert len(sources) > 10
     rel = {os.path.relpath(p, PKG) for p in sources}
     assert {"models/training.py", "variational/natgrad.py",
-            "utils/checkpoint.py", "convert.py"} <= rel
+            "utils/checkpoint.py", "convert.py", "ops/quadform.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -73,7 +78,10 @@ print("ok")
 
 
 def test_port_runs_with_jax_blocked():
-    out = subprocess.run([sys.executable, "-c", BLOCKED], cwd=ROOT,
+    # one intra-op thread, as in this process: the other test workers share
+    # the cores
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", BLOCKED], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
@@ -116,13 +124,13 @@ def test_port_products_run_ieee_under_tf32(tf32_asked, monkeypatch):
     """A non-white conditional and a whole predict_y compute their t2
     product with TF32 off, though the process asked for it."""
     seen = []
-    quadform = TC.quadform_t2_reference
+    quadform = TQ.quadform_t2_reference
 
     def spy(Sq, A):
         seen.append(torch.backends.cuda.matmul.fp32_precision)
         return quadform(Sq, A)
 
-    monkeypatch.setattr(TC, "quadform_t2_reference", spy)
+    monkeypatch.setattr(TQ, "quadform_t2_reference", spy)
     rng = np.random.default_rng(0)
     X = rng.uniform(size=(8, 2))
     f64 = torch.float64

@@ -13,6 +13,10 @@ import jax.numpy as jnp
 from dgp_tpu.ops import kernels as JK
 from dgp_tpu_torch.ops import kernels as TK
 
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
+
 F64 = {"dtype": torch.float64}
 
 CASES = {

@@ -15,6 +15,9 @@ from dgp_tpu_torch.models import training as ttrain
 from dgp_tpu_torch.variational import natgrad as tng
 from dgp_tpu_torch.variational.gaussian import gauss_kl
 
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
 from test_torch_training import (
     S,
     assert_same_parameters,
@@ -23,6 +26,7 @@ from test_torch_training import (
     reference_fixed_loss,
     reference_model,
 )
+
 
 F64 = torch.float64
 

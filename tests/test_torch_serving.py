@@ -8,6 +8,10 @@ from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.ops import kernels as TK
 from dgp_tpu_torch.parallel.serving import predict_in_chunks
 
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
+
 F64 = torch.float64
 
 

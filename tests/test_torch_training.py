@@ -21,7 +21,12 @@ from dgp_tpu_torch import convert
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import training as ttrain
 from dgp_tpu_torch.ops import kernels as TK
+from dgp_tpu_torch.ops import quadform as tq
 from dgp_tpu_torch.utils import checkpoint
+
+# torch on one intra-op thread in this module (the fixture is autouse)
+from test_torch_cuda import _one_torch_thread  # noqa: F401
+
 
 F64 = torch.float64
 S = 3
@@ -302,22 +307,55 @@ def test_loss_spec_minibatch_and_bucket():
     assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
 
 
-@pytest.mark.parametrize("white", [True, False])
-def test_elbo_gradients_match_jax_grad(white):
+@functools.lru_cache(maxsize=None)
+def reference_gradients(white):
     params, X, Y, zs = reference_model(white)
     gj = jax.jit(jax.grad(reference_fixed_loss(X, Y, zs)))(
         params, jax.random.PRNGKey(0))
+    return {path_name(path): np.asarray(leaf) for path, leaf in
+            jax.tree_util.tree_flatten_with_path(gj)[0]}
+
+
+def check_elbo_gradients(white):
+    params, X, Y, zs = reference_model(white)
     port = port_of(params)
     loss = port_fixed_loss(X, Y, zs)(port, None)
     grads = torch.autograd.grad(loss, list(port.parameters()))
     got = dict(zip((n for n, _ in port.named_parameters()), grads))
-    want = {path_name(path): np.asarray(leaf) for path, leaf in
-            jax.tree_util.tree_flatten_with_path(gj)[0]}
+    want = reference_gradients(white)
     assert set(got) == set(want) - {"layers.0.mean_function.W"}
     for name, g in got.items():
         np.testing.assert_allclose(
             g.numpy(), want[name], rtol=1e-8,
             atol=1e-10 * np.abs(want[name]).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("white", [True, False])
+def test_elbo_gradients_match_jax_grad(white):
+    check_elbo_gradients(white)
+
+
+def test_nonwhite_elbo_gradients_through_quadform(monkeypatch):
+    """The non-whitened ELBO with the quadform's gate forced open: the CPU
+    tensors go through QuadForm and its hand-written plain backward (one
+    forward and one backward per layer), and the gradients still match
+    jax.grad of dgp_tpu's ELBO."""
+    calls = {"forward": 0, "backward": 0}
+    forward, backward = tq.QuadForm.forward, tq.quadform_backward_plain
+
+    def counted_forward(ctx, *args):
+        calls["forward"] += 1
+        return forward(ctx, *args)
+
+    def counted_backward(*args):
+        calls["backward"] += 1
+        return backward(*args)
+
+    monkeypatch.setattr(tq, "applicable", lambda Sq, A: True)
+    monkeypatch.setattr(tq.QuadForm, "forward", staticmethod(counted_forward))
+    monkeypatch.setattr(tq, "quadform_backward_plain", counted_backward)
+    check_elbo_gradients(white=False)
+    assert calls == {"forward": 2, "backward": 2}
 
 
 def test_checkpoint_round_trip(tmp_path):

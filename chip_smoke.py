@@ -18,6 +18,15 @@ Phases, each of which raises (exit code 1) on any fault:
              equal to the first. Then the quadform kernel and its backward,
              with and without t1, at the same layer shapes and at two small
              ones (D=3, M=64 and D=2, M=100, which the plan pads to 128).
+             Then the Kuf-consuming fused conditional (kernel #3) and its
+             backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
+             varies per point), at the same four shapes: all five
+             gradients, and a second run bit for bit equal to the first;
+             again at the layer-1 training shape and at M=100 with a Kff
+             that makes the clamp max(var, 0) zero many variances; and #3
+             at M=100 in 3 input dimensions, which
+             conditions Kuu so badly that plain fp32 is itself off f64 by
+             more than the tolerance, held to twice that fp32 error.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -32,6 +41,11 @@ Phases, each of which raises (exit code 1) on any fault:
              default) answers 3 requests of N=100,000 rows through the
              quadform kernel (one launch per layer, none of the fused
              conditional's) and is held to the kernels-off path likewise.
+             bench.py's model with RBF + Linear (ARD) kernels on both layers
+             (whitened, q moved off the prior) answers 3 requests of
+             N=100,000 rows through kernel #3 (one launch per layer, none
+             of #1 or #5), is held to the kernels-off path likewise, and
+             its loss gradients too.
 4. training — build bench.py's model and data (N=10,000, M=128,
              DIN=HIDDEN=8, S=10, f32, whitened RBF, num_units=[8]) from the
              seed; optimize_adam for 20 steps, optimize_nat_adam for 5 + 10,
@@ -44,14 +58,17 @@ Phases, each of which raises (exit code 1) on any fault:
              non-whitened, from its prior (q_sqrt = chol(Kuu)): 10 Adam steps
              and 3 + 5 Adam+natural-gradient steps through the quadform
              kernels; and the same gradient comparison on a non-whitened copy
-             with q moved off the prior.
+             with q moved off the prior. bench.py's model with RBF + Linear
+             kernels, whitened: 10 Adam steps and 3 + 5 Adam+natural-gradient
+             steps through kernels #3 and #4 only.
 5. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the fp32 bound of the work these inputs
-             need; wall time per Adam step and per Adam+natural-gradient
-             step (whitened) and per Adam step (non-whitened); the device
-             time by kernel over one request and over three Adam steps of
-             both models (torch.profiler).
+             need, and kernel #3 against its plain version at n = 10,000;
+             wall time per Adam step and per Adam+natural-gradient step
+             (whitened RBF) and per Adam step (non-whitened, RBF + Linear);
+             the device time by kernel over one request and over three Adam
+             steps of each of the three models (torch.profiler).
 
 The line before the last is one JSON object listing every ported kernel;
 the last line is {"ok": true, "device": {...}}. Without a card, or without
@@ -60,6 +77,7 @@ either.
 """
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -80,8 +98,10 @@ N_REQUEST, N_CHUNKED, CHUNK = 100_000, 1_000_000, 125_000
 N_TRAIN = 10_000    # bench.py's N; a layer's conditional sees S * N_TRAIN points
 ADAM_STEPS, NAT_STEPS_1, NAT_STEPS_2, MASKED_STEPS = 20, 5, 10, 2
 NONWHITE_ADAM_STEPS, NONWHITE_NAT_STEPS = 10, (3, 5)
-TOL = 1e-4          # kernel vs f64 plain: mean err / max|mean|, var err / v,
-                    # t2 (t1) err / max|t2| (max|t1|)
+COMPOSITE_ADAM_STEPS, COMPOSITE_NAT_STEPS = 10, (3, 5)
+TOL = 1e-4          # kernel vs f64 plain: mean err / max|mean|, var err / v
+                    # (max Kff: the variance cancels against it), t2 (t1)
+                    # err / max|t2| (max|t1|)
 # backward kernel vs f64 plain: err / max|that gradient|. dvariance is one
 # number, a signed sum of n*D terms of the size of g_var that largely cancel,
 # so it is held to sum|g_var| instead of its own (small) value
@@ -121,7 +141,7 @@ def build():
     for name, text in logs.items():
         kernel = ""
         for line in (text or "").splitlines():
-            entry = re.search(r"Compiling entry function .*?([a-z]+_(?:fwd|bwd)|"
+            entry = re.search(r"Compiling entry function .*?([a-z][a-z_]*_(?:fwd|bwd)|"
                               r"reduce_slabs)(I(?:Li\d+E)+E)?", line)
             if entry:
                 args = re.findall(r"Li(\d+)E", entry.group(2) or "")
@@ -318,6 +338,169 @@ def check_quadform_backward(D, Mi, n, with_t1, seed):
     return worst
 
 
+def composite_kernel(Din, device=DEVICE):
+    """The configuration's layer kernel: RBF + Linear, both ARD over the
+    layer's Din inputs, at bench.py's initial values (variances and
+    lengthscales 1)."""
+    from dgp_tpu_torch.ops import kernels as K
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return (K.RBF.create(variance=1.0, lengthscales=[1.0] * Din, **f32)
+            + K.Linear.create(variance=[1.0] * Din, **f32))
+
+
+def composite_inputs(D, Mi, Din, n, seed, device=DEVICE, kern=None,
+                     clamp=False):
+    """Seeded float32 operands of kernel #3 for a composite layer kernel
+    (``kern``, by default :func:`composite_kernel`): Pinv, Kuf = K(Z, X),
+    q_mu ~ N(0, 1), Sq = tril(0.05 N + I)^T and Kff = K_diag(X), which
+    varies per point (1 + sum_l x_l^2 for RBF + Linear). With ``clamp``,
+    Kff is instead set per point to max_d(t1 - t2_d) + U(-1, 1) (reckoned
+    in float64), so that the clamp max(var, 0) zeroes many variances (a
+    quarter to two fifths of them at this script's shapes)."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+    from dgp_tpu_torch.ops import conditionals as C
+
+    rng = np.random.default_rng(seed)
+    f32 = dict(dtype=torch.float32, device=device)
+    pool = rng.uniform(size=(2000, Din))
+    Z = torch.tensor(pool[rng.choice(2000, Mi, replace=False)], **f32)
+    X = torch.tensor(rng.uniform(size=(n, Din)), **f32)
+    q_mu = torch.tensor(rng.normal(size=(Mi, D)), **f32)
+    q_sqrt = torch.tensor(
+        np.tril(0.05 * rng.normal(size=(D, Mi, Mi)) + np.eye(Mi)), **f32)
+    kern = composite_kernel(Din, device) if kern is None else kern
+    with torch.no_grad():
+        proj = C.precompute_projection(kern, Z, q_sqrt, True)
+        args = [proj.Pinv, kern.K(Z, X), q_mu,
+                torch.tril(q_sqrt).transpose(-1, -2), kern.K_diag(X)]
+        if clamp:
+            _, _, t1, t2 = cf._a_b(*[args[i].double() for i in (0, 1, 3)])
+            offset = torch.tensor(rng.uniform(-1, 1, n), dtype=torch.float64,
+                                  device=device)
+            args[4] = ((t1 - t2).max(dim=0).values + offset).float()
+    return tuple(args)
+
+
+def clamp_band(args):
+    """(lin, band): the float64 pre-clamp variances (Kff - t1) + t2 [D, n]
+    of these float32 operands, and the band |lin| <= TOL * max Kff within
+    which the kernel (float32) and the plain version (float64) may take the
+    clamp max(lin, 0) on opposite sides: it is the variance's own
+    tolerance."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+
+    Pinv, Kuf, _, Sq, Kff = [a.double() for a in args]
+    with torch.no_grad():
+        _, _, t1, t2 = cf._a_b(Pinv, Kuf, Sq)
+    return (Kff - t1) + t2, TOL * float(Kff.max())
+
+
+def check_fused_white(D, Mi, Din, n, seed, clamp=False, witness=False):
+    """Kernel #3 against its plain version in float64 on the same float32
+    inputs: mean within TOL of max|mean|, var within TOL of max Kff. With
+    ``clamp`` (see :func:`composite_inputs`) some variances must be clamped
+    to 0. With ``witness`` the inputs are conditioned so badly that the
+    plain version in float32 is itself beyond TOL of float64; the kernel is
+    then held to twice that plain fp32 error plus TOL of scale."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+
+    args = composite_inputs(D, Mi, Din, n, seed, clamp=clamp)
+    before = cf.FusedConditionalWhite.launches
+    with torch.no_grad():
+        mk, vk = cf.fused_conditional_white(*args)
+        sync()
+        mp, vp = cf.fused_conditional_white_plain(*[a.double() for a in args])
+        # the plain version in float32 on the same inputs: how far fp32
+        # itself lands from f64 at this Kuu's conditioning
+        m32, v32 = cf.fused_conditional_white_plain(*args)
+    if cf.FusedConditionalWhite.launches != before + 1:
+        raise AssertionError("the fused whitened conditional did not launch its kernel")
+    if (mk.shape != (n, D) or not torch.isfinite(mk).all()
+            or not torch.isfinite(vk).all()):
+        raise AssertionError("kernel #3: bad shape or non-finite output")
+    em = float((mk.double() - mp).abs().max())
+    ev = float((vk.double() - vp).abs().max())
+    scale_m, kff = float(mp.abs().max()), float(args[4].max())
+    em32 = float((m32.double() - mp).abs().max())
+    ev32 = float((v32.double() - vp).abs().max())
+    tol_m, tol_v = TOL * scale_m, TOL * kff
+    if witness:
+        tol_m, tol_v = tol_m + 2 * em32, tol_v + 2 * ev32
+    clamped = int((vp == 0).sum())
+    ok = em <= tol_m and ev <= tol_v and (not clamp or 0 < clamped < n * D)
+    log(f"[kernels] fused whitened (#3) D={D} M={Mi} Din={Din} n={n}, Kff in "
+        f"[{float(args[4].min()):.2f}, {kff:.2f}], max|Pinv| "
+        f"{float(args[0].abs().max()):.1f}, {clamped} of {n * D} variances "
+        f"clamped: max|dmean| {em:.3e} (tol {tol_m:.3e}; plain fp32 "
+        f"{em32:.3e}), max|dvar| {ev:.3e} (tol {tol_v:.3e}; plain fp32 "
+        f"{ev32:.3e}){' [tol: TOL of scale + 2x plain fp32]' if witness else ''}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kernel #3 disagrees with its plain version")
+    return max(em, ev)
+
+
+FUSED_WHITE_GRADS = ("dPinv", "dKuf", "dq_mu", "dSq", "dKff")
+
+
+def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
+    """Kernel #4 through autograd of the wrapper, against the plain backward
+    in float64 on the same float32 inputs: each of the five gradients within
+    TOL_BWD of its own largest magnitude (dKff, the clamp-masked sum of g_var
+    over the outputs, per point), and a second run bit for bit equal to the
+    first. Where a pre-clamp variance lies within :func:`clamp_band` of 0,
+    kernel and plain version may take the mask on opposite sides; g_var is
+    set to 0 there, so the mask of those entries reaches no gradient, and
+    they are counted. With ``clamp`` some variances must be clamped, so the
+    mask zeroes part of g_var."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+
+    args = composite_inputs(D, Mi, Din, n, seed, clamp=clamp)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    g = [torch.randn((n, D), generator=gen, device=DEVICE) for _ in range(2)]
+    lin, band = clamp_band(args)
+    ambiguous = lin.T.abs() <= band
+    g[1] = g[1].masked_fill(ambiguous, 0.0)
+    clamped = int((lin <= 0).sum())
+    if clamp and not 0 < clamped < n * D:
+        raise AssertionError(f"kernel #4 clamp case: {clamped} of {n * D} "
+                             f"variances clamped")
+
+    def kernel_grads():
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        before = cf.FusedConditionalWhite.backward_launches
+        out = cf.fused_conditional_white(*leaves)
+        grads = torch.autograd.grad(out, leaves, grad_outputs=g)
+        sync()
+        if cf.FusedConditionalWhite.backward_launches != before + 1:
+            raise AssertionError("kernel #4 did not launch")
+        return grads
+
+    got, again = kernel_grads(), kernel_grads()
+    with torch.no_grad():
+        want = cf.fused_conditional_white_backward_plain(
+            *[a.double() for a in args], *[x.double() for x in g])
+    worst, report = 0.0, []
+    for name, a, b, w in zip(FUSED_WHITE_GRADS, got, again, want):
+        if a.shape != w.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"kernel #4 {name}: bad shape or non-finite")
+        if not torch.equal(a, b):
+            raise AssertionError(f"kernel #4 {name}: two runs differ")
+        err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
+        report.append(f"{name} {err / scale:.2e}")
+        worst = max(worst, err)
+        if not err <= TOL_BWD * scale:
+            raise AssertionError(
+                f"kernel #4 D={D} M={Mi} n={n}: {name} off by {err:.3e}, "
+                f"{err / scale:.2e} of its scale {scale:.3e}")
+    log(f"[kernels] fused whitened backward (#4) D={D} M={Mi} Din={Din} "
+        f"n={n}: err / max|plain f64| (tol {TOL_BWD}): {', '.join(report)}; "
+        f"{clamped} of {n * D} variances clamped, {int(ambiguous.sum())} "
+        f"within {band:.2e} of the clamp (g_var 0 there); repeat bit-equal ok")
+    return worst
+
+
 # -- phase 3 --------------------------------------------------------------------
 
 
@@ -373,27 +556,52 @@ def timed(fn):
 
 
 def counts():
-    """Launch counts of kernels #1, #2 (the fused conditional and its
+    """Launch counts of kernels #1, #2 (the stationary fused conditional and
+    its backward), #3, #4 (the Kuf-consuming fused conditional and its
     backward) and #5, #6 (the quadform and its backward)."""
+    from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
     from dgp_tpu_torch.ops.quadform import QuadForm as QF
 
-    return FC.launches, FC.backward_launches, QF.launches, QF.backward_launches
+    return (FC.launches, FC.backward_launches, FW.launches,
+            FW.backward_launches, QF.launches, QF.backward_launches)
 
 
 def zero_counts():
+    from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
     from dgp_tpu_torch.ops.quadform import QuadForm as QF
 
-    FC.launches = FC.backward_launches = QF.launches = QF.backward_launches = 0
+    FC.launches = FC.backward_launches = 0
+    FW.launches = FW.backward_launches = 0
+    QF.launches = QF.backward_launches = 0
 
 
-def expected_counts(white, forwards, backwards=0):
+COUNTED = "(#1, #2, #3, #4, #5, #6)"
+
+
+def path_of(model):
+    """Which kernels a model's conditionals run: "stationary" (whitened
+    RBF: #1/#2), "composite" (whitened RBF + Linear: #3/#4) or "nonwhite"
+    (#5/#6)."""
+    layer = model.params.layers[0]
+    if not layer.white:
+        return "nonwhite"
+    return "stationary" if type(layer.kernel).__name__ == "RBF" else "composite"
+
+
+def expected_counts(path, forwards, backwards=0):
     """counts() after `forwards` conditionals and `backwards` gradients of
-    them: the whitened RBF model runs kernels #1/#2, the non-whitened one
-    #5/#6, and neither runs the other's."""
-    return ((forwards, backwards, 0, 0) if white
-            else (0, 0, forwards, backwards))
+    them on a model of that path: each path runs its own pair of kernels and
+    neither of the others'."""
+    pair = (forwards, backwards)
+    zero = (0, 0)
+    return {"stationary": pair + zero + zero, "composite": zero + pair + zero,
+            "nonwhite": zero + zero + pair}[path]
+
+
+WHAT = {"stationary": "whitened", "composite": "RBF + Linear",
+        "nonwhite": "non-whitened"}
 
 
 def serve(model, gpu):
@@ -405,8 +613,8 @@ def serve(model, gpu):
     rng = np.random.default_rng(1)
     requests = [rng.uniform(0, 1, size=(N_REQUEST, DIN)) for _ in range(3)]
     n_layers = len(model.params.layers)
-    white = model.params.layers[0].white
-    what = "whitened" if white else "non-whitened"
+    path = path_of(model)
+    what = WHAT[path]
 
     zero_counts()
     for i, Xr in enumerate(requests):
@@ -414,9 +622,9 @@ def serve(model, gpu):
         (mean, var), dt = timed(lambda: model.predict_y(Xr, S))
         mm, mv = moment_matched(mean, var)
         launched = tuple(a - b for a, b in zip(counts(), before))
-        if launched != expected_counts(white, n_layers):
+        if launched != expected_counts(path, n_layers):
             raise AssertionError(f"request {i}: kernel launches {launched}, "
-                                 f"expected {expected_counts(white, n_layers)}")
+                                 f"expected {expected_counts(path, n_layers)}")
         if mean.shape != (S, N_REQUEST, 1) or mm.shape != (N_REQUEST, 1):
             raise AssertionError(f"request {i}: shapes {tuple(mean.shape)}, {tuple(mm.shape)}")
         if not (torch.isfinite(mean).all() and torch.isfinite(var).all()
@@ -424,8 +632,8 @@ def serve(model, gpu):
             raise AssertionError(f"request {i}: non-finite or non-positive output")
         log(f"[serving] {what} request {i}: N={N_REQUEST} S={S}: "
             f"{1e3 * dt:.2f} ms, {N_REQUEST / dt:,.0f} points/s, kernel "
-            f"launches (#1, #2, #5, #6) {launched} ({gpu})")
-    if not white:
+            f"launches {COUNTED} {launched} ({gpu})")
+    if path != "stationary":
         return counts()
 
     X_big = rng.uniform(0, 1, size=(N_CHUNKED, DIN))
@@ -435,7 +643,7 @@ def serve(model, gpu):
         (cm, cv), dt = timed(lambda: predict_in_chunks(
             predict, model.params, X_big, model.generator, CHUNK,
             device=DEVICE))
-    expect = expected_counts(white, n_layers * (N_CHUNKED // CHUNK))
+    expect = expected_counts(path, n_layers * (N_CHUNKED // CHUNK))
     launched = tuple(a - b for a, b in zip(counts(), before))
     if launched != expect:
         raise AssertionError(f"chunked: kernel launches {launched}, "
@@ -445,7 +653,7 @@ def serve(model, gpu):
         raise AssertionError("chunked request: bad output")
     log(f"[serving] chunked request: N={N_CHUNKED} in {CHUNK} chunks, S={S}: "
         f"{1e3 * dt:.2f} ms, {N_CHUNKED / dt:,.0f} points/s, kernel launches "
-        f"(#1, #2, #5, #6) {launched} ({gpu})")
+        f"{COUNTED} {launched} ({gpu})")
     return counts()
 
 
@@ -470,7 +678,7 @@ def compare_paths(model):
         torch.set_float32_matmul_precision("highest")
     em = float((mk - mp).abs().max()) / float(mp.abs().max())
     ev = float((vk - vp).abs().max()) / float(vp.abs().max())
-    what = "whitened" if model.params.layers[0].white else "non-whitened"
+    what = WHAT[path_of(model)]
     log(f"[serving] {what}: kernels on vs off, one request, TF32 asked for: "
         f"mean err {em:.3e}, "
         f"var err {ev:.3e} of scale (tol {TOL_REQUEST})")
@@ -481,9 +689,10 @@ def compare_paths(model):
 # -- phase 4 --------------------------------------------------------------------
 
 
-def training_model(white=True, seed=0):
+def training_model(white=True, seed=0, composite=False):
     """bench.py's model and data, built from the seed with numpy; the
-    non-whitened model starts from the prior q_sqrt = chol(Kuu)."""
+    non-whitened model starts from the prior q_sqrt = chol(Kuu). With
+    ``composite`` every layer's kernel is RBF + Linear (composite_kernel)."""
     from dgp_tpu_torch.models.dgp import DGP
     from dgp_tpu_torch.ops import kernels as K
 
@@ -493,8 +702,11 @@ def training_model(white=True, seed=0):
          + 0.05 * rng.normal(size=(N_TRAIN, 1)))
     Z = X[rng.choice(N_TRAIN, M, replace=False)].copy()
     f32 = dict(dtype=torch.float32, device=DEVICE)
-    kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
-               K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
+    if composite:
+        kernels = [composite_kernel(DIN), composite_kernel(HIDDEN)]
+    else:
+        kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
+                   K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
     return DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=white,
                device=DEVICE, dtype=torch.float32)
 
@@ -504,8 +716,8 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     kernels' launch counts over it (counts())."""
     from dgp_tpu_torch.models import training
 
-    white = model.params.layers[0].white
-    what = "whitened" if white else "non-whitened"
+    path = path_of(model)
+    what = WHAT[path]
     n_layers = len(model.params.layers)
     state = lambda: {k: v.clone() for k, v in model.params.state_dict().items()}
     start = state()
@@ -519,14 +731,14 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     if not losses[-5:].mean() < losses[0]:
         raise AssertionError(f"optimize_adam: the loss did not fall: {losses}")
     evaluations = adam_steps * n_layers
-    expect = expected_counts(white, evaluations, evaluations)
+    expect = expected_counts(path, evaluations, evaluations)
     if counts() != expect:
         raise AssertionError(f"optimize_adam: launches {counts()}, expected "
                              f"{expect}")
     log(f"[training] {what} optimize_adam {adam_steps} steps (first-use "
         f"warm-up included): {1e3 * dt:.1f} ms, loss {losses[0]:.1f} -> "
-        f"{losses[-5:].mean():.1f} (mean of the last 5), launches (#1, #2, "
-        f"#5, #6) {counts()} ({gpu})")
+        f"{losses[-5:].mean():.1f} (mean of the last 5), launches "
+        f"{COUNTED} {counts()} ({gpu})")
 
     n1, n2 = nat_steps
     losses, dt = timed(lambda: model.optimize_nat_adam(
@@ -536,7 +748,7 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
         raise AssertionError(f"optimize_nat_adam: bad losses {losses}")
     # one evaluation per Adam step, two per Adam+natural-gradient step
     evaluations += (n1 + 2 * n2) * n_layers
-    expect = expected_counts(white, evaluations, evaluations)
+    expect = expected_counts(path, evaluations, evaluations)
     if counts() != expect:
         raise AssertionError(f"optimize_nat_adam: launches {counts()}, "
                              f"expected {expect}")
@@ -560,7 +772,7 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     after = state()
     frozen = [k for k in after if not mask[k]]
     if (len(frozen) != 5
-            or counts() != expected_counts(white, evaluations, evaluations)):
+            or counts() != expected_counts(path, evaluations, evaluations)):
         raise AssertionError(f"masked phase: frozen {frozen}, launches {counts()}")
     for k in after:
         if torch.equal(after[k], moved[k]) != (k in frozen):
@@ -568,7 +780,7 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
                                  f"{'moved' if k in frozen else 'did not move'}")
     log(f"[training] {masked_steps} Adam steps with {len(frozen)} frozen "
         f"tensors: frozen bit for bit unchanged, the rest moved; launches on "
-        f"the training path (#1, #2, #5, #6): {counts()}")
+        f"the training path {COUNTED}: {counts()}")
     return counts()
 
 
@@ -589,14 +801,14 @@ def compare_gradients(model):
         loss = -elbo(model.params, *model.data, S, zs=zs)
         return loss.detach(), torch.autograd.grad(loss, list(params.values()))
 
-    white = model.params.layers[0].white
+    path = path_of(model)
     n_layers = len(model.params.layers)
     before = counts()
     loss_on, on = evaluate()
     launched = tuple(a - b for a, b in zip(counts(), before))
     with kernels_scope(False):
         loss_off, off = evaluate()
-    expect = expected_counts(white, n_layers, n_layers)
+    expect = expected_counts(path, n_layers, n_layers)
     if launched != expect or counts() != tuple(
             b + e for b, e in zip(before, expect)):
         raise AssertionError(f"gradient evaluation launched {launched}")
@@ -606,8 +818,7 @@ def compare_gradients(model):
         err = float((a - b).abs().max()) / float(b.abs().max())
         report.append(f"{name} {err:.2e}")
         worst = max(worst, err)
-    what = "whitened" if white else "non-whitened"
-    log(f"[training] {what}: kernels on vs off, loss and gradients on fixed "
+    log(f"[training] {WHAT[path]}: kernels on vs off, loss and gradients on fixed "
         f"normals, err / max|off| (tol {TOL_GRAD}): {', '.join(report)}")
     if not worst <= TOL_GRAD:
         raise AssertionError("the gradients differ with the kernels off")
@@ -687,6 +898,11 @@ def backward_bound_ms(Pinv, Xs, q_mu, Sq):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def slab_mb(blocks, shapes):
+    """MB of a backward kernel's scratch: one float32 slab per block."""
+    return 4e-6 * blocks * sum(math.prod(s) for s in shapes)
+
+
 def time_backward(kind, D, Din, n, gpu):
     """The backward kernel with its slab reduction, through the wrapper's
     launch (scratch allocation included), beside its plain version."""
@@ -702,7 +918,7 @@ def time_backward(kind, D, Din, n, gpu):
     Pinv, Xs, _, _, q_mu, Sq = args
     bound, by = backward_bound_ms(Pinv, Xs, q_mu, Sq)
     blocks = cfr._library().dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D)
-    scratch_mb = 4e-6 * blocks * cfr.backward_slab_floats(M, Din, D)
+    scratch_mb = slab_mb(blocks, cfr.backward_slab_shapes(M, Din, D))
     # each 64-point tile reads and writes the (1 + D) M x M squares of its
     # block's slab once (reckoned from the shapes, not measured)
     rmw_gb = 8e-9 * -(-n // 64) * (1 + D) * M * M
@@ -763,6 +979,65 @@ def time_quadform(D, n, gpu, backward=False):
     return ms, plain_ms, bound, by
 
 
+def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False):
+    """Least time for kernel #3 (or #4) on these inputs, as
+    :func:`fused_bound_ms` reckons it: each M x M product counts the nonzeros
+    of Pinv and Sq (triangular on the whitened path). Forward: a = Pinv kuf
+    and the D products b_d = Sq[d] a, the mean, t1 and t2. Backward: a,
+    dKuf = Pinv^T da and dPinv on Pinv's pattern, b_d, Sq[d]^T gb_d and dSq[d]
+    on Sq's (only those entries reach a parameter), t1, t2, q_mu g_mean^T and
+    dq_mu. Bytes: Kuf and Kff read and mean and var written (forward); Kuf,
+    Kff, g_mean and g_var read and dKuf, dKff written (backward); plus the
+    small operands and sums once."""
+    Mi, n = Kuf.shape
+    D = q_mu.shape[1]
+    nnz_p, nnz_s = int(torch.count_nonzero(Pinv)), int(torch.count_nonzero(Sq))
+    small = Mi * Mi + Mi * D + D * Mi * Mi
+    if backward:
+        per_point = 3 * 2 * (nnz_p + nnz_s) + 2 * Mi + 2 * Mi * D + 4 * Mi * D
+        nbytes = 4.0 * (2 * (Mi * n + n) + 2 * n * D + 2 * small)
+    else:
+        per_point = 2 * (nnz_p + nnz_s) + 2 * Mi * D + 2 * Mi + 2 * Mi * D
+        nbytes = 4.0 * (Mi * n + n + 2 * n * D + small)
+    t_ops, t_bytes = float(n) * per_point / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_fused_white(D, n, gpu, backward=False):
+    """Kernel #3 (or #4 with its slab reduction, through the wrapper's
+    launch, scratch allocation included) beside its plain version, on the
+    operands of an RBF + Linear layer (Din = 8)."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+
+    args = composite_inputs(D, M, DIN, n, 14)
+    with torch.no_grad():
+        if backward:
+            gen = torch.Generator(device=DEVICE).manual_seed(14)
+            g = [torch.randn((n, D), generator=gen, device=DEVICE) for _ in range(2)]
+            ms = event_ms(lambda: cf._launch_backward(*args, *g), 10)
+            plain_ms = event_ms(
+                lambda: cf.fused_conditional_white_backward_plain(*args, *g), 5)
+        else:
+            ms = event_ms(lambda: cf._launch(*args), 10)
+            plain_ms = event_ms(lambda: cf.fused_conditional_white_plain(*args), 5)
+    Pinv, Kuf, q_mu, Sq, _ = args
+    bound, by = fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward)
+    extra = ""
+    if backward:
+        blocks = cf._library().dgp_conditional_fused_bwd_blocks(n, M, D)
+        # each 64-point tile reads and writes the (1 + D) M x M squares of
+        # its block's slab once (reckoned from the shapes, not measured)
+        rmw_gb = 8e-9 * -(-n // 64) * (1 + D) * M * M
+        extra = (f"; {blocks} blocks, scratch "
+                 f"{slab_mb(blocks, cf.backward_slab_shapes(M, D)):.1f} MB, slab "
+                 f"read-modify-write {rmw_gb:.2f} GB per call")
+    log(f"[timing] fused whitened{' backward (#4)' if backward else ' (#3)'} "
+        f"D={D} M={M} n={n}: kernel{'+reduce' if backward else ''} {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+        f"{bound / ms:.1%} of the bound{extra} ({gpu})")
+    return ms, plain_ms, bound, by
+
+
 def time_steps(model, gpu, steps=10, rounds=3, nat=True):
     """Wall time per training step, synchronised around a run of steps.
     Host-clock times spread with the load on the machine's CPU cores, so
@@ -774,7 +1049,7 @@ def time_steps(model, gpu, steps=10, rounds=3, nat=True):
     if nat:
         phases["Adam + natural-gradient step"] = lambda: model.optimize_nat_adam(
             iterations1=0, iterations2=steps, messages=0, shrink_inner=False)
-    what = "whitened" if model.params.layers[0].white else "non-whitened"
+    what = WHAT[path_of(model)]
     for step, run in phases.items():
         run()
         ms = sorted(1e3 * timed(run)[1] / steps for _ in range(rounds))
@@ -852,26 +1127,63 @@ def main():
             err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
                 D, Mi, n, with_t1, 300 + seed))
 
+    err_fw = err_fw_bwd = 0.0
+    for seed, (D, Mi, Din, n) in enumerate([
+            (HIDDEN, M, DIN, 262_144 + 37),   # layer 1 of the model
+            (1, M, HIDDEN, 262_144 + 37),     # layer 2
+            (3, 64, 5, 10_007),               # small odd shapes; M = 100 is
+            (2, 100, DIN, 1_037)]):           # padded to 128 in the kernels
+        err_fw = max(err_fw, check_fused_white(D, Mi, Din, n, 400 + seed))
+    # M = 100 points in 3 dimensions: max|Pinv| ~ 93, fp32 itself off by
+    # more than TOL of scale
+    err_fw = max(err_fw, check_fused_white(2, 100, 3, 1_037, 403, witness=True))
+    clamped = [(HIDDEN, M, DIN, S * N_TRAIN + 37), (2, 100, DIN, 1_037)]
+    for seed, (D, Mi, Din, n) in enumerate(clamped):
+        err_fw = max(err_fw, check_fused_white(D, Mi, Din, n, 450 + seed,
+                                               clamp=True))
+    for seed, (D, Mi, Din, n) in enumerate([
+            (HIDDEN, M, DIN, S * N_TRAIN + 37),   # layer 1, training
+            (1, M, HIDDEN, S * N_TRAIN + 37),     # layer 2
+            (3, 64, 5, 10_007),
+            (2, 100, DIN, 1_037)]):
+        err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
+            D, Mi, Din, n, 500 + seed))
+    for seed, (D, Mi, Din, n) in enumerate(clamped):
+        err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
+            D, Mi, Din, n, 550 + seed, clamp=True))
+
     model = serving_model()
     served = serve(model, gpu)[0]
     log(f"[serving] fused conditional launches on the serving path: {served}")
     compare_paths(model)
     model_nw = serving_model(white=False)
-    served_nw = serve(model_nw, gpu)[2]
+    served_nw = serve(model_nw, gpu)[4]
     log(f"[serving] quadform launches on the non-whitened serving path: "
         f"{served_nw}")
     compare_paths(model_nw)
+    # bench.py's model with RBF + Linear layers, q moved off the prior (at
+    # the prior t2 == t1, and Z's gradient is rounding)
+    model_c = training_model(composite=True)
+    perturb(model_c, np.random.default_rng(4))
+    served_c = serve(model_c, gpu)[2]
+    log(f"[serving] Kuf-consuming fused conditional (#3) launches on the "
+        f"RBF + Linear serving path: {served_c}")
+    compare_paths(model_c)
+    compare_gradients(model_c)
 
     trained = training_model()
-    fwd_launches, bwd_launches, _, _ = train(
+    fwd_launches, bwd_launches, *_ = train(
         trained, gpu, ADAM_STEPS, (NAT_STEPS_1, NAT_STEPS_2), MASKED_STEPS)
     compare_gradients(trained)
     trained_nw = training_model(white=False)
-    _, _, qf_launches, qf_bwd_launches = train(
+    *_, qf_launches, qf_bwd_launches = train(
         trained_nw, gpu, NONWHITE_ADAM_STEPS, NONWHITE_NAT_STEPS)
     off_prior = training_model(white=False)
     perturb(off_prior, np.random.default_rng(3))
     compare_gradients(off_prior)
+    trained_c = training_model(composite=True)
+    _, _, fw_launches, fw_bwd_launches, _, _ = train(
+        trained_c, gpu, COMPOSITE_ADAM_STEPS, COMPOSITE_NAT_STEPS)
 
     ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
@@ -882,8 +1194,15 @@ def main():
     time_quadform(HIDDEN, 10_000, gpu)  # a small n: where would plain win?
     qf_bwd = time_quadform(HIDDEN, S * N_TRAIN, gpu, backward=True)
     time_quadform(1, S * N_TRAIN, gpu, backward=True)
+    fw = time_fused_white(HIDDEN, S * N_REQUEST, gpu)
+    time_fused_white(1, S * N_REQUEST, gpu)
+    time_fused_white(HIDDEN, 10_000, gpu)  # a small n: where would plain win?
+    time_fused_white(1, 10_000, gpu)
+    fw_bwd = time_fused_white(HIDDEN, S * N_TRAIN, gpu, backward=True)
+    time_fused_white(1, S * N_TRAIN, gpu, backward=True)
     time_steps(trained, gpu)
     time_steps(trained_nw, gpu, nat=False)
+    time_steps(trained_c, gpu, nat=False)
     Xr = np.random.default_rng(2).uniform(0, 1, size=(N_REQUEST, DIN))
     profile_run("one whitened request", lambda: model.predict_y(Xr, S), gpu)
     profile_run("three whitened Adam steps", lambda: trained.optimize_adam(
@@ -892,9 +1211,14 @@ def main():
                 gpu)
     profile_run("three non-whitened Adam steps", lambda: trained_nw.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
+    profile_run("one RBF + Linear request", lambda: model_c.predict_y(Xr, S),
+                gpu)
+    profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     qf_source = "dgp_tpu_torch/csrc/quadform.cu"
+    fw_source = "dgp_tpu_torch/csrc/conditional_fused.cu"
     kernels = [{
         "name": "conditional_fused_rbf",
         "route": "cuda",
@@ -942,6 +1266,30 @@ def main():
         "plain_ms": qf_bwd[1],
         "bound_ms": qf_bwd[2],
         "bound_by": qf_bwd[3],
+        "library_ms": None,
+    }, {
+        "name": "conditional_fused",
+        "route": "cuda",
+        "source": fw_source,
+        "replaces": "dgp_tpu/ops/conditional_fused.py:72",
+        "launches": served_c + fw_launches,
+        "max_abs_err": err_fw,
+        "ms": fw[0],
+        "plain_ms": fw[1],
+        "bound_ms": fw[2],
+        "bound_by": fw[3],
+        "library_ms": None,
+    }, {
+        "name": "conditional_fused_bwd",
+        "route": "cuda",
+        "source": fw_source,
+        "replaces": "dgp_tpu/ops/conditional_fused.py:87",
+        "launches": fw_bwd_launches,
+        "max_abs_err": err_fw_bwd,
+        "ms": fw_bwd[0],
+        "plain_ms": fw_bwd[1],
+        "bound_ms": fw_bwd[2],
+        "bound_by": fw_bwd[3],
         "library_ms": None,
     }]
     log(json.dumps({"kernels": kernels}))

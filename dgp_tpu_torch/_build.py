@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("conditional_fused_rbf", "quadform")
+SOURCES = ("conditional_fused_rbf", "conditional_fused", "quadform")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -82,8 +82,10 @@ def build(names=SOURCES) -> dict:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.
+    ``signatures`` maps each C entry point to its argument types; every
+    entry returns an int (a CUDA error code, a size gate or a block count)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -91,6 +93,9 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             lib.dgp_cuda_error_string.argtypes = [ctypes.c_int]
             lib.dgp_cuda_error_string.restype = ctypes.c_char_p
+            for entry, argtypes in signatures.items():
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
             _libs[name] = lib
         return lib
 

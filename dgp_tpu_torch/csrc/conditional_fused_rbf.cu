@@ -87,16 +87,16 @@
 //   * Rows past n read g_mean = g_var = 0, which makes every one of their
 //     contributions 0; padded rows of M hold kuf = 0 and are masked in dsq.
 // The clamp masks are recomputed from (v - t1) + t2 and sq, as on the TPU.
+// The steps after the kuf tile, forward and backward, are shared with the
+// Kuf-consuming kernels (conditional_fused.cu) through conditional.cuh.
 
-#include "tiles.cuh"
+#include "conditional.cuh"
 
 namespace {
 
 struct Layout {
   int t, u, t1, om, ov, qm, total;  // offsets in floats; total floats
 };
-
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
 __host__ __device__ inline Layout layout(int MP, int M, int Din, int D) {
   Layout L;
@@ -156,7 +156,7 @@ fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
   float* outv = smem + L.ov;        // [TN][D]
   float* qm = smem + L.qm;          // [M][D]
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x;
   const long long p0 = static_cast<long long>(blockIdx.x) * TN;
   const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
   const float v = __ldg(vptr);
@@ -195,35 +195,9 @@ fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
   }
   __syncthreads();
 
-  // phase 2: a = Pinv @ kuf into registers, then over kuf in place; t1, mean
-  float acc[RM][4];
-  tile_product<RM>(W, T, ty, tx, acc);
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-    *reinterpret_cast<float4*>(T + (ty * RM + r) * TN + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  colsumsq_partials<RM>(acc, red, tid);
-  __syncthreads();
-  if (tid < TN) t1s[tid] = colsum(red, tid);
-  for (int o = tid; o < TN * D; o += NT) {
-    const int d = o / TN, j = o % TN;
-    float s = 0.0f;
-    for (int m = 0; m < M; ++m) s = fmaf(T[m * TN + j], qm[m * D + d], s);
-    outm[j * D + d] = s;
-  }
-
-  // phase 3: b_d = Sq[d] @ a, reduced to t2_d without leaving registers
-  for (int d = 0; d < D; ++d) {
-    __syncthreads();
-    stage<MP>(W, sqT + static_cast<long long>(d) * M * M, M, tid);
-    __syncthreads();
-    tile_product<RM>(W, T, ty, tx, acc);
-    colsumsq_partials<RM>(acc, red, tid);
-    __syncthreads();
-    if (tid < TN) outv[tid * D + d] = fmaxf((v - t1s[tid]) + colsum(red, tid), 0.0f);
-  }
-  __syncthreads();
+  // phases 2-3: a, t1, mean, b_d and var (Kff == v)
+  conditional_tile<RM>(W, T, red, t1s, outm, outv, qm, sqT, M, D, tid,
+                       [v](int) { return v; });
 
   // outputs are [n][D] row-major: this tile is one contiguous run
   const long long base = p0 * D;
@@ -298,23 +272,17 @@ fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const BwdLayout L = bwd_layout(MP, M, Din, D);
-  float* W = smem;
-  float* KU = smem + L.ku;
-  float* AT = smem + L.at;
-  float* GB = smem + L.gb;
+  const BackwardTiles tiles{smem, smem + L.ku, smem + L.at, smem + L.gb,
+                            smem + L.red, smem + L.t1, smem + L.gv, smem + L.ss,
+                            smem + L.gm, smem + L.gvar, smem + L.qm, smem + L.dqm};
+  float* W = tiles.W;
+  float* KU = tiles.KU;
+  float* sS = tiles.sS;
   float* zsS = smem + L.zs;
   float* xsS = smem + L.xs;
   float* xx = smem + L.xx;
   float* zz = smem + L.zz;
-  float* red = smem + L.red;
-  float* t1s = smem + L.t1;
-  float* gvS = smem + L.gv;
-  float* sS = smem + L.ss;
-  float* gmS = smem + L.gm;
-  float* gvarS = smem + L.gvar;
-  float* qm = smem + L.qm;
   float* dzsS = smem + L.dzs;
-  float* dqmS = smem + L.dqm;
   float* wsum = smem + L.wsum;
 
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
@@ -329,8 +297,8 @@ fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
 
   // once per block: q_mu, Zs, Pinv^T, and the block's own accumulators
   for (int e = tid; e < M * D; e += NT) {
-    qm[e] = __ldg(qmu + e);
-    dqmS[e] = 0.0f;
+    tiles.qm[e] = __ldg(qmu + e);
+    tiles.dqmS[e] = 0.0f;
   }
   for (int e = tid; e < MP * Din; e += NT) {
     zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
@@ -359,8 +327,8 @@ fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
     }
     for (int e = tid; e < TN * D; e += NT) {
       const bool in = e < nt * D;
-      gmS[e] = in ? __ldg(gmean + p0 * D + e) : 0.0f;
-      gvarS[e] = in ? __ldg(gvar + p0 * D + e) : 0.0f;
+      tiles.gmS[e] = in ? __ldg(gmean + p0 * D + e) : 0.0f;
+      tiles.gvarS[e] = in ? __ldg(gvar + p0 * D + e) : 0.0f;
     }
     __syncthreads();
     if (tid < TN) {
@@ -384,83 +352,11 @@ fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
     }
     __syncthreads();
 
-    // phase 2: a = Pinv @ kuf (W holds Pinv^T), t1
+    // phases 2-4: a, t1, b_d and the clamp mask per output, the slab sums
+    // dSq and dPinv, dq_mu; dkuf into acc (Kff == v)
     float acc[RM][4];
-    tile_product<RM, TS>(W, KU, ty, tx, acc);
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-      *reinterpret_cast<float4*>(AT + (ty * RM + r) * TS + tx * 4) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    colsumsq_partials<RM>(acc, red, tid);
-    __syncthreads();
-    if (tid < TN) t1s[tid] = colsum(red, tid);
-
-    // phase 3: per output d, b_d, the clamp mask, gb_d, and the sums over d
-    float da[RM][4];
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) da[r][c] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      __syncthreads();  // W, red, gvS and GB are free again
-      stage<MP>(W, sqT + d * MM, M, tid);
-      __syncthreads();
-      tile_product<RM, TS>(W, AT, ty, tx, acc);  // b_d = Sq[d] @ a
-      colsumsq_partials<RM>(acc, red, tid);
-      __syncthreads();
-      if (tid < TN) {
-        const float lin = (v - t1s[tid]) + colsum(red, tid);
-        const float g = lin > 0.0f ? gvarS[tid * D + d] : 0.0f;
-        gvS[tid] = g;
-        sS[tid] += g;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-        *reinterpret_cast<float4*>(GB + (ty * RM + r) * TS + tx * 4) = make_float4(
-            2.0f * acc[r][0] * gvS[tx * 4 + 0], 2.0f * acc[r][1] * gvS[tx * 4 + 1],
-            2.0f * acc[r][2] * gvS[tx * 4 + 2], 2.0f * acc[r][3] * gvS[tx * 4 + 3]);
-      __syncthreads();
-      tile_product_t<RM>(W, GB, ty, tx, da);                            // += Sq[d]^T gb_d
-      outer_accumulate<RM>(s_dsq + d * MM, GB, AT, M, ty, tx, first);  // dSq[d] += gb_d a^T
-    }
-    __syncthreads();
-
-    // phase 4: da complete, into GB; Pinv^T back into W
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int row = ty * RM + r;
-      const float4 a4 = *reinterpret_cast<const float4*>(AT + row * TS + tx * 4);
-      const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-      float out[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx * 4 + c;
-        float qg = 0.0f;
-        if (row < M)
-          for (int d = 0; d < D; ++d) qg = fmaf(qm[row * D + d], gmS[col * D + d], qg);
-        out[c] = (da[r][c] - 2.0f * a[c] * sS[col]) + qg;
-      }
-      *reinterpret_cast<float4*>(GB + row * TS + tx * 4) =
-          make_float4(out[0], out[1], out[2], out[3]);
-    }
-    stage<MP>(W, pinvT, M, tid);
-    __syncthreads();
-
-    // dq_mu += a g_mean
-    for (int e = tid; e < M * D; e += NT) {
-      const int m = e / D, d = e % D;
-      float s = 0.0f;
-      for (int j = 0; j < TN; ++j) s = fmaf(AT[m * TS + j], gmS[j * D + d], s);
-      dqmS[e] += s;
-    }
-    // dkuf = Pinv^T da (into acc); dPinv += da kuf^T
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    tile_product_t<RM>(W, GB, ty, tx, acc);
-    outer_accumulate<RM>(s_dpinv, GB, KU, M, ty, tx, first);
+    conditional_tile_backward<RM>(tiles, pinvT, sqT, s_dpinv, s_dsq, M, D, first, tid,
+                                  [v](int) { return v; }, acc);
     __syncthreads();  // every read of the kuf tile is done
 
     // dv's kuf share, and dsq over kuf in place (own elements only)
@@ -512,7 +408,7 @@ fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
 
   // the block's sums that lived on chip, into its slab
   for (int e = tid; e < M * Din; e += NT) s_dzs[e] = dzsS[e];
-  for (int e = tid; e < M * D; e += NT) s_dqm[e] = dqmS[e];
+  for (int e = tid; e < M * D; e += NT) s_dqm[e] = tiles.dqmS[e];
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     dv_kuf += __shfl_down_sync(0xffffffffu, dv_kuf, off);

@@ -86,17 +86,6 @@ inline bool bwd_fits(int M, int D) {
   return M >= 1 && M <= 128 && D >= 1 && bwd_smem_bytes(M) <= MAX_SMEM;
 }
 
-// T[m][j] (row stride S) = A[m][p0 + j] for m < M and j < nt, else 0.
-template <int MP, int S>
-__device__ __forceinline__ void load_tile(float* T, const float* __restrict__ A,
-                                          long long n, long long p0, int nt, int M,
-                                          int tid) {
-  for (int e = tid; e < MP * TN; e += NT) {
-    const int m = e / TN, j = e % TN;
-    T[m * S + j] = (m < M && j < nt) ? __ldg(A + m * n + p0 + j) : 0.0f;
-  }
-}
-
 // t1 is null for the variant without it (a branch outside the products: one
 // instantiation serves both variants and halves the build)
 template <int RM>

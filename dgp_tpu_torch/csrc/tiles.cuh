@@ -25,6 +25,8 @@ using Int = std::integral_constant<int, V>;
 
 inline int padded_m(int M) { return M <= 64 ? 64 : 128; }
 
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
 // G is k-major [M][M] (G[k * M + i]); W becomes [MP][MP], zero-padded.
 template <int MP>
 __device__ __forceinline__ void stage(float* W, const float* __restrict__ G,
@@ -39,6 +41,18 @@ __device__ __forceinline__ void stage(float* W, const float* __restrict__ G,
       const int k = e / MP, i = e % MP;
       W[e] = (k < M && i < M) ? __ldg(G + k * M + i) : 0.0f;
     }
+  }
+}
+
+// T[m][j] (row stride S) = A[m][p0 + j] for m < M and j < nt, else 0: the
+// tile of points p0 .. p0 + TN of an [M][n] operand, zero-padded to MP rows.
+template <int MP, int S>
+__device__ __forceinline__ void load_tile(float* T, const float* __restrict__ A,
+                                          long long n, long long p0, int nt, int M,
+                                          int tid) {
+  for (int e = tid; e < MP * TN; e += NT) {
+    const int m = e / TN, j = e % TN;
+    T[m * S + j] = (m < M && j < nt) ? __ldg(A + m * n + p0 + j) : 0.0f;
   }
 }
 

@@ -39,8 +39,18 @@ import torch
 
 from .. import _build
 from ..config import ieee_fp32
+from ._launch import persistent_grid, run_kernel, split_slab
 
 _LIB = "conditional_fused_rbf"
+_P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "dgp_fused_rbf_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I, _P],
+    "dgp_fused_rbf_supported": [_I, _I, _I],
+    "dgp_fused_rbf_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _N,
+                          _I, _I, _I, _I, _P],
+    "dgp_fused_rbf_bwd_supported": [_I, _I, _I],
+    "dgp_fused_rbf_bwd_blocks": [_I, _N, _I, _I, _I],
+}
 
 
 def supported(M, Din, D):
@@ -163,22 +173,7 @@ def fused_conditional_backward_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq,
 
 
 def _library():
-    lib = _build.load(_LIB)
-    if lib.dgp_fused_rbf_fwd.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dgp_fused_rbf_fwd.argtypes = [i, p, p, p, p, p, p, p, p,
-                                          ctypes.c_longlong, i, i, i, p]
-        lib.dgp_fused_rbf_fwd.restype = i
-        lib.dgp_fused_rbf_supported.argtypes = [i, i, i]
-        lib.dgp_fused_rbf_supported.restype = i
-        lib.dgp_fused_rbf_bwd.argtypes = [i, p, p, p, p, p, p, p, p, p, p, p,
-                                          ctypes.c_longlong, i, i, i, i, p]
-        lib.dgp_fused_rbf_bwd.restype = i
-        lib.dgp_fused_rbf_bwd_supported.argtypes = [i, i, i]
-        lib.dgp_fused_rbf_bwd_supported.restype = i
-        lib.dgp_fused_rbf_bwd_blocks.argtypes = [i, ctypes.c_longlong, i, i, i]
-        lib.dgp_fused_rbf_bwd_blocks.restype = i
-    return lib
+    return _build.load(_LIB, _SIGNATURES)
 
 
 def _checked(Pinv, Xs, Zs, variance, q_mu, Sq, **cotangents):
@@ -223,27 +218,23 @@ def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
         return mean, var
     operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dgp_fused_rbf_fwd(
-            kind, *[t.data_ptr() for t in operands], mean.data_ptr(),
-            var.data_ptr(), n, M, Din, D, stream)
-    _build.check(lib, err, "fused conditional kernel launch")
+    run_kernel(lib, lib.dgp_fused_rbf_fwd, dev, "fused conditional kernel launch",
+               kind, *[t.data_ptr() for t in operands], mean.data_ptr(),
+               var.data_ptr(), n, M, Din, D)
     FusedConditional.launches += 1
     return mean, var
 
 
-def backward_slab_floats(M, Din, D):
-    """Floats in one block's slab of partial sums, and in the summed output:
-    dPinv [M, M], dSq [D, M, M], dZs [M, Din], dq_mu [M, D], dvariance."""
-    return (1 + D) * M * M + M * Din + M * D + 1
+def backward_slab_shapes(M, Din, D):
+    """The parts of one block's slab of partial sums, and of the summed
+    output: dPinv, dSq, dZs, dq_mu, dvariance."""
+    return [(M, M), (D, M, M), (M, Din), (M, D), (1,)]
 
 
 def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
     dev = Xs.device
     n, Din, D, M = _checked(Pinv, Xs, Zs, variance, q_mu, Sq, g_mean=g_mean,
                             g_var=g_var)
-    f32 = dict(dtype=torch.float32, device=dev)
     if n == 0:
         return (torch.zeros_like(Pinv), torch.zeros_like(Xs),
                 torch.zeros_like(Zs), torch.zeros_like(variance),
@@ -251,29 +242,20 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
     operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
     gm, gv = g_mean.contiguous(), g_var.contiguous()
     lib = _library()
-    with torch.cuda.device(dev):
-        blocks = lib.dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D)
-        if blocks < 1:
-            raise RuntimeError(
-                f"the fused conditional's backward kernel does not take "
-                f"kind {kind}, M={M}, Din={Din}, D={D}")
-        # one slab of partial sums per persistent block: bounded by the
-        # card's block count, whatever n is
-        slab = backward_slab_floats(M, Din, D)
-        scratch = torch.empty((blocks, slab), **f32)
-        out = torch.empty((slab,), **f32)
-        dXs = torch.empty((n, Din), **f32)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.dgp_fused_rbf_bwd(
-            kind, *[t.data_ptr() for t in operands], gm.data_ptr(),
-            gv.data_ptr(), dXs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            n, M, Din, D, blocks, stream)
-    _build.check(lib, err, "fused conditional backward kernel launch")
+    shapes = backward_slab_shapes(M, Din, D)
+    blocks, scratch, out = persistent_grid(
+        lambda: lib.dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D), dev, shapes,
+        f"the fused conditional's backward kernel does not take kind {kind}, "
+        f"M={M}, Din={Din}, D={D}")
+    dXs = torch.empty((n, Din), dtype=torch.float32, device=dev)
+    run_kernel(lib, lib.dgp_fused_rbf_bwd, dev,
+               "fused conditional backward kernel launch", kind,
+               *[t.data_ptr() for t in operands], gm.data_ptr(), gv.data_ptr(),
+               dXs.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, M, Din,
+               D, blocks)
     FusedConditional.backward_launches += 1
-    dPinv, dSq, dZs, dq_mu, dv = torch.split(
-        out, [M * M, D * M * M, M * Din, M * D, 1])
-    return (dPinv.view(M, M), dXs, dZs.view(M, Din),
-            dv.view(variance.shape), dq_mu.view(M, D), dSq.view(D, M, M))
+    dPinv, dSq, dZs, dq_mu, dv = split_slab(out, shapes)
+    return dPinv, dXs, dZs, dv.view(variance.shape), dq_mu, dSq
 
 
 class FusedConditional(torch.autograd.Function):

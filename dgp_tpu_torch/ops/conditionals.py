@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import default_jitter, ieee_fp32, use_kernels
+from . import conditional_fused
 from .linalg import cho_solve, eye_like
 from .quadform import quadform_t2, quadform_t2_t1
 
@@ -99,13 +100,13 @@ def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
 
     Dispatch order as in the JAX package. A whitened f32 RBF/Matern layer
     on the card goes through the fused stationary kernel
-    (``conditional_fused_rbf``). Any other layer computes Kuf, A, the mean
+    (``conditional_fused_rbf``). Every other whitened f32 layer on the card
+    (Sum, Product, Linear, ``active_dims``) builds Kuf and Kff in PyTorch
+    and goes through the Kuf-consuming fused kernel
+    (``conditional_fused``), within its plan. The rest computes A, the mean
     and (non-whitened) t1 in PyTorch, and its variational quadform t2 (with
     t1 = ||A||^2 on the whitened path) through ``quadform``: the CUDA kernel
-    for f32 CUDA tensors within its plan, the plain version otherwise. The
-    JAX package's Kuf-consuming fused kernel for the other whitened layers
-    sits between the two and is not ported yet: those layers take the
-    quadform.
+    for f32 CUDA tensors within its plan, the plain version otherwise.
     """
     if proj is None:
         proj = precompute_projection(kernel, Z, q_sqrt, white, jitter)
@@ -123,6 +124,12 @@ def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
             return fused_conditional_white_stationary(
                 kind, proj.Pinv, X / ls, Z / ls, kernel.variance, q_mu, Sq)
     Kuf = kernel.K(Z, X)                       # [M, n]
+    if white and use_kernels():
+        if conditional_fused.applicable(proj.Pinv, Kuf, Sq, q_mu):
+            # A and B stay on chip; dKuf and dKff flow back through
+            # kernel.K and kernel.K_diag
+            return conditional_fused.fused_conditional_white(
+                proj.Pinv, Kuf, q_mu, Sq, kernel.K_diag(X))
     # A (white) = Lu^{-1} Kuf as a product with the precomputed inverse;
     # A (non-white) = Kuu^{-1} Kuf by two substitution solves (f32 accuracy
     # at ill-conditioned Kuu, see the JAX package)

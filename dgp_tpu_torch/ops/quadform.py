@@ -32,8 +32,17 @@ import torch
 
 from .. import _build
 from ..config import ieee_fp32, use_kernels
+from ._launch import persistent_grid, run_kernel, split_slab
 
 _LIB = "quadform"
+_P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SIGNATURES = {
+    "dgp_quadform_fwd": [_P, _P, _P, _P, _N, _I, _I, _P],
+    "dgp_quadform_supported": [_I, _I],
+    "dgp_quadform_bwd_supported": [_I, _I],
+    "dgp_quadform_bwd_blocks": [_N, _I, _I],
+    "dgp_quadform_bwd": [_P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I, _P],
+}
 
 
 def supported(M, D):
@@ -92,20 +101,7 @@ def quadform_backward_plain(Sq, A, g2, g1=None):
 
 
 def _library():
-    lib = _build.load(_LIB)
-    if lib.dgp_quadform_fwd.argtypes is None:
-        p, i, n = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dgp_quadform_fwd.argtypes = [p, p, p, p, n, i, i, p]
-        lib.dgp_quadform_fwd.restype = i
-        lib.dgp_quadform_supported.argtypes = [i, i]
-        lib.dgp_quadform_supported.restype = i
-        lib.dgp_quadform_bwd_supported.argtypes = [i, i]
-        lib.dgp_quadform_bwd_supported.restype = i
-        lib.dgp_quadform_bwd_blocks.argtypes = [n, i, i]
-        lib.dgp_quadform_bwd_blocks.restype = i
-        lib.dgp_quadform_bwd.argtypes = [p, p, p, p, p, p, p, n, i, i, i, p]
-        lib.dgp_quadform_bwd.restype = i
-    return lib
+    return _build.load(_LIB, _SIGNATURES)
 
 
 def _checked(Sq, A, **cotangents):
@@ -136,12 +132,9 @@ def _launch(Sq, A, with_t1):
         # the kernel stages Sq[d] k-major: Sq^T = tril(q_sqrt)
         sqT, Ac = Sq.transpose(1, 2).contiguous(), A.contiguous()
         lib = _library()
-        with torch.cuda.device(A.device):
-            stream = torch.cuda.current_stream(A.device).cuda_stream
-            err = lib.dgp_quadform_fwd(
-                sqT.data_ptr(), Ac.data_ptr(), t2.data_ptr(),
-                None if t1 is None else t1.data_ptr(), n, M, D, stream)
-        _build.check(lib, err, "quadform kernel launch")
+        run_kernel(lib, lib.dgp_quadform_fwd, A.device, "quadform kernel launch",
+                   sqT.data_ptr(), Ac.data_ptr(), t2.data_ptr(),
+                   None if t1 is None else t1.data_ptr(), n, M, D)
         QuadForm.launches += 1
     return (t2, t1) if with_t1 else t2
 
@@ -151,29 +144,22 @@ def _launch_backward(Sq, A, g2, g1):
     D, M, n = _checked(Sq, A, **cotangents)
     if n == 0:
         return torch.zeros_like(Sq), torch.zeros_like(A)
-    f32 = dict(dtype=torch.float32, device=A.device)
     sqT, Ac = Sq.transpose(1, 2).contiguous(), A.contiguous()
     g2c = g2.contiguous()
     g1c = None if g1 is None else g1.contiguous()
     lib = _library()
-    with torch.cuda.device(A.device):
-        blocks = lib.dgp_quadform_bwd_blocks(n, M, D)
-        if blocks < 1:
-            raise RuntimeError(f"the quadform's backward kernel does not take "
-                               f"M={M}, D={D}")
-        # one slab of partial dSq per persistent block: bounded by the
-        # card's block count, whatever n is
-        scratch = torch.empty((blocks, D * M * M), **f32)
-        dSq = torch.empty((D, M, M), **f32)
-        dA = torch.empty((M, n), **f32)
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = lib.dgp_quadform_bwd(
-            sqT.data_ptr(), Ac.data_ptr(), g2c.data_ptr(),
-            None if g1c is None else g1c.data_ptr(), dA.data_ptr(),
-            scratch.data_ptr(), dSq.data_ptr(), n, M, D, blocks, stream)
-    _build.check(lib, err, "quadform backward kernel launch")
+    # one slab of partial dSq per persistent block
+    blocks, scratch, dSq = persistent_grid(
+        lambda: lib.dgp_quadform_bwd_blocks(n, M, D), A.device, [(D, M, M)],
+        f"the quadform's backward kernel does not take M={M}, D={D}")
+    dA = torch.empty((M, n), dtype=torch.float32, device=A.device)
+    run_kernel(lib, lib.dgp_quadform_bwd, A.device,
+               "quadform backward kernel launch", sqT.data_ptr(),
+               Ac.data_ptr(), g2c.data_ptr(),
+               None if g1c is None else g1c.data_ptr(), dA.data_ptr(),
+               scratch.data_ptr(), dSq.data_ptr(), n, M, D, blocks)
     QuadForm.backward_launches += 1
-    return dSq, dA
+    return dSq.view(D, M, M), dA
 
 
 class QuadForm(torch.autograd.Function):

@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dgp_tpu_torch.config import kernels_scope
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import conditional_fused as cf
 from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 from dgp_tpu_torch.ops import conditionals as C
 from dgp_tpu_torch.ops import kernels as K
@@ -409,4 +411,163 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     before = counts()
     losses = model.optimize_adam(iterations=1, messages=0)
     assert counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert bool(torch.isfinite(losses).all())
+
+
+def composite_inputs(D, M, Din, n, device, seed=0, clamp=False):
+    """Seeded float32 operands of the Kuf-consuming fused conditional for an
+    RBF + Linear kernel (Kff varies per point, or with ``clamp`` is set so
+    that the clamp zeroes some variances): Pinv, Kuf, q_mu, Sq, Kff."""
+    f32 = dict(dtype=torch.float32, device=device)
+    kern = (K.RBF.create(variance=1.3, lengthscales=[0.7] * Din, **f32)
+            + K.Linear.create(variance=[0.5] * Din, **f32))
+    return chip_smoke.composite_inputs(D, M, Din, n, seed, device, kern, clamp)
+
+
+def composite_grads(args, g):
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = cf.fused_conditional_white(*leaves)
+    grads = torch.autograd.grad(out, leaves, grad_outputs=g)
+    torch.cuda.synchronize()
+    return out, grads
+
+
+# M = 64 and 128 stage with float4 copies; 50 and 100 take the padded path
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,M,Din,n,clamp", [
+    (3, 64, 5, 1037, False), (8, 128, 8, 4101, False), (2, 50, 3, 65, False),
+    (1, 100, 7, 64, False), (8, 128, 8, 4101, True), (2, 100, 8, 1037, True)])
+def test_conditional_fused_kernels_match_plain(cuda, D, M, Din, n, clamp):
+    """Kernels #3 and #4 against their plain versions in f64 on the same
+    f32 inputs: mean within 1e-4 of max|mean|, var within 1e-4 of max Kff
+    (the variance cancels against Kff); each gradient within 1e-4 of its
+    own largest magnitude (dKff per point too); and a second backward bit
+    for bit equal. With ``clamp`` some variances are clamped to 0 and the
+    mask zeroes their g_var; where a pre-clamp variance lies within the
+    variance's tolerance of 0 the two may take the mask on opposite sides,
+    so g_var is 0 there."""
+    args = composite_inputs(D, M, Din, n, cuda, seed=D + M, clamp=clamp)
+    assert args[1].is_contiguous()  # K(Z, X) of a Sum: the wrapper copies nothing
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    g = [torch.randn((n, D), generator=gen, device=cuda) for _ in range(2)]
+    lin, band = chip_smoke.clamp_band(args)
+    g[1] = g[1].masked_fill(lin.T.abs() <= band, 0.0)
+    assert not clamp or 0 < int((lin <= 0).sum()) < n * D
+    before = (cf.FusedConditionalWhite.launches,
+              cf.FusedConditionalWhite.backward_launches)
+    (mk, vk), got = composite_grads(args, g)
+    _, again = composite_grads(args, g)
+    assert (cf.FusedConditionalWhite.launches,
+            cf.FusedConditionalWhite.backward_launches) == (before[0] + 2,
+                                                            before[1] + 2)
+    d = [a.double() for a in args]
+    mp, vp = cf.fused_conditional_white_plain(*d)
+    assert mk.shape == vk.shape == (n, D) and mk.dtype == torch.float32
+    assert float((mk.double() - mp).abs().max()) <= 1e-4 * float(mp.abs().max())
+    assert float((vk.double() - vp).abs().max()) <= 1e-4 * float(d[4].max())
+    want = cf.fused_conditional_white_backward_plain(*d, *[x.double() for x in g])
+    names = ("dPinv", "dKuf", "dq_mu", "dSq", "dKff")
+    for name, a, b, w, leaf in zip(names, got, again, want, args):
+        assert a.shape == leaf.shape and a.dtype == torch.float32, name
+        assert torch.equal(a, b), name
+        assert (float((a.double() - w).abs().max())
+                <= 1e-4 * float(w.abs().max())), name
+
+
+@pytest.mark.cuda
+def test_conditional_fused_size_gate(cuda):
+    """The plans take M <= 128; the backward's is the smaller in D. A CUDA
+    tensor outside them raises at launch rather than falling back, float64
+    included."""
+    assert cf.supported(128, 8) and cf.backward_supported(128, 8)
+    assert cf.supported(1, 1) and cf.backward_supported(64, 3)
+    assert not cf.supported(129, 1) and not cf.backward_supported(256, 8)
+    D = next(D for D in range(8, 200) if cf.supported(128, D)
+             and not cf.backward_supported(128, D))
+    f32 = dict(dtype=torch.float32, device=cuda)
+    Sq = torch.zeros((D, 128, 128), **f32, requires_grad=True)
+    Pinv, Kuf = torch.eye(128, **f32), torch.ones((128, 10), **f32)
+    q_mu = torch.zeros((128, D), **f32)
+    with torch.no_grad():
+        assert cf.applicable(Pinv, Kuf, Sq, q_mu)
+    assert not cf.applicable(Pinv, Kuf, Sq, q_mu)   # a gradient is wanted
+    args = list(composite_inputs(2, 129, 3, 100, cuda))
+    assert not cf.applicable(args[0], args[1], args[3], args[2])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cf.fused_conditional_white(*args)
+    args = list(composite_inputs(2, 64, 3, 100, cuda))
+    with pytest.raises(TypeError, match="float32"):
+        cf.fused_conditional_white(*[a.double() for a in args])
+    g = torch.ones((100, 2), **f32)
+    with pytest.raises(ValueError, match="do not form"):
+        cf._launch_backward(*args, g, g[:50])
+
+
+@pytest.mark.cuda
+def test_conditional_fused_of_no_points(cuda):
+    args = list(composite_inputs(2, 64, 3, 1, cuda))
+    args[1], args[4] = args[1][:, :0], args[4][:0]
+    before = (cf.FusedConditionalWhite.launches,
+              cf.FusedConditionalWhite.backward_launches)
+    (mean, var), grads = composite_grads(args, [torch.zeros((0, 2), device=cuda)] * 2)
+    assert (cf.FusedConditionalWhite.launches,
+            cf.FusedConditionalWhite.backward_launches) == before
+    assert mean.shape == var.shape == (0, 2)
+    assert all(g.shape == a.shape and not g.any() for g, a in zip(grads, args))
+
+
+@pytest.mark.cuda
+def test_composite_dgp_goes_through_the_fused_white_kernels(cuda):
+    """A 2-layer whitened model of RBF + Linear kernels (layer 1 on one
+    active dimension): one request launches kernel #3 once per layer and
+    neither #1 nor #5; one loss gradient and one Adam step launch #3 and #4
+    once per layer; the request and the gradients equal the kernels-off
+    path's to 1e-3 of each one's scale."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(300, 4))
+    Y = np.sin(3 * X[:, :1])
+    f32 = dict(dtype=torch.float32, device=cuda)
+    kernels = [K.RBF.create(lengthscales=[0.5] * 4, **f32)
+               + K.Linear.create(variance=[1.0] * 4, **f32),
+               K.RBF.create(lengthscales=[0.5] * 4, **f32)
+               + K.Linear.create(variance=0.5, active_dims=[0], **f32)]
+    model = tdgp.DGP(X, Y, X[:64], kernels, [4], white=True, num_samples=5,
+                     dtype=torch.float32)
+    with torch.no_grad():
+        for layer in model.params.layers:
+            M, D = layer.q_mu.shape
+            layer.q_mu.copy_(torch.tensor(rng.normal(size=(M, D)), **f32))
+            layer.q_sqrt.copy_(torch.tensor(
+                np.tril(0.05 * rng.normal(size=(D, M, M)) + np.eye(M)), **f32))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    zs = [torch.randn((5, 300, l.num_outputs), generator=gen, **f32)
+          for l in model.params.layers]
+    counts = lambda: (cf.FusedConditionalWhite.launches,
+                      cf.FusedConditionalWhite.backward_launches,
+                      cfr.FusedConditional.launches, qf.QuadForm.launches)
+    before = counts()
+    with torch.no_grad():
+        on = tdgp.predict_y(model.params, X, 5, zs=zs)
+        assert counts() == (before[0] + 2, *before[1:])
+        with kernels_scope(False):
+            off = tdgp.predict_y(model.params, X, 5, zs=zs)
+    for got, want in zip(on, off):
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max())
+
+    params = list(model.params.parameters())
+
+    def grads():
+        loss = -tdgp.elbo(model.params, *model.data, 5, zs=zs)
+        return torch.autograd.grad(loss, params)
+
+    before = counts()
+    on = grads()
+    assert counts() == (before[0] + 2, before[1] + 2, *before[2:])
+    with kernels_scope(False):
+        off = grads()
+    for (name, _), a, b in zip(model.params.named_parameters(), on, off):
+        assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), name
+    before = counts()
+    losses = model.optimize_adam(iterations=1, messages=0)
+    assert counts() == (before[0] + 2, before[1] + 2, *before[2:])
     assert bool(torch.isfinite(losses).all())

@@ -16,11 +16,13 @@ from dgp_tpu.ops import conditionals as jcond
 from dgp_tpu.ops import kernels as JK
 from dgp_tpu_torch import convert
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import conditional_fused as tcf
 from dgp_tpu_torch.ops import conditionals as tcond
 from dgp_tpu_torch.ops import kernels as TK
 
 # torch on one intra-op thread in this module (the fixture is autouse)
 from test_torch_cuda import _one_torch_thread  # noqa: F401
+from test_torch_training import reference_model as training_reference_model
 
 
 F64 = torch.float64
@@ -132,6 +134,36 @@ def test_nonwhite_convert_round_trip_and_conditional():
                                          torch.as_tensor(Xl), white=False)
         for g, w in zip(got, want):
             np.testing.assert_allclose(npy(g), np.asarray(w), rtol=RTOL)
+
+
+def test_composite_convert_round_trip_and_predictions(monkeypatch):
+    """A whitened model of composite kernels (RBF + Linear on layer 0; a
+    Product and active_dims on layer 1) crosses convert and comes back
+    unchanged, and with the fused conditional's gate forced open its
+    predict_y goes through FusedConditionalWhite (the plain version on CPU
+    tensors, once per layer) and equals dgp_tpu's on fixed normals."""
+    params, X, Y, zs = training_reference_model(white=True, composite=True)
+    tree = convert.numpy_tree_from_reference(params)
+    assert [l["kernel"]["type"] for l in tree["layers"]] == ["Sum", "Sum"]
+    assert tree["layers"][1]["kernel"]["kernels"][0]["type"] == "Product"
+    port = convert.dgp_from_numpy(tree, "cpu", F64)
+    assert_same_tree(convert.numpy_tree_from_port(port), tree)
+
+    calls = []
+    plain = tcf.fused_conditional_white_plain
+    monkeypatch.setattr(tcf, "applicable", lambda *args: True)
+    monkeypatch.setattr(tcf, "fused_conditional_white_plain",
+                        lambda *args: calls.append(1) or plain(*args))
+    S = zs[0].shape[0]
+    _, Mj, Vj = jax_propagate(params, jnp.asarray(X), jax.random.PRNGKey(0),
+                              S, False, [jnp.asarray(z) for z in zs])
+    with torch.no_grad():
+        got = tdgp.predict_y(port, torch.as_tensor(X), S,
+                             zs=[torch.as_tensor(z) for z in zs])
+    assert len(calls) == 2
+    want = params.likelihood.predict_mean_and_var(Mj[-1], Vj[-1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(npy(g), np.asarray(w), rtol=RTOL)
 
 
 @pytest.mark.parametrize("white", [True, False])

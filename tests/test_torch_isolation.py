@@ -13,6 +13,7 @@ import torch
 import dgp_tpu_torch
 from dgp_tpu_torch.config import ieee_fp32
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
 from dgp_tpu_torch.ops import quadform as TQ
@@ -41,7 +42,8 @@ def test_no_jax_imports_in_port():
     assert len(sources) > 10
     rel = {os.path.relpath(p, PKG) for p in sources}
     assert {"models/training.py", "variational/natgrad.py",
-            "utils/checkpoint.py", "convert.py", "ops/quadform.py"} <= rel
+            "utils/checkpoint.py", "convert.py", "ops/quadform.py",
+            "ops/conditional_fused.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -142,4 +144,28 @@ def test_port_products_run_ieee_under_tf32(tf32_asked, monkeypatch):
                      device="cpu")
     model.predict_y(X, 2)
     assert seen == ["ieee", "ieee"]
+    assert torch.backends.cuda.matmul.fp32_precision == "tf32"
+
+
+def test_fused_white_conditional_runs_ieee_under_tf32(tf32_asked, monkeypatch):
+    """A whitened Sum-kernel conditional, with the fused conditional's gate
+    forced open, reaches its plain version with TF32 off, though the process
+    asked for it."""
+    seen = []
+    plain = TCF.fused_conditional_white_plain
+
+    def spy(*args):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return plain(*args)
+
+    monkeypatch.setattr(TCF, "applicable", lambda *args: True)
+    monkeypatch.setattr(TCF, "fused_conditional_white_plain", spy)
+    f64 = torch.float64
+    X = torch.tensor(np.random.default_rng(0).uniform(size=(8, 2)))
+    kern = (TK.RBF.create(lengthscales=[1.0, 1.0], dtype=f64)
+            + TK.Linear.create(variance=[0.5, 0.7], dtype=f64))
+    mean, var = TC.conditional_diag(kern, X[:3], torch.ones(3, 1, dtype=f64),
+                                    torch.eye(3, dtype=f64)[None], X,
+                                    white=True)
+    assert seen == ["ieee"] and mean.shape == var.shape == (8, 1)
     assert torch.backends.cuda.matmul.fp32_precision == "tf32"

@@ -20,6 +20,7 @@ from dgp_tpu.ops import kernels as JK
 from dgp_tpu_torch import convert
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import training as ttrain
+from dgp_tpu_torch.ops import conditional_fused as tcf
 from dgp_tpu_torch.ops import kernels as TK
 from dgp_tpu_torch.ops import quadform as tq
 from dgp_tpu_torch.utils import checkpoint
@@ -32,17 +33,30 @@ F64 = torch.float64
 S = 3
 
 
+def composite_kernels():
+    """Whitened layers the stationary fused kernel does not take: RBF +
+    Linear (both ARD) on layer 0, and on layer 1 a Product and active_dims,
+    RBF(dim 0) * Linear(dim 1) + RBF(dim 1)."""
+    return [JK.RBF.create(variance=1.2, lengthscales=[0.7] * 3)
+            + JK.Linear.create(variance=[0.5, 0.8, 0.3]),
+            JK.RBF.create(variance=0.9, lengthscales=[0.8], active_dims=[0])
+            * JK.Linear.create(variance=0.6, active_dims=[1])
+            + JK.RBF.create(variance=0.5, lengthscales=[1.1], active_dims=[1])]
+
+
 @functools.lru_cache(maxsize=None)
-def reference_model(white=True):
+def reference_model(white=True, composite=False):
     """2-layer model, Din 3 -> 2 -> 1: layer 0 carries a frozen PCA mean
-    function (a LinearMean weight the masks must keep frozen)."""
+    function (a LinearMean weight the masks must keep frozen). With
+    ``composite`` (whitened) its kernels are :func:`composite_kernels`."""
     rng = np.random.default_rng(0)
     N, M = 12, 6
     X = rng.uniform(0, 1, size=(N, 3))
     Y = np.sin(3 * X[:, :1]) + 0.1 * rng.normal(size=(N, 1))
     Z = X[rng.choice(N, M, replace=False)].copy()
-    kernels = [JK.RBF.create(variance=1.2, lengthscales=[0.7] * 3),
-               JK.Matern52.create(variance=0.9, lengthscales=[0.8, 1.1])]
+    kernels = ([JK.RBF.create(variance=1.2, lengthscales=[0.7] * 3),
+                JK.Matern52.create(variance=0.9, lengthscales=[0.8, 1.1])]
+               if not composite else composite_kernels())
     model = jdgp.DGP(X, Y, Z, kernels, [2], num_samples=S, white=white)
     layers = []
     for layer in model.params.layers:  # off the prior
@@ -308,21 +322,23 @@ def test_loss_spec_minibatch_and_bucket():
 
 
 @functools.lru_cache(maxsize=None)
-def reference_gradients(white):
-    params, X, Y, zs = reference_model(white)
-    gj = jax.jit(jax.grad(reference_fixed_loss(X, Y, zs)))(
+def reference_gradients(white, composite=False):
+    """(loss, {path: gradient}) of dgp_tpu's -ELBO on the fixed normals."""
+    params, X, Y, zs = reference_model(white, composite)
+    lj, gj = jax.jit(jax.value_and_grad(reference_fixed_loss(X, Y, zs)))(
         params, jax.random.PRNGKey(0))
-    return {path_name(path): np.asarray(leaf) for path, leaf in
-            jax.tree_util.tree_flatten_with_path(gj)[0]}
+    return float(lj), {path_name(path): np.asarray(leaf) for path, leaf in
+                       jax.tree_util.tree_flatten_with_path(gj)[0]}
 
 
-def check_elbo_gradients(white):
-    params, X, Y, zs = reference_model(white)
+def check_elbo_gradients(white, composite=False):
+    params, X, Y, zs = reference_model(white, composite)
     port = port_of(params)
     loss = port_fixed_loss(X, Y, zs)(port, None)
     grads = torch.autograd.grad(loss, list(port.parameters()))
     got = dict(zip((n for n, _ in port.named_parameters()), grads))
-    want = reference_gradients(white)
+    want_loss, want = reference_gradients(white, composite)
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-8)
     assert set(got) == set(want) - {"layers.0.mean_function.W"}
     for name, g in got.items():
         np.testing.assert_allclose(
@@ -355,6 +371,35 @@ def test_nonwhite_elbo_gradients_through_quadform(monkeypatch):
     monkeypatch.setattr(tq.QuadForm, "forward", staticmethod(counted_forward))
     monkeypatch.setattr(tq, "quadform_backward_plain", counted_backward)
     check_elbo_gradients(white=False)
+    assert calls == {"forward": 2, "backward": 2}
+
+
+def test_composite_elbo_gradients_through_fused_conditional(monkeypatch):
+    """A whitened model of composite kernels (Sum, Product, Linear,
+    active_dims) with the fused conditional's gate forced open: the CPU
+    tensors go through FusedConditionalWhite and its hand-written plain
+    backward (one forward and one backward per layer), so dKuf and dKff
+    reach the kernels' hyperparameters, Z and layer 1's inputs through
+    autograd of K and K_diag; the ELBO and its gradients match jax.grad of
+    dgp_tpu's ELBO."""
+    calls = {"forward": 0, "backward": 0}
+    forward = tcf.FusedConditionalWhite.forward
+    backward = tcf.fused_conditional_white_backward_plain
+
+    def counted_forward(ctx, *args):
+        calls["forward"] += 1
+        return forward(ctx, *args)
+
+    def counted_backward(*args):
+        calls["backward"] += 1
+        return backward(*args)
+
+    monkeypatch.setattr(tcf, "applicable", lambda *args: True)
+    monkeypatch.setattr(tcf.FusedConditionalWhite, "forward",
+                        staticmethod(counted_forward))
+    monkeypatch.setattr(tcf, "fused_conditional_white_backward_plain",
+                        counted_backward)
+    check_elbo_gradients(white=True, composite=True)
     assert calls == {"forward": 2, "backward": 2}
 
 

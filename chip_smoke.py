@@ -16,8 +16,10 @@ Phases, each of which raises (exit code 1) on any fault:
              the training model's layer shapes (n = 100,037) and the small
              odd shape: all six gradients, and a second run bit for bit
              equal to the first. Then the quadform kernel and its backward,
-             with and without t1, at the same layer shapes and at two small
-             ones (D=3, M=64 and D=2, M=100, which the plan pads to 128).
+             with and without t1, at the same layer shapes, at two small
+             ones (D=3, M=64 and D=2, M=100, which the plan pads to 128) and
+             at the BO constraint surrogate's (D=1, M=8; n=80 in training,
+             n=30,000 in the acquisition).
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
              varies per point), at the same four shapes: all five
@@ -26,7 +28,15 @@ Phases, each of which raises (exit code 1) on any fault:
              that makes the clamp max(var, 0) zero many variances; and #3
              at M=100 in 3 input dimensions, which
              conditions Kuu so badly that plain fp32 is itself off f64 by
-             more than the tolerance, held to twice that fp32 error.
+             more than the tolerance, held to twice that fp32 error. Then
+             the Cholesky kernels (#7, the factor; #8, the factor and its
+             inverse) on [2, 128, 128] (the whitened models' Kuu stack),
+             [3, 24, 24], [1, 8, 8], [1, 100, 100], a [2, 128, 128]
+             stack of the models' own Kuu conditioning and a [3, 8, 8]
+             stack of the BO surrogate's (8 points on a line): L within TOL
+             of scale, W also within twice the float32 library pair's error,
+             a repeat bit for bit equal, an indefinite matrix NaN in place,
+             the Function's gradient against autograd in float64.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -60,11 +70,29 @@ Phases, each of which raises (exit code 1) on any fault:
              kernels; and the same gradient comparison on a non-whitened copy
              with q moved off the prior. bench.py's model with RBF + Linear
              kernels, whitened: 10 Adam steps and 3 + 5 Adam+natural-gradient
-             steps through kernels #3 and #4 only.
-5. timing  — CUDA-event times of every kernel and of its plain version at
+             steps through kernels #3 and #4 only. On every path each
+             request and loss evaluation factors its Kuu stack once through
+             #8 (a non-whitened KL takes the same factor).
+5. bo      — compat/validate_bo.py --dgp through the port's SO_BO on the
+             card: min (x-0.5)^2 s.t. step(x-0.25) <= 0, DoE 5, seed 7, a
+             GPR objective surrogate and a num_layers=2 DGP constraint
+             surrogate, EI with EV handling, DE + Adam; cut to 2 infills,
+             100 training iterations, DE 60 x 40 and 50 Adam steps. The
+             Ymin trace finite, non-increasing and at or above 0.0625; the
+             launches of #5-#8 equal to those reckoned from the loop; the
+             final surrogates' predictions with the kernels on and off, each
+             against the same prediction in float64;
+             seconds per infill, split into training and acquisition.
+6. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the fp32 bound of the work these inputs
              need, and kernel #3 against its plain version at n = 10,000;
+             #7 and #8 at the models' and the BO's stacks beside the
+             library calls for the same function (cholesky_ex, and
+             solve_triangular for #8), and bench.py's whitened model's
+             precompute_projections and Adam step with the factorizations
+             through the kernels, their plain versions, and the checked
+             torch.linalg.cholesky the port called before;
              wall time per Adam step and per Adam+natural-gradient step
              (whitened RBF) and per Adam step (non-whitened, RBF + Linear);
              the device time by kernel over one request and over three Adam
@@ -76,6 +104,7 @@ the rest of the repository beside it, the script fails before printing
 either.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -114,6 +143,10 @@ TOL_GRAD = 1e-3
 # reaches layer 2 through the sampled inputs and the v - ||A||^2
 # cancellation, so the request is held at 1e-3 of its scale
 TOL_REQUEST = 1e-3
+# where a float32 factorization of an ill-conditioned Kuu is itself off
+# float64 by more than TOL_REQUEST, the kernels' arm may be off by twice the
+# library arm's error, but never by more than this much of scale
+WITNESS_CAP = 1e-2
 DEVICE = "cuda"
 
 
@@ -142,9 +175,10 @@ def build():
         kernel = ""
         for line in (text or "").splitlines():
             entry = re.search(r"Compiling entry function .*?([a-z][a-z_]*_(?:fwd|bwd)|"
-                              r"reduce_slabs)(I(?:Li\d+E)+E)?", line)
+                              r"reduce_slabs|cholesky_kernel)(I(?:L[ib]\d+E)+E)?",
+                              line)
             if entry:
-                args = re.findall(r"Li(\d+)E", entry.group(2) or "")
+                args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
                 kernel = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {name} {kernel}: {line.strip()}")
@@ -501,6 +535,111 @@ def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
     return worst
 
 
+def spd_stack(G, Mi, seed, kuu=None):
+    """Seeded float32 [G, Mi, Mi] symmetric positive-definite stack: B B^T /
+    Mi + 0.1 I (condition number ~1e2); with ``kuu="model"`` the layers' own
+    Kuu, an RBF (unit variance and lengthscales) of Mi points drawn in DIN
+    dimensions, plus the float32 jitter 1e-4 (max|Kuu^-1| in the thousands);
+    with ``kuu="bo"`` the BO surrogate's, the same RBF of Mi points on a
+    line, standardized as SO_BO standardizes its inputs (the jitter sets
+    the condition number)."""
+    rng = np.random.default_rng(seed)
+    if kuu is not None:
+        if kuu == "bo":
+            Z = rng.uniform(size=(G, Mi, 1))
+            Z = (Z - Z.mean(axis=1, keepdims=True)) / Z.std(axis=1, keepdims=True)
+        else:
+            Z = rng.uniform(size=(G, Mi, DIN))
+        d2 = np.sum((Z[:, :, None] - Z[:, None]) ** 2, axis=-1)
+        A = np.exp(-0.5 * d2) + 1e-4 * np.eye(Mi)
+    else:
+        B = rng.normal(size=(G, Mi, Mi))
+        A = B @ np.swapaxes(B, -1, -2) / Mi + 0.1 * np.eye(Mi)
+    return torch.tensor(A, dtype=torch.float32, device=DEVICE)
+
+
+def check_cholesky(G, Mi, seed, inverse, kuu=None):
+    """Kernel #7 (or #8) against its plain version in float64 on the same
+    float32 stack: L within TOL of max|L|; W within TOL of max|W| plus twice
+    the error of the float32 library pair (cholesky_ex + solve_triangular)
+    on the same inputs, which the conditioning alone sets (the witness
+    rule of the #3 checks); a second run bit for bit equal; an indefinite matrix in the stack
+    gives NaN there (L on and below the diagonal, all of W) and leaves the
+    others' bits unchanged; and, on the well-conditioned stacks, the
+    Function's gradient within TOL_BWD of autograd through
+    torch.linalg.cholesky and solve_triangular in float64."""
+    from dgp_tpu_torch.ops import cholesky as tch
+
+    A = spd_stack(G, Mi, seed, kuu)
+    what = f"{'#8 chol+inverse' if inverse else '#7 chol'} G={G} M={Mi}" + (
+        f" ({kuu} Kuu)" if kuu else "")
+    fn = tch.CholeskyInverse if inverse else tch.Cholesky
+    before = fn.launches
+    with torch.no_grad():
+        got = tch._launch(A, inverse)
+        again = tch._launch(A, inverse)
+        sync()
+        want = tch.cholesky_inverse_plain(A.double())
+        lib32 = tch.cholesky_inverse_plain(A)
+    if fn.launches != before + 2:
+        raise AssertionError(f"{what}: the kernel did not launch")
+    got, again = (got, again) if inverse else ((got,), (again,))
+    worst, report = 0.0, []
+    for name, g, r, w, p in zip(("L", "W"), got, again, want, lib32):
+        if not (torch.equal(g, r) and torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: {name} non-finite, or two runs differ")
+        scale = float(w.abs().max())
+        err = float((g.double() - w).abs().max())
+        err32 = float((p.double() - w).abs().max())
+        limit = TOL * scale + (2 * err32 if name == "W" else 0.0)
+        report.append(f"{name} {err / scale:.2e} (library fp32 "
+                      f"{err32 / scale:.2e}, limit {limit / scale:.2e})")
+        worst = max(worst, err)
+        if not err <= limit:
+            raise AssertionError(f"{what}: {name} off by {err:.3e} of scale "
+                                 f"{scale:.3e}, limit {limit:.3e}")
+
+    bad = A.clone()
+    k = G // 2
+    lam = torch.linalg.eigvalsh(A[k].double()).min()
+    bad[k] -= (float(lam) + 1.0) * torch.eye(Mi, device=DEVICE)
+    with torch.no_grad():
+        outs = tch._launch(bad, inverse)
+        outs = outs if inverse else (outs,)
+    lower = torch.ones(Mi, Mi, dtype=torch.bool, device=DEVICE).tril()
+    others = [i for i in range(G) if i != k]
+    for name, o, g in zip(("L", "W"), outs, got):
+        nan_at = lower if name == "L" else torch.ones_like(lower)
+        if not (torch.equal(torch.isnan(o[k]), nan_at)
+                and bool((o[k][~nan_at] == 0).all())
+                and torch.equal(o[others], g[others])):
+            raise AssertionError(f"{what}: the indefinite matrix gave {name} "
+                                 f"without its NaN, or touched the others")
+
+    if kuu is None:
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        C = [torch.randn(A.shape, generator=gen, device=DEVICE) for _ in range(2)]
+
+        def scalar(outs):
+            outs = outs if inverse else (outs,)
+            return sum(torch.sum(c.to(o.dtype) * o) for c, o in zip(C, outs))
+
+        Ak = A.clone().requires_grad_(True)
+        (gk,) = torch.autograd.grad(scalar(fn.apply(Ak)), Ak)
+        Ad = A.double().requires_grad_(True)
+        Ld = torch.linalg.cholesky(Ad)
+        eye = torch.eye(Mi, dtype=torch.float64, device=DEVICE).expand(Ad.shape)
+        ref = (Ld, torch.linalg.solve_triangular(Ld, eye, upper=False))
+        (gd,) = torch.autograd.grad(scalar(ref if inverse else Ld), Ad)
+        gerr = float((gk.double() - gd).abs().max()) / float(gd.abs().max())
+        report.append(f"gradient {gerr:.2e} (tol {TOL_BWD})")
+        if not gerr <= TOL_BWD:
+            raise AssertionError(f"{what}: gradient off by {gerr:.2e} of scale")
+    log(f"[kernels] {what}: err / max|plain f64|: {', '.join(report)}; repeat "
+        f"bit-equal, indefinite matrix NaN in place, ok")
+    return worst
+
+
 # -- phase 3 --------------------------------------------------------------------
 
 
@@ -558,16 +697,20 @@ def timed(fn):
 def counts():
     """Launch counts of kernels #1, #2 (the stationary fused conditional and
     its backward), #3, #4 (the Kuf-consuming fused conditional and its
-    backward) and #5, #6 (the quadform and its backward)."""
+    backward), #5, #6 (the quadform and its backward), #7 (the Cholesky
+    factor) and #8 (the factor with its inverse)."""
+    from dgp_tpu_torch.ops.cholesky import Cholesky, CholeskyInverse
     from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
     from dgp_tpu_torch.ops.quadform import QuadForm as QF
 
     return (FC.launches, FC.backward_launches, FW.launches,
-            FW.backward_launches, QF.launches, QF.backward_launches)
+            FW.backward_launches, QF.launches, QF.backward_launches,
+            Cholesky.launches, CholeskyInverse.launches)
 
 
 def zero_counts():
+    from dgp_tpu_torch.ops.cholesky import Cholesky, CholeskyInverse
     from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
     from dgp_tpu_torch.ops.quadform import QuadForm as QF
@@ -575,9 +718,10 @@ def zero_counts():
     FC.launches = FC.backward_launches = 0
     FW.launches = FW.backward_launches = 0
     QF.launches = QF.backward_launches = 0
+    Cholesky.launches = CholeskyInverse.launches = 0
 
 
-COUNTED = "(#1, #2, #3, #4, #5, #6)"
+COUNTED = "(#1, #2, #3, #4, #5, #6, #7, #8)"
 
 
 def path_of(model):
@@ -590,14 +734,19 @@ def path_of(model):
     return "stationary" if type(layer.kernel).__name__ == "RBF" else "composite"
 
 
-def expected_counts(path, forwards, backwards=0):
-    """counts() after `forwards` conditionals and `backwards` gradients of
-    them on a model of that path: each path runs its own pair of kernels and
-    neither of the others'."""
-    pair = (forwards, backwards)
+def expected_counts(path, evaluations, n_layers, loss=False):
+    """counts() after `evaluations` predictions (or, with ``loss``, loss
+    evaluations with their gradient) of a model of that path whose
+    n_layers layers share one (M, white) group: each path runs its own pair
+    of conditional kernels once per layer, and neither of the others';
+    every evaluation factors its Kuu stack once through #8 (a non-whitened
+    loss's KL takes that factor too), and none runs #7."""
+    pair = (evaluations * n_layers, evaluations * n_layers if loss else 0)
     zero = (0, 0)
-    return {"stationary": pair + zero + zero, "composite": zero + pair + zero,
-            "nonwhite": zero + zero + pair}[path]
+    conditional = {"stationary": pair + zero + zero,
+                   "composite": zero + pair + zero,
+                   "nonwhite": zero + zero + pair}[path]
+    return conditional + (0, evaluations)
 
 
 WHAT = {"stationary": "whitened", "composite": "RBF + Linear",
@@ -622,9 +771,9 @@ def serve(model, gpu):
         (mean, var), dt = timed(lambda: model.predict_y(Xr, S))
         mm, mv = moment_matched(mean, var)
         launched = tuple(a - b for a, b in zip(counts(), before))
-        if launched != expected_counts(path, n_layers):
+        if launched != expected_counts(path, 1, n_layers):
             raise AssertionError(f"request {i}: kernel launches {launched}, "
-                                 f"expected {expected_counts(path, n_layers)}")
+                                 f"expected {expected_counts(path, 1, n_layers)}")
         if mean.shape != (S, N_REQUEST, 1) or mm.shape != (N_REQUEST, 1):
             raise AssertionError(f"request {i}: shapes {tuple(mean.shape)}, {tuple(mm.shape)}")
         if not (torch.isfinite(mean).all() and torch.isfinite(var).all()
@@ -643,7 +792,7 @@ def serve(model, gpu):
         (cm, cv), dt = timed(lambda: predict_in_chunks(
             predict, model.params, X_big, model.generator, CHUNK,
             device=DEVICE))
-    expect = expected_counts(path, n_layers * (N_CHUNKED // CHUNK))
+    expect = expected_counts(path, N_CHUNKED // CHUNK, n_layers)
     launched = tuple(a - b for a, b in zip(counts(), before))
     if launched != expect:
         raise AssertionError(f"chunked: kernel launches {launched}, "
@@ -657,20 +806,29 @@ def serve(model, gpu):
     return counts()
 
 
-def compare_paths(model):
-    """One request with the kernels on and off, on the same unit normals,
-    while the process asks for TF32 matrix products (as many training
-    scripts do): the port's own products must stay IEEE fp32 all the same."""
-    from dgp_tpu_torch.config import kernels_scope
-    from dgp_tpu_torch.models.dgp import predict_y
-
-    gen = torch.Generator(device=DEVICE).manual_seed(7)
+def request_inputs(model, seed=7):
+    """Seeded request rows and the unit normals of every layer."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     X = torch.rand((N_REQUEST, DIN), generator=gen, device=DEVICE)
     zs = [torch.randn((S, N_REQUEST, l.num_outputs), generator=gen,
                       device=DEVICE) for l in model.params.layers]
+    return X, zs
+
+
+def compare_paths(model):
+    """One request with the conditional kernels on and off, on the same
+    unit normals, while the process asks for TF32 matrix products (as many
+    training scripts do): the port's own products must stay IEEE fp32 all
+    the same. Both arms factor Kuu through #8, so the comparison holds the
+    conditional kernels alone; compare_factorizations holds #7/#8 against
+    the library's factorization."""
+    from dgp_tpu_torch.config import kernels_scope
+    from dgp_tpu_torch.models.dgp import predict_y
+
+    X, zs = request_inputs(model)
     torch.set_float32_matmul_precision("high")
     try:
-        with torch.no_grad():
+        with torch.no_grad(), cholesky_route("kernels"):
             mk, vk = predict_y(model.params, X, S, zs=zs)
             with kernels_scope(False):
                 mp, vp = predict_y(model.params, X, S, zs=zs)
@@ -679,11 +837,91 @@ def compare_paths(model):
     em = float((mk - mp).abs().max()) / float(mp.abs().max())
     ev = float((vk - vp).abs().max()) / float(vp.abs().max())
     what = WHAT[path_of(model)]
-    log(f"[serving] {what}: kernels on vs off, one request, TF32 asked for: "
-        f"mean err {em:.3e}, "
+    log(f"[serving] {what}: conditional kernels on vs off, one request, TF32 "
+        f"asked for: mean err {em:.3e}, "
         f"var err {ev:.3e} of scale (tol {TOL_REQUEST})")
     if not (em <= TOL_REQUEST and ev <= TOL_REQUEST):
         raise AssertionError("the request differs with the kernels off")
+
+
+def compare_factorizations(model, gradients=False):
+    """One request (or, with ``gradients``, one loss and its gradients) on
+    fixed unit normals with the Kuu factorizations through #7/#8 and through
+    the library (cholesky_ex and solve_triangular), each against the same
+    computation in float64 on the same inputs. Two float32 factorizations
+    of the models' Kuu (max|Kuu^-1| in the thousands) differ by more than
+    fp32 rounding, and a non-whitened mean carries Kuu^-1 q_mu, so neither
+    arm is the other's reference: the kernels' arm is held to TOL_REQUEST
+    of scale plus twice the library arm's own error, capped (hold_to_f64;
+    the reference under f64_twin)."""
+    import copy
+
+    from dgp_tpu_torch.models.dgp import elbo, predict_y
+
+    path = path_of(model)
+    if gradients:
+        gen = torch.Generator(device=DEVICE).manual_seed(9)
+        zs = [torch.randn((S, N_TRAIN, l.num_outputs), generator=gen,
+                          device=DEVICE) for l in model.params.layers]
+
+        def evaluate(params, zs, dtype):
+            X, Y = (t.to(dtype) for t in model.data)
+            loss = -elbo(params, X, Y, S, zs=zs)
+            return (loss.detach(), *torch.autograd.grad(
+                loss, list(params.parameters())))
+
+        names = ["loss"] + [n for n, _ in model.params.named_parameters()]
+    else:
+        X, zs = request_inputs(model, seed=8)
+
+        @torch.no_grad()
+        def evaluate(params, zs, dtype):
+            return predict_y(params, X.to(dtype), S, zs=zs)
+
+        names = ["mean", "var"]
+    double = copy.deepcopy(model.params).double()
+    with f64_twin():
+        ref = evaluate(double, [z.double() for z in zs], torch.float64)
+    arms = {}
+    for route in ("kernels", "plain"):
+        with cholesky_route(route):
+            arms[route] = evaluate(model.params, zs, torch.float32)
+    return hold_to_f64(f"[{'training' if gradients else 'serving'}] "
+                       f"{WHAT[path]}: factorizations through #7/#8 vs the "
+                       f"library", names, ref, arms["kernels"], arms["plain"])
+
+
+def hold_to_f64(what, names, ref, kernels, library):
+    """Each output of the kernels' arm within TOL_REQUEST of its float64
+    reference's scale plus twice the library arm's own error (the witness
+    rule of the #3 checks), that second term capped at WITNESS_CAP; returns
+    the largest error of the kernels' arm. The reference is the same
+    function: computed under f64_twin, with the float32 jitter."""
+    worst, report = 0.0, []
+    for name, r, k, p in zip(names, ref, kernels, library):
+        scale = float(r.abs().max()) or 1.0
+        ek = float((k.double() - r).abs().max()) / scale
+        ep = float((p.double() - r).abs().max()) / scale
+        limit = TOL_REQUEST + min(2 * ep, WITNESS_CAP)
+        report.append(f"{name} {ek:.2e} (library {ep:.2e})")
+        if not ek <= limit:
+            raise AssertionError(f"{what}: {name} off float64 by {ek:.2e} of "
+                                 f"scale, limit {limit:.2e}")
+        worst = max(worst, ek)
+    log(f"{what}, err / max|f64| (limit {TOL_REQUEST} + 2x the library's, "
+        f"at most {WITNESS_CAP}): {', '.join(report)}")
+    return worst
+
+
+@contextlib.contextmanager
+def f64_twin():
+    """Plain versions only, and the float32 jitter (1e-4) in every dtype: a
+    float64 copy of a float32 model then computes the same function, not
+    the better-conditioned one its own 1e-6 jitter would give."""
+    from dgp_tpu_torch.config import default_jitter, jitter_scope, kernels_scope
+
+    with kernels_scope(False), jitter_scope(default_jitter(torch.float32)):
+        yield
 
 
 # -- phase 4 --------------------------------------------------------------------
@@ -730,8 +968,8 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
         raise AssertionError(f"optimize_adam: bad losses {losses}")
     if not losses[-5:].mean() < losses[0]:
         raise AssertionError(f"optimize_adam: the loss did not fall: {losses}")
-    evaluations = adam_steps * n_layers
-    expect = expected_counts(path, evaluations, evaluations)
+    evaluations = adam_steps
+    expect = expected_counts(path, evaluations, n_layers, loss=True)
     if counts() != expect:
         raise AssertionError(f"optimize_adam: launches {counts()}, expected "
                              f"{expect}")
@@ -747,8 +985,8 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     if losses.shape != (n1 + n2,) or not np.all(np.isfinite(losses)):
         raise AssertionError(f"optimize_nat_adam: bad losses {losses}")
     # one evaluation per Adam step, two per Adam+natural-gradient step
-    evaluations += (n1 + 2 * n2) * n_layers
-    expect = expected_counts(path, evaluations, evaluations)
+    evaluations += n1 + 2 * n2
+    expect = expected_counts(path, evaluations, n_layers, loss=True)
     if counts() != expect:
         raise AssertionError(f"optimize_nat_adam: launches {counts()}, "
                              f"expected {expect}")
@@ -768,11 +1006,11 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
     loss_fn, batch = model._loss_spec()
     training.adam_run(loss_fn, model.params, mask, model.generator,
                       steps=masked_steps, data=batch)
-    evaluations += masked_steps * n_layers
+    evaluations += masked_steps
     after = state()
     frozen = [k for k in after if not mask[k]]
-    if (len(frozen) != 5
-            or counts() != expected_counts(path, evaluations, evaluations)):
+    if (len(frozen) != 5 or counts() != expected_counts(
+            path, evaluations, n_layers, loss=True)):
         raise AssertionError(f"masked phase: frozen {frozen}, launches {counts()}")
     for k in after:
         if torch.equal(after[k], moved[k]) != (k in frozen):
@@ -785,8 +1023,9 @@ def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
 
 
 def compare_gradients(model):
-    """One loss-and-gradient evaluation on fixed unit normals, kernels on
-    against kernels off. The model's q must be off the prior (perturb), or
+    """One loss-and-gradient evaluation on fixed unit normals, conditional
+    kernels on against off (both arms factor Kuu through #7/#8, as in
+    compare_paths). The model's q must be off the prior (perturb), or
     Z's gradient is rounding; after a few natural-gradient steps the last
     layer's q_sqrt is small and t2 barely reaches the loss."""
     from dgp_tpu_torch.config import kernels_scope
@@ -804,13 +1043,16 @@ def compare_gradients(model):
     path = path_of(model)
     n_layers = len(model.params.layers)
     before = counts()
-    loss_on, on = evaluate()
-    launched = tuple(a - b for a, b in zip(counts(), before))
-    with kernels_scope(False):
-        loss_off, off = evaluate()
-    expect = expected_counts(path, n_layers, n_layers)
+    with cholesky_route("kernels"):
+        loss_on, on = evaluate()
+        launched = tuple(a - b for a, b in zip(counts(), before))
+        with kernels_scope(False):
+            loss_off, off = evaluate()
+    expect = expected_counts(path, 1, n_layers, loss=True)
+    # the off arm launches #7 and #8 only
+    off_arm = (0,) * 6 + expect[6:]
     if launched != expect or counts() != tuple(
-            b + e for b, e in zip(before, expect)):
+            b + e + o for b, e, o in zip(before, expect, off_arm)):
         raise AssertionError(f"gradient evaluation launched {launched}")
     worst = abs(float(loss_on - loss_off)) / abs(float(loss_off))
     report = [f"loss {worst:.2e}"]
@@ -824,7 +1066,146 @@ def compare_gradients(model):
         raise AssertionError("the gradients differ with the kernels off")
 
 
-# -- phase 5 --------------------------------------------------------------------
+# -- phase 5: single-objective BO ------------------------------------------------
+
+
+class BOProblem:
+    """compat/validate_bo.py's problem (nb_dgp_BO): min (x - 0.5)^2 subject
+    to step(x - 0.25) <= 0, x in [0, 1]; the optimum is 0.0625 at x = 0.25."""
+
+    constraint = True
+    dim = 1
+
+    def fun(self, x):
+        return [(x - 0.5) ** 2, np.where(x > 0.25, 1.0, 0.0)]
+
+
+BO_SPEC_Y = {"num_layers": 0, "kernels": "rbf"}
+BO_SPEC_C = {"num_layers": 2, "num_units": 1, "kernels": "rbf",
+             "num_samples": 10}
+BO_DOE, BO_SEED = 5, 7        # validate_bo.py's DoE and seed
+# cuts of validate_bo.py --dgp, one each: 13 infills, 4000 training
+# iterations, DE 300 x 400 and 1000 Adam steps
+BO_INFILLS = 2
+BO_TRAIN = 100
+BO_DE = (60, 40)
+BO_ADAM = 50
+BO_DGP_ADAM = 500             # so_bo.train_model's fixed Adam phase, kept
+# the constraint surrogate's quadform shapes (D, M, n): one output, M = 8
+# (the padded DoE), n = 10 samples x 8 rows in training and 500 samples x
+# the DE population in the acquisition
+BO_QUADFORM = [(1, 8, 80), (1, 8, 500 * BO_DE[0])]
+BO_RUN = dict(from_scratch=3, IC="EI", constraint_handling="EV",
+              train_iterations=BO_TRAIN, popsize_DE=BO_DE[0], popstd_DE=3.0,
+              iterations_DE=BO_DE[1], IC_method="DE+Adam",
+              iterations_adam=BO_ADAM, verbose=False)
+
+
+def bo_expected_counts():
+    """counts() after the BO loop, reckoned from its structure. Building
+    SO_BO builds the DGP constraint surrogate: num_layers = 2 makes three
+    non-whitened SVGP layers, all of M = 8 (the padded DoE), each of whose
+    initial q_sqrt = chol(Kuu) is one #7. Infill j then trains both
+    surrogates for T = BO_TRAIN steps (BO_TRAIN // 2 after the first): the
+    GPR's T Adam steps factor its Gram once each (#7); the DGP's
+    BO_DGP_ADAM Adam steps and T Adam + natural-gradient steps (two loss
+    evaluations each) factor its one (M, white) Kuu group once per
+    evaluation (#8, whose factor the KL takes too) and run each layer's
+    quadform and its backward (#5, #6). The acquisition evaluates EV (the
+    DGP, 500 samples: #8 once, #5 per layer) and EI (the GPR's Gram: #7)
+    once for DE's first population, once per generation, once per Adam step
+    (with the quadform's backward, #6) and once more at Adam's final
+    point."""
+    layers = BO_SPEC_C["num_layers"] + 1
+    c5 = c6 = c8 = 0
+    c7 = layers
+    for j in range(BO_INFILLS):
+        T = BO_TRAIN if j == 0 else BO_TRAIN // 2
+        loss_evals = BO_DGP_ADAM + 2 * T
+        acq_evals = (1 + BO_DE[1]) + (BO_ADAM + 1)
+        c5 += layers * (loss_evals + acq_evals)
+        c6 += layers * (loss_evals + BO_ADAM)
+        c7 += T + acq_evals
+        c8 += loss_evals + acq_evals
+    return (0, 0, 0, 0, c5, c6, c7, c8)
+
+
+def run_bo(gpu):
+    """The BO path through the entry points a user calls: SO_BO on the
+    card with a GPR objective surrogate and a DGP constraint surrogate
+    (num_layers = 2: three non-whitened SVGP layers), EI with EV handling,
+    DE + Adam, BO_INFILLS infills. Checks the Ymin trace (finite,
+    non-increasing, at or above the optimum) and the launches of #5-#8
+    against bo_expected_counts(); then the final surrogates' predictions
+    (the DGP's on fixed unit normals) with every kernel on and with the
+    plain versions, each against the same prediction in float64
+    (hold_to_f64). Returns counts()."""
+    import copy
+
+    from dgp_tpu_torch.bo.so_bo import SO_BO
+    from dgp_tpu_torch.config import kernels_scope
+    from dgp_tpu_torch.models import dgp as tdgp
+    from dgp_tpu_torch.models import gpr as tgpr
+
+    zero_counts()
+    bo, dt = timed(lambda: SO_BO(problem=BOProblem(), DoE_size=BO_DOE,
+                                 model_Y_dic=BO_SPEC_Y, model_C_dic=BO_SPEC_C,
+                                 seed=BO_SEED, device=DEVICE))
+    log(f"[bo] SO_BO built on {DEVICE} in {dt:.2f} s: DoE {BO_DOE}, seed "
+        f"{BO_SEED}, Ymin {bo.Ymin[-1]:.5f}; cut from validate_bo.py --dgp: "
+        f"infills 13 -> {BO_INFILLS}, train_iterations 4000 -> {BO_TRAIN} "
+        f"(the fixed {BO_DGP_ADAM}-step Adam phase kept), DE 300x400 -> "
+        f"{BO_DE[0]}x{BO_DE[1]}, Adam 1000 -> {BO_ADAM}")
+    training_s = []
+    train_models = bo.train_models
+
+    def timed_training(*args, **kwargs):
+        out, dt = timed(lambda: train_models(*args, **kwargs))
+        training_s.append(dt)
+        return out
+
+    bo.train_models = timed_training
+    for j in range(BO_INFILLS):
+        _, dt = timed(lambda: bo.run(1, **BO_RUN))
+        log(f"[bo] infill {j}: {dt:.2f} s, of which surrogate training "
+            f"{training_s[-1]:.2f} s and acquisition {dt - training_s[-1]:.2f} "
+            f"s; new x {bo.X[-1, 0]:.5f}, Ymin {bo.Ymin[-1]:.5f} ({gpu})")
+    launched, expect = counts(), bo_expected_counts()
+    ymin = np.asarray(bo.Ymin, dtype=float)
+    log(f"[bo] Ymin trace {np.array2string(ymin, precision=5)}; launches "
+        f"{COUNTED} {launched}, reckoned {expect}")
+    if not (ymin.shape == (BO_INFILLS + 1,) and np.all(np.isfinite(ymin))
+            and np.all(np.diff(ymin) <= 0) and ymin[-1] >= 0.0625 - 1e-9):
+        raise AssertionError(f"BO: bad Ymin trace {ymin}")
+    if launched != expect or min(launched[4:]) < 1:
+        raise AssertionError(f"BO: launches {launched}, reckoned {expect}")
+
+    x = torch.linspace(bo.lw_n[0], bo.up_n[0], 101, device=DEVICE)[:, None]
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    zs = [torch.randn((500, 101, 1), generator=gen, device=DEVICE)
+          for _ in range(BO_SPEC_C["num_layers"] + 1)]
+    gpr, dgp = bo.model_Y, bo.model_C[0]
+
+    @torch.no_grad()
+    def predict(gpr_params, data, dgp_params, dtype):
+        return (*tgpr.predict_y(gpr_params, data, x.to(dtype)),
+                *tdgp.predict_y(dgp_params, x.to(dtype), 500,
+                                zs=[z.to(dtype) for z in zs]))
+
+    with f64_twin():
+        ref = predict(copy.deepcopy(gpr.params).double(),
+                      tuple(t.double() for t in gpr.train_data),
+                      copy.deepcopy(dgp.params).double(), torch.float64)
+    with kernels_scope(False):
+        plain = predict(gpr.params, gpr.train_data, dgp.params, torch.float32)
+    kernels = predict(gpr.params, gpr.train_data, dgp.params, torch.float32)
+    hold_to_f64("[bo] final surrogates, every kernel vs the plain versions",
+                ["GPR mean", "GPR var", "DGP mean", "DGP var"], ref, kernels,
+                plain)
+    return launched
+
+
+# -- phase 6 --------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -1038,6 +1419,107 @@ def time_fused_white(D, n, gpu, backward=False):
     return ms, plain_ms, bound, by
 
 
+def cholesky_bound_ms(G, Mi, inverse):
+    """Least time for kernel #7 (#8) on a [G, Mi, Mi] stack: the M^3/3 FLOP
+    of the factorization (and as many again for the inverse) per matrix over
+    the fp32 peak, or the lower triangle of the stack (all the function
+    reads) read once and L (and W) written once over the memory rate,
+    whichever is larger."""
+    flops = G * (2 if inverse else 1) * Mi ** 3 / 3
+    nbytes = 4.0 * G * (Mi * (Mi + 1) / 2 + Mi * Mi * (2 if inverse else 1))
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_cholesky(G, Mi, inverse, gpu, kuu="model"):
+    """Kernel #7 (#8) through its wrapper's launch beside its plain version
+    and the library calls that compute the same function:
+    torch.linalg.cholesky_ex (with solve_triangular against the identity
+    for #8), timed here and used nowhere in the port."""
+    from dgp_tpu_torch.ops import cholesky as tch
+
+    A = spd_stack(G, Mi, 15, kuu)
+    eye = torch.eye(Mi, device=DEVICE).expand(A.shape)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.linalg.solve_triangular(L, eye, upper=False) if inverse else L
+
+    with torch.no_grad():
+        ms = event_ms(lambda: tch._launch(A, inverse), 200)
+        plain = tch.cholesky_inverse_plain if inverse else tch.cholesky_plain
+        plain_ms = event_ms(lambda: plain(A), 200)
+        library_ms = event_ms(library, 200)
+    bound, by = cholesky_bound_ms(G, Mi, inverse)
+    log(f"[timing] {'#8 chol+inverse' if inverse else '#7 chol'} G={G} M={Mi}: "
+        f"kernel {1e3 * ms:.1f} us, plain {1e3 * plain_ms:.1f} us, library "
+        f"{1e3 * library_ms:.1f} us, bound {1e3 * bound:.3f} us ({by}), "
+        f"{bound / ms:.2%} of the bound ({gpu})")
+    return ms, plain_ms, bound, by, library_ms
+
+
+@contextlib.contextmanager
+def cholesky_route(route):
+    """The port's Kuu and Gram factorizations through "kernels" (#7, #8,
+    even inside kernels_scope(False)), "plain" (their plain versions:
+    cholesky_ex with the NaN fill, no host read) or "checked"
+    (torch.linalg.cholesky, which reads the
+    factorization's status back to the host, and solve_triangular: the
+    calls the port made before #7 and #8)."""
+    from dgp_tpu_torch.ops import cholesky as tch
+
+    def checked(A):
+        return torch.linalg.cholesky(A)
+
+    def checked_inverse(A):
+        L = torch.linalg.cholesky(A)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        return L, torch.linalg.solve_triangular(L, eye.expand(L.shape),
+                                                upper=False)
+
+    saved = (tch.use_kernels, tch.applicable, tch.cholesky_plain,
+             tch.cholesky_inverse_plain)
+    if route == "kernels":
+        # whatever kernels_scope says for the other kernels
+        tch.use_kernels = lambda: True
+    else:
+        tch.applicable = lambda *args, **kwargs: False
+    if route == "checked":
+        tch.cholesky_plain, tch.cholesky_inverse_plain = checked, checked_inverse
+    try:
+        yield
+    finally:
+        (tch.use_kernels, tch.applicable, tch.cholesky_plain,
+         tch.cholesky_inverse_plain) = saved
+
+
+def time_cholesky_variants(model, gpu, steps=10, rounds=3):
+    """One precompute_projections of bench.py's whitened model (its
+    [2, 128, 128] Kuu stack and Pinv; CUDA events over 50 calls) and its
+    Adam step (host clock around 10 steps), with the factorizations through
+    each cholesky_route, the routes taken in turns."""
+    from dgp_tpu_torch.layers.svgp import stack_projections
+
+    layers = model.params.layers
+    routes = ("kernels", "plain", "checked")
+    pre, step = {r: [] for r in routes}, {r: [] for r in routes}
+    for _ in range(rounds):
+        for route in routes:
+            with cholesky_route(route), torch.no_grad():
+                pre[route].append(1e3 * event_ms(
+                    lambda: stack_projections(layers, [l.z for l in layers]), 50))
+            with cholesky_route(route):
+                run = lambda: model.optimize_adam(iterations=steps, messages=0,
+                                                  shrink_inner=False)
+                run()
+                step[route].append(1e3 * timed(run)[1] / steps)
+    for route in routes:
+        log(f"[timing] bench.py whitened model, factorizations via {route}: "
+            f"precompute_projections {', '.join(f'{t:.1f}' for t in pre[route])} "
+            f"us; Adam step {', '.join(f'{t:.2f}' for t in step[route])} ms "
+            f"({gpu})")
+
+
 def time_steps(model, gpu, steps=10, rounds=3, nat=True):
     """Wall time per training step, synchronised around a run of steps.
     Host-clock times spread with the load on the machine's CPU cores, so
@@ -1115,14 +1597,16 @@ def main():
             (HIDDEN, M, 262_144 + 37),    # layer 1 of the model
             (1, M, 262_144 + 37),         # layer 2
             (3, 64, 10_007),              # small odd shapes; M = 100 is
-            (2, 100, 1_037)]):            # padded to 128 in the kernels
+            (2, 100, 1_037),              # padded to 128 in the kernels
+            *BO_QUADFORM]):
         for with_t1 in (False, True):
             err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 200 + seed))
     for seed, (D, Mi, n) in enumerate([
             (HIDDEN, M, S * N_TRAIN + 37),    # layer 1, training
             (1, M, S * N_TRAIN + 37),         # layer 2
             (3, 64, 10_007),
-            (2, 100, 1_037)]):
+            (2, 100, 1_037),
+            *BO_QUADFORM]):
         for with_t1 in (False, True):
             err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
                 D, Mi, n, with_t1, 300 + seed))
@@ -1152,38 +1636,61 @@ def main():
         err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
             D, Mi, Din, n, 550 + seed, clamp=True))
 
+    # #7 and #8: the whitened models' [2, 128, 128] stack (the probe's
+    # shape), a BO Gram-sized and two odd stacks, the models' own Kuu
+    # conditioning at M = 128 and the BO surrogate's at M = 8
+    err_chol = [0.0, 0.0]
+    for seed, (G, Mi, kuu) in enumerate([
+            (2, M, None), (3, 24, None), (1, 8, None), (1, 100, None),
+            (2, M, "model"), (3, 8, "bo")]):
+        for inverse in (False, True):
+            err_chol[inverse] = max(err_chol[inverse], check_cholesky(
+                G, Mi, 600 + seed, inverse, kuu))
+
+    # each main path's launch counts (zeroed just before it, read just
+    # after); a kernel's launches in the kernels line are their sum
+    paths = []
     model = serving_model()
-    served = serve(model, gpu)[0]
-    log(f"[serving] fused conditional launches on the serving path: {served}")
+    paths.append(serve(model, gpu))
+    log(f"[serving] fused conditional launches on the serving path: "
+        f"{paths[-1][0]}")
     compare_paths(model)
+    compare_factorizations(model)
     model_nw = serving_model(white=False)
-    served_nw = serve(model_nw, gpu)[4]
+    paths.append(serve(model_nw, gpu))
     log(f"[serving] quadform launches on the non-whitened serving path: "
-        f"{served_nw}")
+        f"{paths[-1][4]}")
     compare_paths(model_nw)
+    compare_factorizations(model_nw)
     # bench.py's model with RBF + Linear layers, q moved off the prior (at
     # the prior t2 == t1, and Z's gradient is rounding)
     model_c = training_model(composite=True)
     perturb(model_c, np.random.default_rng(4))
-    served_c = serve(model_c, gpu)[2]
+    paths.append(serve(model_c, gpu))
     log(f"[serving] Kuf-consuming fused conditional (#3) launches on the "
-        f"RBF + Linear serving path: {served_c}")
+        f"RBF + Linear serving path: {paths[-1][2]}")
     compare_paths(model_c)
+    compare_factorizations(model_c)
     compare_gradients(model_c)
 
     trained = training_model()
-    fwd_launches, bwd_launches, *_ = train(
-        trained, gpu, ADAM_STEPS, (NAT_STEPS_1, NAT_STEPS_2), MASKED_STEPS)
+    paths.append(train(trained, gpu, ADAM_STEPS, (NAT_STEPS_1, NAT_STEPS_2),
+                       MASKED_STEPS))
     compare_gradients(trained)
     trained_nw = training_model(white=False)
-    *_, qf_launches, qf_bwd_launches = train(
-        trained_nw, gpu, NONWHITE_ADAM_STEPS, NONWHITE_NAT_STEPS)
+    paths.append(train(trained_nw, gpu, NONWHITE_ADAM_STEPS,
+                       NONWHITE_NAT_STEPS))
     off_prior = training_model(white=False)
     perturb(off_prior, np.random.default_rng(3))
     compare_gradients(off_prior)
+    compare_factorizations(off_prior, gradients=True)
     trained_c = training_model(composite=True)
-    _, _, fw_launches, fw_bwd_launches, _, _ = train(
-        trained_c, gpu, COMPOSITE_ADAM_STEPS, COMPOSITE_NAT_STEPS)
+    paths.append(train(trained_c, gpu, COMPOSITE_ADAM_STEPS,
+                       COMPOSITE_NAT_STEPS))
+
+    paths.append(run_bo(gpu))
+    launches = [sum(c[k] for c in paths) for k in range(8)]
+    log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
     ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
@@ -1200,6 +1707,12 @@ def main():
     time_fused_white(1, 10_000, gpu)
     fw_bwd = time_fused_white(HIDDEN, S * N_TRAIN, gpu, backward=True)
     time_fused_white(1, S * N_TRAIN, gpu, backward=True)
+    chol7 = time_cholesky(1, M, False, gpu)   # a non-whitened layer's KL
+    time_cholesky(2, M, False, gpu)           # the probe's shape
+    chol8 = time_cholesky(2, M, True, gpu)    # the whitened models' Kuu stack
+    time_cholesky(1, 8, False, gpu, "bo")     # the BO GPR's padded Gram
+    time_cholesky(2, 8, True, gpu, "bo")      # the BO DGP's Kuu stack
+    time_cholesky_variants(trained, gpu)
     time_steps(trained, gpu)
     time_steps(trained_nw, gpu, nat=False)
     time_steps(trained_c, gpu, nat=False)
@@ -1224,7 +1737,7 @@ def main():
         "route": "cuda",
         "source": source,
         "replaces": "dgp_tpu/ops/conditional_fused_rbf.py:131",
-        "launches": served + fwd_launches,
+        "launches": launches[0],
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1236,7 +1749,7 @@ def main():
         "route": "cuda",
         "source": source,
         "replaces": "dgp_tpu/ops/conditional_fused_rbf.py:145",
-        "launches": bwd_launches,
+        "launches": launches[1],
         "max_abs_err": err_bwd,
         "ms": bwd[0],
         "plain_ms": bwd[1],
@@ -1248,7 +1761,7 @@ def main():
         "route": "cuda",
         "source": qf_source,
         "replaces": "dgp_tpu/ops/quadform_pallas.py:103",
-        "launches": served_nw + qf_launches,
+        "launches": launches[4],
         "max_abs_err": err_qf,
         "ms": qf[0],
         "plain_ms": qf[1],
@@ -1260,7 +1773,7 @@ def main():
         "route": "cuda",
         "source": qf_source,
         "replaces": "dgp_tpu/ops/quadform_pallas.py:117",
-        "launches": qf_bwd_launches,
+        "launches": launches[5],
         "max_abs_err": err_qf_bwd,
         "ms": qf_bwd[0],
         "plain_ms": qf_bwd[1],
@@ -1272,7 +1785,7 @@ def main():
         "route": "cuda",
         "source": fw_source,
         "replaces": "dgp_tpu/ops/conditional_fused.py:72",
-        "launches": served_c + fw_launches,
+        "launches": launches[2],
         "max_abs_err": err_fw,
         "ms": fw[0],
         "plain_ms": fw[1],
@@ -1284,13 +1797,37 @@ def main():
         "route": "cuda",
         "source": fw_source,
         "replaces": "dgp_tpu/ops/conditional_fused.py:87",
-        "launches": fw_bwd_launches,
+        "launches": launches[3],
         "max_abs_err": err_fw_bwd,
         "ms": fw_bwd[0],
         "plain_ms": fw_bwd[1],
         "bound_ms": fw_bwd[2],
         "bound_by": fw_bwd[3],
         "library_ms": None,
+    }, {
+        "name": "cholesky",
+        "route": "cuda",
+        "source": "dgp_tpu_torch/csrc/cholesky.cu",
+        "replaces": "benchmarks/chol_probe.py:54",
+        "launches": launches[6],
+        "max_abs_err": err_chol[0],
+        "ms": chol7[0],
+        "plain_ms": chol7[1],
+        "bound_ms": chol7[2],
+        "bound_by": chol7[3],
+        "library_ms": chol7[4],
+    }, {
+        "name": "cholesky_inverse",
+        "route": "cuda",
+        "source": "dgp_tpu_torch/csrc/cholesky.cu",
+        "replaces": "benchmarks/chol_probe.py:99",
+        "launches": launches[7],
+        "max_abs_err": err_chol[1],
+        "ms": chol8[0],
+        "plain_ms": chol8[1],
+        "bound_ms": chol8[2],
+        "bound_by": chol8[3],
+        "library_ms": chol8[4],
     }]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

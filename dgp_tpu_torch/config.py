@@ -7,7 +7,9 @@ Counterpart of ``dgp_tpu/config.py``. What carries over:
   ``torch.set_default_dtype``: every tensor is made with an explicit dtype,
   and CPU parity runs pass ``dtype=torch.float64``.
 * ``default_jitter(dtype)`` — diagonal jitter before every Cholesky, 1e-6 in
-  float64 and 1e-4 in float32, as in the JAX package.
+  float64 and 1e-4 in float32, as in the JAX package; :func:`jitter_scope`
+  sets one value for every dtype (a float64 run of a float32 model's own
+  function).
 * ``use_kernels()`` — the counterpart of ``set_use_pallas``: whether the
   conditional may dispatch to the hand-written CUDA kernels. A kernel still
   runs only where its gate holds (f32 CUDA tensors, supported shapes).
@@ -29,7 +31,7 @@ import contextlib
 
 import torch
 
-_STATE = {"use_kernels": True}
+_STATE = {"use_kernels": True, "jitter": None}
 
 
 def default_float():
@@ -37,8 +39,24 @@ def default_float():
 
 
 def default_jitter(dtype=None) -> float:
+    if _STATE["jitter"] is not None:
+        return _STATE["jitter"]
     dtype = default_float() if dtype is None else dtype
     return 1e-6 if dtype == torch.float64 else 1e-4
+
+
+@contextlib.contextmanager
+def jitter_scope(value: float):
+    """Make :func:`default_jitter` return ``value`` for every dtype inside
+    the scope, restoring it on exit: a float64 model then computes the same
+    function as its float32 twin (whose Kuu and Gram take 1e-4), not a
+    better-conditioned one."""
+    old = _STATE["jitter"]
+    _STATE["jitter"] = float(value)
+    try:
+        yield
+    finally:
+        _STATE["jitter"] = old
 
 
 def use_kernels() -> bool:

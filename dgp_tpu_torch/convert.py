@@ -6,7 +6,8 @@ attribute name with ``np.asarray`` (it imports nothing of JAX or of the JAX
 package), and :func:`dgp_from_numpy` builds the port's ``DGPParams`` from
 that tree of numpy arrays, so both packages compute from the same numbers.
 :func:`numpy_tree_from_port` gives the same tree for the port's own
-``DGPParams``, so parameters trained in both packages can be compared.
+``DGPParams``, so parameters trained in both packages can be compared. An
+exact GP's ``GPRParams`` goes the same way (:func:`gpr_from_numpy`).
 
 The tree is plain data::
 
@@ -19,7 +20,8 @@ with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "lengthscales_raw", "active_dims"}, {"type": "Linear" | "White",
 "variance_raw", "active_dims"} or {"type": "Sum" | "Product", "kernels":
 [K, ...]}, and F = {"type": "Zero", "num_outputs"}, {"type": "Identity"} or
-{"type": "LinearMean", "W": [Din, D]}. Raw values are the
+{"type": "LinearMean", "W": [Din, D]}. A ``GPRParams`` gives
+``{"kernel": K, "likelihood": {...}}``. Raw values are the
 softplus-unconstrained parameters both packages store.
 """
 
@@ -30,6 +32,7 @@ import torch
 
 from .layers.svgp import SVGPLayer
 from .models.dgp import DGPParams
+from .models.gpr import GPRParams
 from .ops import kernels as K
 from .ops import likelihoods, means
 
@@ -71,10 +74,20 @@ def _mean_tree(mf):
     raise TypeError(f"no port of mean function {name}")
 
 
+def _likelihood_tree(lik):
+    if type(lik).__name__ != "Gaussian":
+        raise TypeError(f"no port of likelihood {type(lik).__name__}")
+    return {"type": "Gaussian", "variance_raw": _np(lik.variance_raw)}
+
+
 def numpy_tree_from_reference(params) -> dict:
-    """The tree of a ``dgp_tpu.models.dgp.DGPParams`` as numpy arrays (the
-    two packages name their fields alike, so the port's ``DGPParams`` reads
-    the same way: :func:`numpy_tree_from_port`)."""
+    """The tree of a ``dgp_tpu.models.dgp.DGPParams`` (or of a
+    ``dgp_tpu.models.gpr.GPRParams``) as numpy arrays (the two packages
+    name their fields alike, so the port's ``DGPParams`` and ``GPRParams``
+    read the same way: :func:`numpy_tree_from_port`)."""
+    if not hasattr(params, "layers"):
+        return {"kernel": _kernel_tree(params.kernel),
+                "likelihood": _likelihood_tree(params.likelihood)}
     layers = []
     for layer in params.layers:
         if getattr(layer, "augmented", False):
@@ -90,12 +103,7 @@ def numpy_tree_from_reference(params) -> dict:
             "white": bool(layer.white),
             "input_prop_dim": layer.input_prop_dim,
         })
-    lik = params.likelihood
-    if type(lik).__name__ != "Gaussian":
-        raise TypeError(f"no port of likelihood {type(lik).__name__}")
-    return {"layers": layers,
-            "likelihood": {"type": "Gaussian",
-                           "variance_raw": _np(lik.variance_raw)}}
+    return {"layers": layers, "likelihood": _likelihood_tree(params.likelihood)}
 
 
 def numpy_tree_from_port(params) -> dict:
@@ -155,8 +163,18 @@ def dgp_from_numpy(tree: dict, device, dtype) -> DGPParams:
         )
         for t in tree["layers"]
     ]
-    lik = tree["likelihood"]
-    if lik["type"] != "Gaussian":
-        raise TypeError(f"no port of likelihood {lik['type']}")
-    likelihood = likelihoods.Gaussian(_tensor(lik["variance_raw"], device, dtype))
-    return DGPParams(layers, likelihood)
+    return DGPParams(layers, _likelihood(tree["likelihood"], device, dtype))
+
+
+def _likelihood(tree, device, dtype):
+    if tree["type"] != "Gaussian":
+        raise TypeError(f"no port of likelihood {tree['type']}")
+    return likelihoods.Gaussian(_tensor(tree["variance_raw"], device, dtype))
+
+
+def gpr_from_numpy(tree: dict, device, dtype) -> GPRParams:
+    """The port's ``GPRParams`` from a tree of numpy arrays, on ``device``
+    in ``dtype``."""
+    device = torch.device(device)
+    return GPRParams(_kernel(tree["kernel"], device, dtype),
+                     _likelihood(tree["likelihood"], device, dtype))

@@ -23,6 +23,7 @@ from ..ops.conditionals import (
     precompute_projections,
     reparameterize,
 )
+from ..ops.cholesky import cholesky
 from ..ops.linalg import eye_like
 from ..ops.means import MeanFunction, Zero
 from ..variational.gaussian import gauss_kl
@@ -47,9 +48,11 @@ def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
                     white=False, input_prop_dim=None, dtype=None,
                     device=None) -> SVGPLayer:
     """A layer with the reference's initialization: q_mu = 0; q_sqrt = I
-    (whitened) or chol(Kuu) at the initial inducing inputs (non-whitened).
-    The layer holds its own copy of ``kernel`` (the JAX layers share
-    immutable values; shared modules would tie the parameters)."""
+    (whitened) or chol(Kuu) at the initial inducing inputs (non-whitened;
+    kernel #7 where it applies, and NaN, not a raise, for a Kuu that is not
+    positive definite, as in the JAX package). The layer holds its own copy
+    of ``kernel`` (the JAX layers share immutable values; shared modules
+    would tie the parameters)."""
     dtype = dtype or default_float()
     Z = torch.as_tensor(Z, dtype=dtype, device=device)
     kernel = copy.deepcopy(kernel).to(device=Z.device, dtype=dtype)
@@ -62,7 +65,7 @@ def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
         if white:
             Lu = eye
         else:
-            Lu = torch.linalg.cholesky(kernel.K(Z) + default_jitter(dtype) * eye)
+            Lu = cholesky(kernel.K(Z) + default_jitter(dtype) * eye)
         q_sqrt = Lu[None].repeat(num_outputs, 1, 1)
     return SVGPLayer(kernel, Z, q_mu, q_sqrt, mean_function, num_outputs,
                      white=white, input_prop_dim=input_prop_dim)
@@ -132,10 +135,14 @@ def sample_from_conditional(layer: SVGPLayer, Z, X, generator=None,
     return samples, mean, var
 
 
-def layer_kl(layer: SVGPLayer, Z):
-    """KL[q(u) || p(u)]."""
+def layer_kl(layer: SVGPLayer, Z, Lu=None):
+    """KL[q(u) || p(u)]. The non-whitened prior's Kuu factor is ``Lu``
+    where given (the layer's SVGPProjection.Lu, as the ELBO passes it), else
+    it comes from kernel #7 where that applies; a Kuu that is not positive
+    definite gives a NaN KL, never a raise."""
     if layer.white:
         return gauss_kl(layer.q_mu, layer.q_sqrt, Lu=None)
-    Kuu = layer.kernel.K(Z)
-    Lu = torch.linalg.cholesky(Kuu + default_jitter(Z.dtype) * eye_like(Kuu))
+    if Lu is None:
+        Kuu = layer.kernel.K(Z)
+        Lu = cholesky(Kuu + default_jitter(Z.dtype) * eye_like(Kuu))
     return gauss_kl(layer.q_mu, layer.q_sqrt, Lu=Lu)

@@ -48,18 +48,21 @@ def _like(params: DGPParams, X):
 
 @ieee_fp32()
 def propagate(params: DGPParams, X, S: int, generator=None, full_cov=False,
-              zs=None):
+              zs=None, projs=None):
     """Chain layer-wise reparameterized samples.
 
     :param generator: ``torch.Generator`` on the model's device, used where
         ``zs`` gives no fixed unit normals for a layer.
+    :param projs: the layers' projections (stack_projections), where the
+        caller has them already.
     :return: (Fs, Fmeans, Fvars) tuples of per-layer [S, N, D] tensors.
     """
     X = _like(params, X)
     F = X[None].expand(S, *X.shape)
     Fs, Fmeans, Fvars = [], [], []
     zs = zs if zs is not None else [None] * len(params.layers)
-    projs = stack_projections(params.layers, [l.z for l in params.layers])
+    if projs is None:
+        projs = _projections(params)
     for layer, z, proj in zip(params.layers, zs, projs):
         F, Fmean, Fvar = sample_from_conditional(
             layer, layer.z, F, generator, full_cov=full_cov, z=z, proj=proj)
@@ -69,10 +72,14 @@ def propagate(params: DGPParams, X, S: int, generator=None, full_cov=False,
     return tuple(Fs), tuple(Fmeans), tuple(Fvars)
 
 
+def _projections(params: DGPParams):
+    return stack_projections(params.layers, [l.z for l in params.layers])
+
+
 def predict_f(params: DGPParams, X, S: int, generator=None, full_cov=False,
-              zs=None):
+              zs=None, projs=None):
     _, Fmeans, Fvars = propagate(params, X, S, generator, full_cov=full_cov,
-                                 zs=zs)
+                                 zs=zs, projs=projs)
     return Fmeans[-1], Fvars[-1]
 
 
@@ -87,7 +94,10 @@ def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None,
         data term; the effective row count is sum(row_weights).
     """
     Y = _like(params, Y)
-    Fmean, Fvar = predict_f(params, X, num_samples, generator, zs=zs)
+    # one factorization of each Kuu serves the conditionals and the KL
+    projs = _projections(params)
+    Fmean, Fvar = predict_f(params, X, num_samples, generator, zs=zs,
+                            projs=projs)
     var_exp = params.likelihood.variational_expectations(Fmean, Fvar, Y)
     per_row = torch.mean(var_exp, dim=0)  # [N, D]
     if row_weights is None:
@@ -96,7 +106,8 @@ def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None,
     else:
         L = torch.sum(row_weights[:, None] * per_row)
         denom = torch.sum(row_weights)
-    kl = sum(layer_kl(layer, layer.z) for layer in params.layers)
+    kl = sum(layer_kl(layer, layer.z, proj.Lu)
+             for layer, proj in zip(params.layers, projs))
     scale = 1.0 if num_data is None else num_data / denom
     return L * scale - kl
 

@@ -16,17 +16,35 @@ import torch
 
 from ..config import default_jitter, ieee_fp32, use_kernels
 from . import conditional_fused
+from .cholesky import cholesky, cholesky_inverse
 from .linalg import cho_solve, eye_like
 from .quadform import quadform_t2, quadform_t2_t1
 
 
 class SVGPProjection(NamedTuple):
-    """Per-layer quantities that depend only on (kernel, Z, q) — not on X."""
+    """Per-layer quantities that depend only on (kernel, Z, q) — not on X.
+
+    Lu and W come from one launch of kernel #8 (:func:`cholesky_inverse`)
+    per (M, white) group. The whitened conditional reads W as its projector
+    (A = Lu^{-1} Kuf is one product). The non-whitened one solves with Lu
+    instead (f32 accuracy at ill-conditioned Kuu, see the JAX package) and
+    its KL takes the same Lu; there W is read by the factorization's
+    backward, where it stands in for two triangular solves. A Kuu that is
+    not positive definite gives NaN, as in the JAX package, and never
+    raises."""
 
     Lu: torch.Tensor        # [M, M] lower Cholesky of Kuu + jitter I
     Kuu: torch.Tensor       # [M, M] (jittered)
     SK: torch.Tensor        # [D, M, M] = q_sqrt q_sqrt^T - (Kuu or I)
-    Pinv: torch.Tensor      # [M, M] projector: Lu^{-1} (white) or Kuu^{-1}
+    W: torch.Tensor         # [M, M] Lu^{-1}
+    white: bool
+
+    @property
+    @ieee_fp32()
+    def Pinv(self):
+        """The JAX package's projector: Lu^{-1} (white) or Kuu^{-1} =
+        W^T W (non-white, formed here on demand: no model path reads it)."""
+        return self.W if self.white else self.W.mT @ self.W
 
 
 def _jittered_kuu(kernel, Z, jitter):
@@ -35,21 +53,13 @@ def _jittered_kuu(kernel, Z, jitter):
     return Kuu + jitter * eye_like(Kuu)
 
 
-def _projector(Lu, white):
-    eye = eye_like(Lu).expand(Lu.shape)
-    if white:
-        # A = Lu^{-1} Kuf as (one small M x M solve) @ Kuf
-        return torch.linalg.solve_triangular(Lu, eye, upper=False)
-    return cho_solve(Lu, eye)  # Kuu^{-1}
-
-
 @ieee_fp32()
 def precompute_projection(kernel, Z, q_sqrt, white: bool,
                           jitter=None) -> SVGPProjection:
     Kuu = _jittered_kuu(kernel, Z, jitter)
-    Lu = torch.linalg.cholesky(Kuu)
-    return SVGPProjection(Lu=Lu, Kuu=Kuu, SK=_make_sk(q_sqrt, Kuu, white),
-                          Pinv=_projector(Lu, white))
+    Lu, W = cholesky_inverse(Kuu[None])
+    return SVGPProjection(Lu=Lu[0], Kuu=Kuu, SK=_make_sk(q_sqrt, Kuu, white),
+                          W=W[0], white=bool(white))
 
 
 def _make_sk(q_sqrt, Kuu, white):
@@ -65,24 +75,24 @@ def precompute_projections(items, jitter=None):
     :param items: list of (kernel, Z, q_sqrt, white).
     :return: list of :class:`SVGPProjection`, one per item.
 
-    Layers sharing (M, white) are stacked into one [G, M, M] batched
-    Cholesky and projector solve.
+    Layers sharing (M, white) are stacked into one [G, M, M] stack, whose
+    factor and its inverse come from one launch of kernel #8.
     """
     Kuus = [_jittered_kuu(kernel, Z, jitter) for kernel, Z, _, _ in items]
     groups: dict = {}
     for i, (_, Z, _, white) in enumerate(items):
         groups.setdefault((Z.shape[0], bool(white)), []).append(i)
     Lus = [None] * len(items)
-    Pinvs = [None] * len(items)
-    for (_, white), idxs in groups.items():
-        Ls = torch.linalg.cholesky(torch.stack([Kuus[i] for i in idxs]))
-        Ps = _projector(Ls, white)
+    Ws = [None] * len(items)
+    for idxs in groups.values():
+        Ls, W = cholesky_inverse(torch.stack([Kuus[i] for i in idxs]))
         for j, i in enumerate(idxs):
             Lus[i] = Ls[j]
-            Pinvs[i] = Ps[j]
+            Ws[i] = W[j]
     return [
         SVGPProjection(Lu=Lus[i], Kuu=Kuus[i],
-                       SK=_make_sk(q_sqrt, Kuus[i], white), Pinv=Pinvs[i])
+                       SK=_make_sk(q_sqrt, Kuus[i], white), W=Ws[i],
+                       white=bool(white))
         for i, (_, _, q_sqrt, white) in enumerate(items)
     ]
 
@@ -122,19 +132,19 @@ def conditional_diag(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
             # the lengthscale scaling stays outside the kernel
             ls = kernel.lengthscales
             return fused_conditional_white_stationary(
-                kind, proj.Pinv, X / ls, Z / ls, kernel.variance, q_mu, Sq)
+                kind, proj.W, X / ls, Z / ls, kernel.variance, q_mu, Sq)
     Kuf = kernel.K(Z, X)                       # [M, n]
     if white and use_kernels():
-        if conditional_fused.applicable(proj.Pinv, Kuf, Sq, q_mu):
+        if conditional_fused.applicable(proj.W, Kuf, Sq, q_mu):
             # A and B stay on chip; dKuf and dKff flow back through
             # kernel.K and kernel.K_diag
             return conditional_fused.fused_conditional_white(
-                proj.Pinv, Kuf, q_mu, Sq, kernel.K_diag(X))
-    # A (white) = Lu^{-1} Kuf as a product with the precomputed inverse;
+                proj.W, Kuf, q_mu, Sq, kernel.K_diag(X))
+    # A (white) = Lu^{-1} Kuf as a product with the precomputed inverse W;
     # A (non-white) = Kuu^{-1} Kuf by two substitution solves (f32 accuracy
     # at ill-conditioned Kuu, see the JAX package)
     if white:
-        A = proj.Pinv @ Kuf
+        A = proj.W @ Kuf
     else:
         A = cho_solve(proj.Lu, Kuf)
     mean = A.T @ q_mu                          # [n, D]
@@ -159,7 +169,7 @@ def conditional_full(kernel, Z, q_mu, q_sqrt, X, *, white: bool, jitter=None,
         proj = precompute_projection(kernel, Z, q_sqrt, white, jitter)
     Kuf = kernel.K(Z, X)
     if white:
-        A = proj.Pinv @ Kuf
+        A = proj.W @ Kuf
     else:
         A = cho_solve(proj.Lu, Kuf)
     mean = A.T @ q_mu
@@ -182,7 +192,7 @@ def reparameterize(mean, var, z, full_cov: bool = False, jitter=None):
     if not full_cov:
         return mean + z * torch.sqrt(torch.clamp_min(var, 0.0) + jitter)
     var_d = torch.movedim(var, -1, -3)         # [..., D, N, N]
-    chol = torch.linalg.cholesky(var_d + jitter * eye_like(var_d))
+    chol = cholesky(var_d + jitter * eye_like(var_d))
     z_d = torch.movedim(z, -1, -2)[..., None]  # [..., D, N, 1]
     f = torch.movedim(mean, -1, -2) + (chol @ z_d)[..., 0]
     return torch.movedim(f, -2, -1)

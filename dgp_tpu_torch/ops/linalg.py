@@ -1,5 +1,6 @@
 """Dense linear-algebra helpers for the GP core (counterpart of
-``dgp_tpu/ops/linalg.py``; ``log_det_from_chol`` comes with the exact GPs)."""
+``dgp_tpu/ops/linalg.py``). The Cholesky factors themselves come from
+``ops/cholesky.py``."""
 
 from __future__ import annotations
 
@@ -17,3 +18,9 @@ def tri_solve(L, B, lower=True):
 def cho_solve(L, B):
     """Solve (L L^T) x = B given the lower Cholesky factor L."""
     return torch.cholesky_solve(B, L, upper=False)
+
+
+def log_det_from_chol(L):
+    """log det(A) where A = L L^T."""
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                           dim=-1)

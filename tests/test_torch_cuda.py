@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from dgp_tpu_torch.config import kernels_scope
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import cholesky as tch
 from dgp_tpu_torch.ops import conditional_fused as cf
 from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 from dgp_tpu_torch.ops import conditionals as C
@@ -294,7 +295,7 @@ def quadform_inputs(D, M, n, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_t1", [False, True])
 @pytest.mark.parametrize("D,M,n", [(3, 64, 1037), (8, 128, 4101), (2, 50, 65),
-                                   (1, 100, 64)])
+                                   (1, 100, 64), (1, 8, 80)])
 def test_quadform_kernels_match_plain(cuda, with_t1, D, M, n):
     """Kernels #5 and #6 against their plain versions in f64 on the same
     f32 inputs: t2 (and t1) within 1e-4 of their largest value, dSq and dA
@@ -363,7 +364,10 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     launches the quadform kernel once per layer and kernel #1 never; one
     Adam step launches it and its backward once per layer; the request and
     the first step's gradients equal the kernels-off path's to 1e-3 of each
-    one's scale."""
+    one's scale, both arms factoring Kuu through kernels #7/#8 (two float32
+    factorizations of this Kuu differ by more than that once a non-whitened
+    mean carries Kuu^-1 q_mu; test_cholesky_kernels_match_plain holds #7/#8
+    to float64)."""
     rng = np.random.default_rng(0)
     X = rng.uniform(size=(300, 4))
     Y = np.sin(3 * X[:, :1])
@@ -387,7 +391,7 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     counts = lambda: (qf.QuadForm.launches, qf.QuadForm.backward_launches,
                       cfr.FusedConditional.launches)
     before = counts()
-    with torch.no_grad():
+    with torch.no_grad(), chip_smoke.cholesky_route("kernels"):
         on = tdgp.predict_y(model.params, X, 5, zs=zs)
         assert counts() == (before[0] + 2, before[1], before[2])
         with kernels_scope(False):
@@ -402,10 +406,11 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
         return torch.autograd.grad(loss, params)
 
     before = counts()
-    on = grads()
-    assert counts() == (before[0] + 2, before[1] + 2, before[2])
-    with kernels_scope(False):
-        off = grads()
+    with chip_smoke.cholesky_route("kernels"):
+        on = grads()
+        assert counts() == (before[0] + 2, before[1] + 2, before[2])
+        with kernels_scope(False):
+            off = grads()
     for (name, _), a, b in zip(model.params.named_parameters(), on, off):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), name
     before = counts()
@@ -571,3 +576,73 @@ def test_composite_dgp_goes_through_the_fused_white_kernels(cuda):
     losses = model.optimize_adam(iterations=1, messages=0)
     assert counts() == (before[0] + 2, before[1] + 2, *before[2:])
     assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("G,M,kuu", [(2, 128, None), (3, 24, None),
+                                     (1, 8, None), (1, 100, None),
+                                     (2, 128, "model"), (3, 8, "bo")])
+def test_cholesky_kernels_match_plain(cuda, inverse, G, M, kuu):
+    """Kernel #7 (#8) against its plain version in float64 (L within 1e-4
+    of scale, W also within twice the float32 library pair's own error), a
+    repeat bit for bit equal, NaN in place for an indefinite matrix, and
+    the Function's gradient against autograd in float64 (on the
+    well-conditioned stacks): chip_smoke's check, which raises on any
+    miss."""
+    assert chip_smoke.check_cholesky(G, M, 60 + M, inverse, kuu) < 1.0
+
+
+@pytest.mark.cuda
+def test_cholesky_size_gate(cuda):
+    """The plans: M <= 240 for #7 and M <= 169 for #8 (the matrix, or both,
+    in shared memory); outside them the gate says no, a launch raises, and
+    the dispatch takes the plain version; float64 is refused likewise."""
+    assert tch.supported(240) and not tch.supported(241)
+    assert tch.supported(169, True) and not tch.supported(170, True)
+    big = chip_smoke.spd_stack(1, 170, 0)
+    assert tch.applicable(big) and not tch.applicable(big, inverse=True)
+    with pytest.raises(RuntimeError, match="does not take M=170"):
+        tch._launch(big, True)
+    before = tch.CholeskyInverse.launches
+    L, W = tch.cholesky_inverse(big)
+    assert tch.CholeskyInverse.launches == before and torch.isfinite(W).all()
+    assert not tch.applicable(big.double())
+    with pytest.raises(TypeError, match="float32"):
+        tch.Cholesky.apply(big.double())
+    empty = tch._launch(big[:0], True)
+    assert [tuple(t.shape) for t in empty] == [(0, 170, 170)] * 2
+
+
+@pytest.mark.cuda
+def test_bo_surrogates_go_through_the_cholesky_kernels(cuda):
+    """The BO surrogates on the card: a GPR likelihood launches #7 once; a
+    non-whitened DGP (num_layers=2: three SVGP layers) launches #7 once per
+    layer when it is built (q_sqrt = chol(Kuu)), its ELBO #8 once (one
+    (M, white) group, whose factor the KL takes too), its prediction #8
+    once; a bad Kuu gives NaN without an exception or a host sync."""
+    from dgp_tpu_torch.bo.so_bo import make_single_model
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(6, 1))
+    Y = np.where(X > 0.25, 1.0, 0.0)
+    counts = lambda: (tch.Cholesky.launches, tch.CholeskyInverse.launches)
+    gpr = make_single_model({"num_layers": 0, "kernels": "rbf"}, X, Y,
+                            n_bucket=8)
+    before = counts()
+    loss = gpr.training_loss()
+    assert counts() == (before[0] + 1, before[1]) and torch.isfinite(loss)
+    before = counts()
+    dgp = make_single_model({"num_layers": 2, "num_units": 1,
+                             "kernels": "rbf", "num_samples": 10}, X, Y,
+                            n_bucket=8)
+    assert counts() == (before[0] + 3, before[1])
+    before = counts()
+    elbo = dgp.ELBO()
+    assert counts() == (before[0], before[1] + 1) and torch.isfinite(elbo)
+    before = counts()
+    mean, var = dgp.predict_y(X, 10)
+    assert counts() == (before[0], before[1] + 1)
+    with torch.no_grad():
+        dgp.params.layers[0].z[2, 0] = float("nan")
+    assert torch.isnan(dgp.ELBO())

@@ -12,7 +12,9 @@ import torch
 
 import dgp_tpu_torch
 from dgp_tpu_torch.config import ieee_fp32
+from dgp_tpu_torch.bo.so_bo import SO_BO, make_single_model
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.models import gpr as TGPR
 from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
@@ -43,7 +45,9 @@ def test_no_jax_imports_in_port():
     rel = {os.path.relpath(p, PKG) for p in sources}
     assert {"models/training.py", "variational/natgrad.py",
             "utils/checkpoint.py", "convert.py", "ops/quadform.py",
-            "ops/conditional_fused.py"} <= rel
+            "ops/conditional_fused.py", "ops/cholesky.py", "models/gpr.py",
+            "bo/doe.py", "bo/de.py", "bo/acquisition.py",
+            "bo/so_bo.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -73,6 +77,17 @@ assert losses.shape == (3,) and bool(torch.isfinite(losses).all())
 from dgp_tpu_torch.utils import checkpoint
 from dgp_tpu_torch import convert
 assert len(convert.numpy_tree_from_port(m.params)["layers"]) == 2
+from dgp_tpu_torch.bo import SO_BO
+class P:
+    constraint = False
+    dim = 1
+    def fun(self, x):
+        return [(x - 0.3) ** 2]
+bo = SO_BO(problem=P(), DoE_size=4, model_Y_dic={"num_layers": 0,
+           "kernels": "rbf"}, seed=0, device="cpu")
+bo.run(1, train_iterations=5, popsize_DE=8, iterations_DE=3,
+       iterations_adam=3, verbose=False)
+assert len(bo.Ymin) == 2 and np.isfinite(bo.Ymin[-1])
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -101,6 +116,23 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     predict = lambda p, Xc, g: tdgp.predict_y(p, Xc, 1, g)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         predict_in_chunks(predict, model.params, X, model.generator, 4)
+    gp = {"num_layers": 0, "kernels": "rbf"}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TGPR.GPR((X, X), TK.RBF.create(lengthscales=[1.0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_single_model(gp, X, X)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SO_BO(problem=_Problem(), DoE_size=4, model_Y_dic=gp)
+    bo = SO_BO(problem=_Problem(), DoE_size=4, model_Y_dic=gp, device="cpu")
+    assert bo.model_Y.device == torch.device("cpu")
+
+
+class _Problem:
+    constraint = False
+    dim = 1
+
+    def fun(self, x):
+        return [(x - 0.3) ** 2]
 
 
 @pytest.fixture

@@ -20,6 +20,7 @@ from dgp_tpu.ops import kernels as JK
 from dgp_tpu_torch import convert
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import training as ttrain
+from dgp_tpu_torch.ops import cholesky as tch
 from dgp_tpu_torch.ops import conditional_fused as tcf
 from dgp_tpu_torch.ops import kernels as TK
 from dgp_tpu_torch.ops import quadform as tq
@@ -173,8 +174,10 @@ def test_masked_adam_update_equals_optax():
     grads = [rng.normal(size=(4, 3)) * 10.0 ** rng.integers(-6, 3, size=(4, 3))
              for _ in range(3)]
     module = torch.nn.Module()
-    module.w = torch.nn.Parameter(torch.as_tensor(w0))
-    module.f = torch.nn.Parameter(torch.as_tensor(f0))
+    # copies: torch's in-place steps must not reach w0, which JAX's CPU
+    # backend may share (zero-copy) with jnp.asarray(w0) below
+    module.w = torch.nn.Parameter(torch.tensor(w0))
+    module.f = torch.nn.Parameter(torch.tensor(f0))
     opt = ttrain.masked_adam(module, {"w": True, "f": False}, lr=0.02, b1=0.8,
                              b2=0.95, eps=1e-7)
     jopt = optax.adam(0.02, b1=0.8, b2=0.95, eps=1e-7)
@@ -372,6 +375,31 @@ def test_nonwhite_elbo_gradients_through_quadform(monkeypatch):
     monkeypatch.setattr(tq, "quadform_backward_plain", counted_backward)
     check_elbo_gradients(white=False)
     assert calls == {"forward": 2, "backward": 2}
+
+
+@pytest.mark.parametrize("white", [True, False])
+def test_elbo_gradients_through_the_cholesky_kernels(monkeypatch, white):
+    """The ELBO with the Cholesky kernels' gate forced open: the CPU
+    tensors go through CholeskyInverse once (the Kuu stack of both layers,
+    one (M, white) group, whose factor the non-whitened KL takes too), with
+    the hand-written adjoint; the gradients reach Z and the kernels'
+    hyperparameters and still match jax.grad of dgp_tpu's ELBO."""
+    calls = {"chol": 0, "chol_inv": 0}
+
+    def counted(name, function):
+        forward = function.forward
+
+        def counted_forward(ctx, *args):
+            calls[name] += 1
+            return forward(ctx, *args)
+
+        monkeypatch.setattr(function, "forward", staticmethod(counted_forward))
+
+    counted("chol", tch.Cholesky)
+    counted("chol_inv", tch.CholeskyInverse)
+    monkeypatch.setattr(tch, "applicable", lambda *args, **kwargs: True)
+    check_elbo_gradients(white)
+    assert calls == {"chol": 0, "chol_inv": 1}
 
 
 def test_composite_elbo_gradients_through_fused_conditional(monkeypatch):

@@ -32,11 +32,15 @@ Phases, each of which raises (exit code 1) on any fault:
              the Cholesky kernels (#7, the factor; #8, the factor and its
              inverse) on [2, 128, 128] (the whitened models' Kuu stack),
              [3, 24, 24], [1, 8, 8], [1, 100, 100], a [2, 128, 128]
-             stack of the models' own Kuu conditioning and a [3, 8, 8]
-             stack of the BO surrogate's (8 points on a line): L within TOL
+             stack of the models' own Kuu conditioning, a [3, 8, 8]
+             stack of the BO surrogate's (8 points on a line), M = 31, 32,
+             33, 64, 95, 127 and 129 (either side of each panel edge), a
+             [40, 64, 64] stack and the largest M of each plan: L within TOL
              of scale, W also within twice the float32 library pair's error,
-             a repeat bit for bit equal, an indefinite matrix NaN in place,
-             the Function's gradient against autograd in float64.
+             a repeat and a stack with NaN above the diagonal bit for bit
+             equal, an indefinite matrix and one whose pivot fails past the
+             first panel NaN in place, the Function's gradient against
+             autograd in float64.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -89,8 +93,9 @@ Phases, each of which raises (exit code 1) on any fault:
              need, and kernel #3 against its plain version at n = 10,000;
              #7 and #8 at the models' and the BO's stacks beside the
              library calls for the same function (cholesky_ex, and
-             solve_triangular for #8), and bench.py's whitened model's
-             precompute_projections and Adam step with the factorizations
+             solve_triangular for #8), event-timed and, from torch.profiler,
+             the device time of the kernel and of the library's kernels;
+             bench.py's whitened model's precompute_projections and Adam step with the factorizations
              through the kernels, their plain versions, and the checked
              torch.linalg.cholesky the port called before;
              wall time per Adam step and per Adam+natural-gradient step
@@ -147,6 +152,8 @@ TOL_REQUEST = 1e-3
 # float64 by more than TOL_REQUEST, the kernels' arm may be off by twice the
 # library arm's error, but never by more than this much of scale
 WITNESS_CAP = 1e-2
+# #7/#8 checks either side of each edge of their 16-column panels
+CHOLESKY_EDGES = (31, 32, 33, 64, 95, 127, 129)
 DEVICE = "cuda"
 
 
@@ -563,10 +570,15 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
     float32 stack: L within TOL of max|L|; W within TOL of max|W| plus twice
     the error of the float32 library pair (cholesky_ex + solve_triangular)
     on the same inputs, which the conditioning alone sets (the witness
-    rule of the #3 checks); a second run bit for bit equal; an indefinite matrix in the stack
-    gives NaN there (L on and below the diagonal, all of W) and leaves the
-    others' bits unchanged; and, on the well-conditioned stacks, the
-    Function's gradient within TOL_BWD of autograd through
+    rule of the #3 checks); a second run and a run on the stack with NaN
+    above every diagonal (only the lower triangle is read) bit for bit
+    equal to the first; an
+    indefinite matrix in the stack, and (for Mi > 40) one positive definite
+    in its leading 40 x 40 block but not overall, whose failed pivot lies
+    past the first panel, give NaN there (L on and below the diagonal, all
+    of W) and leave the others' bits unchanged; and, on the
+    well-conditioned stacks,
+    the Function's gradient within TOL_BWD of autograd through
     torch.linalg.cholesky and solve_triangular in float64."""
     from dgp_tpu_torch.ops import cholesky as tch
 
@@ -584,6 +596,14 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
     if fn.launches != before + 2:
         raise AssertionError(f"{what}: the kernel did not launch")
     got, again = (got, again) if inverse else ((got,), (again,))
+    junk = A.clone()
+    upper = torch.ones(Mi, Mi, dtype=torch.bool, device=DEVICE).triu(1)
+    junk[:, upper] = float("nan")
+    with torch.no_grad():
+        outs = tch._launch(junk, inverse)
+    outs = outs if inverse else (outs,)
+    if not all(torch.equal(o, g) for o, g in zip(outs, got)):
+        raise AssertionError(f"{what}: the run with NaN above the diagonal differs")
     worst, report = 0.0, []
     for name, g, r, w, p in zip(("L", "W"), got, again, want, lib32):
         if not (torch.equal(g, r) and torch.isfinite(g).all()):
@@ -599,22 +619,28 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
             raise AssertionError(f"{what}: {name} off by {err:.3e} of scale "
                                  f"{scale:.3e}, limit {limit:.3e}")
 
-    bad = A.clone()
     k = G // 2
+    bad = A.clone()
     lam = torch.linalg.eigvalsh(A[k].double()).min()
     bad[k] -= (float(lam) + 1.0) * torch.eye(Mi, device=DEVICE)
-    with torch.no_grad():
-        outs = tch._launch(bad, inverse)
-        outs = outs if inverse else (outs,)
-    lower = torch.ones(Mi, Mi, dtype=torch.bool, device=DEVICE).tril()
+    failures = [("indefinite", bad)]
+    if Mi > 40:
+        late = A.clone()
+        late[k, 40, 40] = -1.0  # the first 40 pivots pass, the 41st fails
+        failures.append(("pivot-40-fails", late))
+    lower = ~upper
     others = [i for i in range(G) if i != k]
-    for name, o, g in zip(("L", "W"), outs, got):
-        nan_at = lower if name == "L" else torch.ones_like(lower)
-        if not (torch.equal(torch.isnan(o[k]), nan_at)
-                and bool((o[k][~nan_at] == 0).all())
-                and torch.equal(o[others], g[others])):
-            raise AssertionError(f"{what}: the indefinite matrix gave {name} "
-                                 f"without its NaN, or touched the others")
+    for how, X in failures:
+        with torch.no_grad():
+            outs = tch._launch(X, inverse)
+            outs = outs if inverse else (outs,)
+        for name, o, g in zip(("L", "W"), outs, got):
+            nan_at = lower if name == "L" else torch.ones_like(lower)
+            if not (torch.equal(torch.isnan(o[k]), nan_at)
+                    and bool((o[k][~nan_at] == 0).all())
+                    and torch.equal(o[others], g[others])):
+                raise AssertionError(f"{what}: the {how} matrix gave {name} "
+                                     f"without its NaN, or touched the others")
 
     if kuu is None:
         gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -636,8 +662,16 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
         if not gerr <= TOL_BWD:
             raise AssertionError(f"{what}: gradient off by {gerr:.2e} of scale")
     log(f"[kernels] {what}: err / max|plain f64|: {', '.join(report)}; repeat "
-        f"bit-equal, indefinite matrix NaN in place, ok")
+        f"and NaN above the diagonal bit-equal; "
+        f"{' and '.join(how for how, _ in failures)} matrix NaN in place, ok")
     return worst
+
+
+def largest_cholesky_m(inverse):
+    """The largest M the plan of #7 (#8) takes, asked of its gate."""
+    from dgp_tpu_torch.ops import cholesky as tch
+
+    return max(m for m in range(1, 513) if tch.supported(m, inverse))
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -1431,11 +1465,40 @@ def cholesky_bound_ms(G, Mi, inverse):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def device_us(fn, reps, name=None):
+    """(device µs per call, kernels per call) of ``fn`` over ``reps`` warm
+    calls, from torch.profiler: the kernels whose name holds ``name``, or
+    all of them. (None, 0) where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")
+               and e.self_device_time_total > 0
+               and (name is None or name in e.key)]
+    total = sum(e.self_device_time_total for e in kernels)
+    if total <= 0:
+        return None, 0
+    return total / reps, sum(e.count for e in kernels) / reps
+
+
+def fmt_us(us):
+    return "not measured" if us is None else f"{us:.1f} us"
+
+
 def time_cholesky(G, Mi, inverse, gpu, kuu="model"):
     """Kernel #7 (#8) through its wrapper's launch beside its plain version
     and the library calls that compute the same function:
     torch.linalg.cholesky_ex (with solve_triangular against the identity
-    for #8), timed here and used nowhere in the port."""
+    for #8), timed here and used nowhere in the port. CUDA events over
+    back-to-back calls give the time a caller sees (the larger of host and
+    device time per call); torch.profiler over the same calls gives the
+    device time of the kernel alone and of the library's kernels."""
     from dgp_tpu_torch.ops import cholesky as tch
 
     A = spd_stack(G, Mi, 15, kuu)
@@ -1445,17 +1508,22 @@ def time_cholesky(G, Mi, inverse, gpu, kuu="model"):
         L, _ = torch.linalg.cholesky_ex(A)
         return torch.linalg.solve_triangular(L, eye, upper=False) if inverse else L
 
+    kernel = lambda: tch._launch(A, inverse)
     with torch.no_grad():
-        ms = event_ms(lambda: tch._launch(A, inverse), 200)
+        ms = event_ms(kernel, 200)
         plain = tch.cholesky_inverse_plain if inverse else tch.cholesky_plain
         plain_ms = event_ms(lambda: plain(A), 200)
         library_ms = event_ms(library, 200)
+        dev_us, _ = device_us(kernel, 100, "cholesky_kernel")
+        lib_us, lib_kernels = device_us(library, 100)
     bound, by = cholesky_bound_ms(G, Mi, inverse)
-    log(f"[timing] {'#8 chol+inverse' if inverse else '#7 chol'} G={G} M={Mi}: "
-        f"kernel {1e3 * ms:.1f} us, plain {1e3 * plain_ms:.1f} us, library "
-        f"{1e3 * library_ms:.1f} us, bound {1e3 * bound:.3f} us ({by}), "
+    what = "#8 chol+inverse" if inverse else "#7 chol"
+    log(f"[timing] {what} G={G} M={Mi}: events: kernel {1e3 * ms:.1f} us, plain "
+        f"{1e3 * plain_ms:.1f} us, library {1e3 * library_ms:.1f} us; device "
+        f"(profiler): kernel {fmt_us(dev_us)}, library {fmt_us(lib_us)} in "
+        f"{lib_kernels:g} kernels per call; bound {1e3 * bound:.3f} us ({by}), "
         f"{bound / ms:.2%} of the bound ({gpu})")
-    return ms, plain_ms, bound, by, library_ms
+    return ms, plain_ms, bound, by, library_ms, dev_us, lib_us
 
 
 @contextlib.contextmanager
@@ -1642,10 +1710,16 @@ def main():
     err_chol = [0.0, 0.0]
     for seed, (G, Mi, kuu) in enumerate([
             (2, M, None), (3, 24, None), (1, 8, None), (1, 100, None),
-            (2, M, "model"), (3, 8, "bo")]):
+            (2, M, "model"), (3, 8, "bo"),
+            # either side of each panel edge, and a stack of G = 40 (the
+            # full-covariance sampling's [S*D, N, N])
+            *[(1, m, None) for m in CHOLESKY_EDGES], (40, 64, None)]):
         for inverse in (False, True):
             err_chol[inverse] = max(err_chol[inverse], check_cholesky(
                 G, Mi, 600 + seed, inverse, kuu))
+    for inverse in (False, True):  # the largest M of each plan
+        err_chol[inverse] = max(err_chol[inverse], check_cholesky(
+            1, largest_cholesky_m(inverse), 690 + inverse, inverse))
 
     # each main path's launch counts (zeroed just before it, read just
     # after); a kernel's launches in the kernels line are their sum

@@ -33,6 +33,7 @@ float64, CPU tensors, or M outside the kernels' plan.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,7 +52,12 @@ _SIGNATURES = {
 def supported(M, inverse=False):
     """Whether the kernel's shared-memory plan takes M x M matrices. The
     plan lives in the CUDA source, so this asks the built library (and
-    builds it on first use)."""
+    builds it on first use), once for each (M, inverse)."""
+    return _supported(int(M), bool(inverse))
+
+
+@functools.lru_cache(maxsize=None)
+def _supported(M, inverse):
     return bool(_library().dgp_cholesky_supported(M, int(inverse)))
 
 
@@ -123,11 +129,11 @@ def _launch(A, inverse):
     L = torch.empty_like(A, memory_format=torch.contiguous_format)
     W = torch.empty_like(L) if inverse else None
     if G > 0:
-        Ac = A.contiguous()
-        lib = _library()
-        if not lib.dgp_cholesky_supported(M, int(inverse)):
+        if not supported(M, inverse):
             raise RuntimeError(f"the Cholesky kernel does not take M={M}"
                                + (" with its inverse" if inverse else ""))
+        Ac = A.contiguous()
+        lib = _library()
         run_kernel(lib, lib.dgp_cholesky, A.device, "Cholesky kernel launch",
                    Ac.data_ptr(), L.data_ptr(),
                    None if W is None else W.data_ptr(), G, M)

@@ -578,18 +578,27 @@ def test_composite_dgp_goes_through_the_fused_white_kernels(cuda):
     assert bool(torch.isfinite(losses).all())
 
 
+# the largest M of each plan, 240 for #7 and 169 for #8 (test_cholesky_size_gate
+# holds the plans), taken by #7 at both and by #8 at its own
+_CHOLESKY_CASES = [(2, 128, None), (3, 24, None), (1, 8, None), (1, 100, None),
+                   (2, 128, "model"), (3, 8, "bo"),
+                   *[(1, m, None) for m in chip_smoke.CHOLESKY_EDGES],
+                   (40, 64, None), (1, 240, None), (1, 169, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("inverse", [False, True])
-@pytest.mark.parametrize("G,M,kuu", [(2, 128, None), (3, 24, None),
-                                     (1, 8, None), (1, 100, None),
-                                     (2, 128, "model"), (3, 8, "bo")])
+@pytest.mark.parametrize("G,M,kuu,inverse", [
+    (*case, inverse) for inverse in (False, True) for case in _CHOLESKY_CASES
+    if not (inverse and case[1] > 169)])
 def test_cholesky_kernels_match_plain(cuda, inverse, G, M, kuu):
     """Kernel #7 (#8) against its plain version in float64 (L within 1e-4
     of scale, W also within twice the float32 library pair's own error), a
-    repeat bit for bit equal, NaN in place for an indefinite matrix, and
-    the Function's gradient against autograd in float64 (on the
-    well-conditioned stacks): chip_smoke's check, which raises on any
-    miss."""
+    repeat and a stack with NaN above the diagonal bit for bit equal, NaN
+    in place for an indefinite matrix and for one whose pivot fails past
+    the first panel, and the Function's gradient against autograd in
+    float64 (on the well-conditioned stacks): chip_smoke's check, which
+    raises on any miss. The M either side of each panel edge, a stack of
+    40 and the largest M of each plan are the blocked plan's edges."""
     assert chip_smoke.check_cholesky(G, M, 60 + M, inverse, kuu) < 1.0
 
 

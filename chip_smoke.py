@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (dgp_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the phases below
+    python3 chip_smoke.py --steps [TREE]   # one checkout's Adam steps and
+                                           # backward host cost (steps_main)
 
 Phases, each of which raises (exit code 1) on any fault:
 
@@ -12,18 +14,28 @@ Phases, each of which raises (exit code 1) on any fault:
              in float64 on the same float32 inputs, for RBF, Matern-3/2 and
              Matern-5/2, at the serving model's layer shapes (D=8 and D=1,
              M=128, Din=8, n=262,181, a ragged last tile) and at a small odd
-             shape (D=3, M=64, Din=5). Then its backward kernel likewise, at
-             the training model's layer shapes (n = 100,037) and the small
-             odd shape: all six gradients, and a second run bit for bit
-             equal to the first. Then the quadform kernel and its backward,
+             shape (D=3, M=64, Din=5). Then its backward (phase A and phase
+             B) likewise, at the training model's layer shapes
+             (n = 100,037), the small odd shape, M = 8, 64, 100, 128 by
+             n = 1, 63, 64, 65, 129, 1,025 (Din = 8), one point past a
+             pass of 2^17 points, at M = 100 and 128 by the same n in
+             Din = 5, where Kuu is so ill-conditioned that plain fp32 is
+             itself near the tolerance (held to it plus twice that fp32
+             error), and with Pinv scaled so that the clamp
+             max(var, 0) zeroes part of the variances: all six gradients,
+             dPinv and dSq exactly 0 off the patterns of Pinv and Sq, one
+             launch of each phase per pass, and a second run bit for bit
+             equal to the first; phase B alone (the split-K Grams) at the
+             layers' shapes. Then the quadform kernel and its backward,
              with and without t1, at the same layer shapes, at two small
              ones (D=3, M=64 and D=2, M=100, which the plan pads to 128) and
              at the BO constraint surrogate's (D=1, M=8; n=80 in training,
              n=30,000 in the acquisition).
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
-             varies per point), at the same four shapes: all five
-             gradients, and a second run bit for bit equal to the first;
+             varies per point), at the same four shapes, the edge shapes
+             above and M = 50: all five gradients, exact zeros off the
+             patterns, and a second run bit for bit equal to the first;
              again at the layer-1 training shape and at M=100 with a Kff
              that makes the clamp max(var, 0) zero many variances; and #3
              at M=100 in 3 input dimensions, which
@@ -90,7 +102,9 @@ Phases, each of which raises (exit code 1) on any fault:
 6. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the fp32 bound of the work these inputs
-             need, and kernel #3 against its plain version at n = 10,000;
+             need (#2/#4 also phase A, phase B and the reductions apart,
+             from torch.profiler, and phase B alone), and kernel #3
+             against its plain version at n = 10,000;
              #7 and #8 at the models' and the BO's stacks beside the
              library calls for the same function (cholesky_ex, and
              solve_triangular for #8), event-timed and, from torch.profiler,
@@ -103,7 +117,8 @@ Phases, each of which raises (exit code 1) on any fault:
              the device time by kernel over one request and over three Adam
              steps of each of the three models (torch.profiler).
 
-The line before the last is one JSON object listing every ported kernel;
+The line before the last is one JSON object listing every ported kernel
+(and, as entries of their own, the phase B of #2 and of #4);
 the last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside it, the script fails before printing
 either.
@@ -111,7 +126,6 @@ either.
 
 import contextlib
 import json
-import math
 import os
 import re
 import subprocess
@@ -152,6 +166,16 @@ TOL_REQUEST = 1e-3
 # float64 by more than TOL_REQUEST, the kernels' arm may be off by twice the
 # library arm's error, but never by more than this much of scale
 WITNESS_CAP = 1e-2
+# the whitened backwards' (#2, #4) edge shapes: the plan pads M to 64 or
+# 128, phase A takes tiles of 128 points and phase B slices of 1,024
+BACKWARD_EDGE_M = (8, 64, 100, 128)
+BACKWARD_EDGE_N = (1, 63, 64, 65, 129, 1_025)
+# 100 or 128 inducing inputs drawn in 5 dimensions make Kuu so
+# ill-conditioned (RBF: max|Pinv| 65-83) that plain fp32 is itself near
+# TOL_BWD of scale off float64 in dXs: #2 is held there to TOL_BWD plus
+# twice plain fp32's error on the same draw (the witness rule of #3's
+# M = 100, Din = 3 case)
+BACKWARD_WITNESS_M = (100, 128)
 # #7/#8 checks either side of each edge of their 16-column panels
 CHOLESKY_EDGES = (31, 32, 33, 64, 95, 127, 129)
 DEVICE = "cuda"
@@ -181,9 +205,10 @@ def build():
     for name, text in logs.items():
         kernel = ""
         for line in (text or "").splitlines():
-            entry = re.search(r"Compiling entry function .*?([a-z][a-z_]*_(?:fwd|bwd)|"
-                              r"reduce_slabs|cholesky_kernel)(I(?:L[ib]\d+E)+E)?",
-                              line)
+            entry = re.search(r"Compiling entry function .*?("
+                              r"[a-z][a-z_]*_(?:fwd|bwd)(?:_a)?|reduce_slabs|"
+                              r"reduce_parts|gram_finish|cholesky_kernel)"
+                              r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
                 args = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
                 kernel = entry.group(1) + (f"<{', '.join(args)}>" if args else "")
@@ -244,25 +269,102 @@ def check_kernel(kind, D, Mi, Din, n, seed):
 BACKWARD_OUTPUTS = ("dPinv", "dXs", "dZs", "dvariance", "dq_mu", "dSq")
 
 
-def check_backward(kind, D, Mi, Din, n, seed):
-    """Kernel #2 through autograd of the wrapper, against the plain backward
-    in float64 on the same float32 inputs: each of the six gradients within
-    TOL_BWD of its own largest magnitude; and a second run on the same inputs
-    bit for bit equal to the first (the slabs are summed in a fixed order)."""
+def pass_edge():
+    """One point past the first pass of the whitened backward's points."""
+    from dgp_tpu_torch.ops import _launch
+
+    return _launch.BACKWARD_PASS + 1
+
+
+def off_pattern(name, grad):
+    """Entries of a whitened backward's dPinv (above the diagonal) or dSq
+    (below it) that are not exactly 0: the kernels return them on the
+    patterns of Pinv (lower) and Sq (upper)."""
+    if name == "dPinv":
+        return int(torch.triu(grad, 1).count_nonzero())
+    if name == "dSq":
+        return int(torch.tril(grad, -1).count_nonzero())
+    return 0
+
+
+def check_passes(cls, before, n, what):
+    """One phase-A and one phase-B launch of a whitened backward per pass of
+    its points since ``before`` = (backward_launches, gram_launches)."""
+    from dgp_tpu_torch.ops import _launch
+
+    passes = -(-n // _launch.BACKWARD_PASS)
+    got = (cls.backward_launches - before[0], cls.gram_launches - before[1])
+    if got != (passes, passes):
+        raise AssertionError(f"{what}: phase A / phase B launches {got}, "
+                             f"expected {passes} each")
+
+
+def stationary_clamp(kind, args):
+    """The fused conditional's float32 operands with Pinv scaled so that
+    the clamp max(var, 0) zeroes part of the variances: var = (v - t1) + t2
+    with t1 and t2 scaling as Pinv^2, the scale puts v at the median of the
+    positive t1 - t2_d (reckoned in float64)."""
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    Pinv, Xs, Zs, v, q_mu, Sq = [a.double() for a in args]
+    with torch.no_grad():
+        _, _, A = cfr._sq_kuf_a(kind, Pinv, Xs, Zs, v)
+        u = (A * A).sum(0) - ((Sq @ A) ** 2).sum(1)   # [D, n]
+        scale = float(torch.sqrt(v / u[u > 0].median()))
+    return (args[0] * scale, *args[1:])
+
+
+def stationary_band(kind, args):
+    """(lin, band) of the fused conditional as :func:`clamp_band` gives them
+    for kernel #3: the float64 pre-clamp variances (v - t1) + t2 [D, n] and
+    the band |lin| <= TOL * v."""
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    Pinv, Xs, Zs, v, q_mu, Sq = [a.double() for a in args]
+    with torch.no_grad():
+        _, _, A = cfr._sq_kuf_a(kind, Pinv, Xs, Zs, v)
+        lin = (v - (A * A).sum(0)) + ((Sq @ A) ** 2).sum(1)
+    return lin, TOL * float(v)
+
+
+def check_backward(kind, D, Mi, Din, n, seed, clamp=False, witness=False):
+    """Kernel #2 (phase A and phase B) through autograd of the wrapper,
+    against the plain backward in float64 on the same float32 inputs (both
+    give dPinv on Pinv's lower and dSq on Sq's upper pattern): each of the
+    six gradients within TOL_BWD of its own largest magnitude, the entries
+    off those patterns exactly 0, one launch of each phase per pass of
+    points, and a second run on the same inputs bit for bit equal to the
+    first (every sum in a fixed order). With ``clamp`` Pinv is scaled so
+    that the clamp zeroes part of the variances (:func:`stationary_clamp`);
+    where a pre-clamp variance lies within TOL * v of 0, kernel and plain
+    version may take the mask on opposite sides, so g_var is 0 there. With
+    ``witness`` the inputs are conditioned so badly that the plain version
+    in float32 is itself near TOL_BWD of float64; each gradient is then
+    held to TOL_BWD of its scale plus twice that plain fp32 error on the
+    same inputs."""
     from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 
     args = fused_inputs(kind, D, Mi, Din, n, seed, DEVICE)
+    if clamp:
+        args = stationary_clamp(kind, args)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     g = [torch.randn((n, D), generator=gen, device=DEVICE) for _ in range(2)]
+    lin, band = stationary_band(kind, args)
+    ambiguous = lin.T.abs() <= band
+    g[1] = g[1].masked_fill(ambiguous, 0.0)
+    clamped = int((lin <= 0).sum())
+    if clamp and not 0 < clamped < n * D:
+        raise AssertionError(f"{KINDS[kind]} clamp case: {clamped} of {n * D} "
+                             f"variances clamped")
+    FC = cfr.FusedConditional
 
     def kernel_grads():
         leaves = [a.clone().requires_grad_(True) for a in args]
-        before = cfr.FusedConditional.backward_launches
+        before = (FC.backward_launches, FC.gram_launches)
         out = cfr.fused_conditional_white_stationary(kind, *leaves)
         grads = torch.autograd.grad(out, leaves, grad_outputs=g)
         sync()
-        if cfr.FusedConditional.backward_launches != before + 1:
-            raise AssertionError("the backward did not launch its kernel")
+        check_passes(FC, before, n, f"{KINDS[kind]} n={n}")
         return grads
 
     got = kernel_grads()
@@ -270,25 +372,83 @@ def check_backward(kind, D, Mi, Din, n, seed):
     with torch.no_grad():
         want = cfr.fused_conditional_backward_plain(
             kind, *[a.double() for a in args], *[x.double() for x in g])
+        # the plain version in float32 on the same inputs: how far fp32
+        # itself lands from f64 at this Kuu's conditioning
+        plain32 = (cfr.fused_conditional_backward_plain(kind, *args, *g)
+                   if witness else want)
     worst, report = 0.0, []
-    for name, a, b, w in zip(BACKWARD_OUTPUTS, got, again, want):
+    for name, a, b, w, p in zip(BACKWARD_OUTPUTS, got, again, want, plain32):
         if a.shape != w.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{KINDS[kind]} {name}: bad shape or non-finite")
         if not torch.equal(a, b):
             raise AssertionError(f"{KINDS[kind]} {name}: two runs differ")
+        if off_pattern(name, a):
+            raise AssertionError(f"{KINDS[kind]} {name}: {off_pattern(name, a)} "
+                                 f"nonzero entries off the pattern")
         err = float((a.double() - w).abs().max())
         scale = (float(g[1].abs().sum()) if name == "dvariance"
                  else float(w.abs().max()))
+        tol = TOL_BWD * scale
         report.append(f"{name} {err / scale:.2e}")
+        if witness:
+            err32 = float((p.double() - w).abs().max())
+            tol += 2 * err32
+            report[-1] += f" (plain fp32 {err32 / scale:.2e})"
         worst = max(worst, err)
-        if not err <= TOL_BWD * scale:
+        if not err <= tol:
             raise AssertionError(
                 f"{KINDS[kind]} D={D} M={Mi} Din={Din} n={n}: {name} off by "
                 f"{err:.3e}, {err / scale:.2e} of its scale {scale:.3e}")
-    log(f"[kernels] backward {KINDS[kind]:8s} D={D} M={Mi} Din={Din} n={n}: "
-        f"err / max|plain f64| (dvariance: / sum|g_var|; tol {TOL_BWD}): "
-        f"{', '.join(report)}; "
-        f"repeat bit-equal ok")
+    log(f"[kernels] backward {KINDS[kind]:8s} D={D} M={Mi} Din={Din} n={n} "
+        f"seed {seed}: err / max|plain f64| (dvariance: / sum|g_var|; tol "
+        f"{TOL_BWD}{' of scale + 2x plain fp32' if witness else ''}): "
+        f"max|Pinv| {float(args[0].abs().max()):.1f}; "
+        f"{', '.join(report)}; {clamped} of {n * D} variances clamped, "
+        f"{int(ambiguous.sum())} within {band:.2e} of the clamp (g_var 0 "
+        f"there); off-pattern zeros, repeat bit-equal ok")
+    return worst
+
+
+def gram_inputs(D, Mi, n, seed):
+    """Seeded float32 operands of a whitened backward's phase B: A, dA, Kuf
+    [M, n] ~ N(0, 1), gv [D, n] ~ N(0, 1) with a third of it 0 (the clamp
+    mask) and Sq upper-triangular."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=DEVICE)
+    A, dA, Kuf = (torch.randn((Mi, n), generator=gen, **f32) for _ in range(3))
+    gv = torch.randn((D, n), generator=gen, **f32)
+    gv = gv * (torch.rand((D, n), generator=gen, **f32) > 1 / 3)
+    Sq = torch.triu(torch.randn((D, Mi, Mi), generator=gen, **f32)) / Mi ** 0.5
+    return A, dA, Kuf, gv, Sq
+
+
+def check_gram(module, D, Mi, n, seed):
+    """Phase B of a whitened backward alone (``module``'s gram_backward:
+    the split-K Grams, their reduction and dSq = triu(2 Sq C)), against its
+    plain version in float64 on the same float32 inputs: dPinv and dSq
+    within TOL_BWD of their largest magnitude, exact zeros off the
+    patterns, a repeat bit for bit equal."""
+    args = gram_inputs(D, Mi, n, seed)
+    with torch.no_grad():
+        got = module.gram_backward(*args)
+        again = module.gram_backward(*args)
+        sync()
+        want = module.gram_backward_plain(*[a.double() for a in args])
+    worst, report = 0.0, []
+    for name, a, b, w in zip(("dPinv", "dSq"), got, again, want):
+        if (a.shape != w.shape or not torch.isfinite(a).all()
+                or not torch.equal(a, b) or off_pattern(name, a)):
+            raise AssertionError(f"{module.__name__} phase B {name}: bad shape, "
+                                 f"non-finite, off the pattern or not repeatable")
+        err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
+        report.append(f"{name} {err / scale:.2e}")
+        worst = max(worst, err)
+        if not err <= TOL_BWD * scale:
+            raise AssertionError(f"{module.__name__} phase B D={D} M={Mi} n={n}: "
+                                 f"{name} off by {err / scale:.2e} of its scale")
+    log(f"[kernels] phase B of {module.__name__.split('.')[-1]} D={D} M={Mi} "
+        f"n={n}: err / max|plain f64| (tol {TOL_BWD}): {', '.join(report)}; "
+        f"off-pattern zeros, repeat bit-equal ok")
     return worst
 
 
@@ -486,12 +646,15 @@ FUSED_WHITE_GRADS = ("dPinv", "dKuf", "dq_mu", "dSq", "dKff")
 
 
 def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
-    """Kernel #4 through autograd of the wrapper, against the plain backward
-    in float64 on the same float32 inputs: each of the five gradients within
-    TOL_BWD of its own largest magnitude (dKff, the clamp-masked sum of g_var
-    over the outputs, per point), and a second run bit for bit equal to the
-    first. Where a pre-clamp variance lies within :func:`clamp_band` of 0,
-    kernel and plain version may take the mask on opposite sides; g_var is
+    """Kernel #4 (phase A and phase B) through autograd of the wrapper,
+    against the plain backward in float64 on the same float32 inputs (both
+    give dPinv on Pinv's lower and dSq on Sq's upper pattern): each of the
+    five gradients within TOL_BWD of its own largest magnitude (dKff, the
+    clamp-masked sum of g_var over the outputs, per point), the entries off
+    those patterns exactly 0, one launch of each phase per pass of points,
+    and a second run bit for bit equal to the first. Where a pre-clamp
+    variance lies within :func:`clamp_band` of 0, kernel and plain version
+    may take the mask on opposite sides; g_var is
     set to 0 there, so the mask of those entries reaches no gradient, and
     they are counted. With ``clamp`` some variances must be clamped, so the
     mask zeroes part of g_var."""
@@ -508,14 +671,15 @@ def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
         raise AssertionError(f"kernel #4 clamp case: {clamped} of {n * D} "
                              f"variances clamped")
 
+    FW = cf.FusedConditionalWhite
+
     def kernel_grads():
         leaves = [a.clone().requires_grad_(True) for a in args]
-        before = cf.FusedConditionalWhite.backward_launches
+        before = (FW.backward_launches, FW.gram_launches)
         out = cf.fused_conditional_white(*leaves)
         grads = torch.autograd.grad(out, leaves, grad_outputs=g)
         sync()
-        if cf.FusedConditionalWhite.backward_launches != before + 1:
-            raise AssertionError("kernel #4 did not launch")
+        check_passes(FW, before, n, f"kernel #4 n={n}")
         return grads
 
     got, again = kernel_grads(), kernel_grads()
@@ -528,6 +692,9 @@ def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
             raise AssertionError(f"kernel #4 {name}: bad shape or non-finite")
         if not torch.equal(a, b):
             raise AssertionError(f"kernel #4 {name}: two runs differ")
+        if off_pattern(name, a):
+            raise AssertionError(f"kernel #4 {name}: {off_pattern(name, a)} "
+                                 f"nonzero entries off the pattern")
         err, scale = float((a.double() - w).abs().max()), float(w.abs().max())
         report.append(f"{name} {err / scale:.2e}")
         worst = max(worst, err)
@@ -538,7 +705,8 @@ def check_fused_white_backward(D, Mi, Din, n, seed, clamp=False):
     log(f"[kernels] fused whitened backward (#4) D={D} M={Mi} Din={Din} "
         f"n={n}: err / max|plain f64| (tol {TOL_BWD}): {', '.join(report)}; "
         f"{clamped} of {n * D} variances clamped, {int(ambiguous.sum())} "
-        f"within {band:.2e} of the clamp (g_var 0 there); repeat bit-equal ok")
+        f"within {band:.2e} of the clamp (g_var 0 there); off-pattern zeros, "
+        f"repeat bit-equal ok")
     return worst
 
 
@@ -730,9 +898,10 @@ def timed(fn):
 
 def counts():
     """Launch counts of kernels #1, #2 (the stationary fused conditional and
-    its backward), #3, #4 (the Kuf-consuming fused conditional and its
-    backward), #5, #6 (the quadform and its backward), #7 (the Cholesky
-    factor) and #8 (the factor with its inverse)."""
+    its backward's phase A), #3, #4 (the Kuf-consuming fused conditional and
+    its backward's phase A), #5, #6 (the quadform and its backward), #7 (the
+    Cholesky factor), #8 (the factor with its inverse), and the phase B of
+    #2 and of #4 (the split-K Grams)."""
     from dgp_tpu_torch.ops.cholesky import Cholesky, CholeskyInverse
     from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
@@ -740,7 +909,8 @@ def counts():
 
     return (FC.launches, FC.backward_launches, FW.launches,
             FW.backward_launches, QF.launches, QF.backward_launches,
-            Cholesky.launches, CholeskyInverse.launches)
+            Cholesky.launches, CholeskyInverse.launches, FC.gram_launches,
+            FW.gram_launches)
 
 
 def zero_counts():
@@ -749,13 +919,13 @@ def zero_counts():
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
     from dgp_tpu_torch.ops.quadform import QuadForm as QF
 
-    FC.launches = FC.backward_launches = 0
-    FW.launches = FW.backward_launches = 0
+    FC.launches = FC.backward_launches = FC.gram_launches = 0
+    FW.launches = FW.backward_launches = FW.gram_launches = 0
     QF.launches = QF.backward_launches = 0
     Cholesky.launches = CholeskyInverse.launches = 0
 
 
-COUNTED = "(#1, #2, #3, #4, #5, #6, #7, #8)"
+COUNTED = "(#1, #2, #3, #4, #5, #6, #7, #8, #2B, #4B)"
 
 
 def path_of(model):
@@ -774,13 +944,17 @@ def expected_counts(path, evaluations, n_layers, loss=False):
     n_layers layers share one (M, white) group: each path runs its own pair
     of conditional kernels once per layer, and neither of the others';
     every evaluation factors its Kuu stack once through #8 (a non-whitened
-    loss's KL takes that factor too), and none runs #7."""
+    loss's KL takes that factor too), and none runs #7. A whitened
+    backward's phase B (#2B, #4B) runs once per phase A: every layer's
+    points fit one pass."""
     pair = (evaluations * n_layers, evaluations * n_layers if loss else 0)
     zero = (0, 0)
     conditional = {"stationary": pair + zero + zero,
                    "composite": zero + pair + zero,
                    "nonwhite": zero + zero + pair}[path]
-    return conditional + (0, evaluations)
+    grams = {"stationary": (pair[1], 0), "composite": (0, pair[1]),
+             "nonwhite": zero}[path]
+    return conditional + (0, evaluations) + grams
 
 
 WHAT = {"stationary": "whitened", "composite": "RBF + Linear",
@@ -1084,7 +1258,7 @@ def compare_gradients(model):
             loss_off, off = evaluate()
     expect = expected_counts(path, 1, n_layers, loss=True)
     # the off arm launches #7 and #8 only
-    off_arm = (0,) * 6 + expect[6:]
+    off_arm = (0,) * 6 + expect[6:8] + (0, 0)
     if launched != expect or counts() != tuple(
             b + e + o for b, e, o in zip(before, expect, off_arm)):
         raise AssertionError(f"gradient evaluation launched {launched}")
@@ -1161,7 +1335,7 @@ def bo_expected_counts():
         c6 += layers * (loss_evals + BO_ADAM)
         c7 += T + acq_evals
         c8 += loss_evals + acq_evals
-    return (0, 0, 0, 0, c5, c6, c7, c8)
+    return (0, 0, 0, 0, c5, c6, c7, c8, 0, 0)
 
 
 def run_bo(gpu):
@@ -1211,7 +1385,7 @@ def run_bo(gpu):
     if not (ymin.shape == (BO_INFILLS + 1,) and np.all(np.isfinite(ymin))
             and np.all(np.diff(ymin) <= 0) and ymin[-1] >= 0.0625 - 1e-9):
         raise AssertionError(f"BO: bad Ymin trace {ymin}")
-    if launched != expect or min(launched[4:]) < 1:
+    if launched != expect or min(launched[4:8]) < 1:
         raise AssertionError(f"BO: launches {launched}, reckoned {expect}")
 
     x = torch.linspace(bo.lw_n[0], bo.up_n[0], 101, device=DEVICE)[:, None]
@@ -1313,35 +1487,110 @@ def backward_bound_ms(Pinv, Xs, q_mu, Sq):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def slab_mb(blocks, shapes):
-    """MB of a backward kernel's scratch: one float32 slab per block."""
-    return 4e-6 * blocks * sum(math.prod(s) for s in shapes)
+def whitened_traffic_gb(module, Mi, D, n, with_kuf):
+    """GB a whitened backward (#2, #4: ``module``) moves through its
+    scratch, reckoned from the shapes (not measured): phase A writes A, dA
+    (and Kuf with ``with_kuf``) [M, n] and gv [D, n]; phase B reads both
+    operands of each of its D + 1 Grams and gv; the slices' partial sums
+    (one per slice of the library's size) are written once and read once by
+    the reduction."""
+    from dgp_tpu_torch.ops import _launch
+
+    slices = -(-n // _launch.plan_sizes(module._library(), module._PREFIX)[1])
+    writes = n * ((3 if with_kuf else 2) * Mi + D)
+    reads = n * (2 * Mi * (D + 1) + D)
+    partials = 2 * slices * (D + 1) * Mi * Mi
+    return 4e-9 * (writes + reads + partials)
+
+
+def scratch_mb(module, n, Mi, D, small, with_kuf):
+    """MB of a whitened backward's scratch for n points (its largest pass)."""
+    from dgp_tpu_torch.ops import _launch
+
+    sc = _launch.backward_scratch(module._library(), module._PREFIX, n, Mi, D,
+                                  small, with_kuf, DEVICE)
+    return 4e-6 * sum(t.numel() for t in vars(sc).values()
+                      if isinstance(t, torch.Tensor))
+
+
+def device_split(fn, reps, groups):
+    """Device µs per call of ``fn`` by group of kernels, from one
+    torch.profiler run over ``reps`` warm calls: ``groups`` maps a label to
+    the name fragments of its kernels; None where the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+    out = {}
+    for label, fragments in groups.items():
+        total = sum(e.self_device_time_total for e in events
+                    if any(f in e.key for f in fragments))
+        out[label] = total / reps if total > 0 else None
+    return out
+
+
+def phases_line(split):
+    return ", ".join(f"{k} {fmt_us(v)}" for k, v in split.items())
 
 
 def time_backward(kind, D, Din, n, gpu):
-    """The backward kernel with its slab reduction, through the wrapper's
-    launch (scratch allocation included), beside its plain version."""
+    """Kernel #2 through the wrapper's launch (both phases, scratch
+    allocation included) beside its plain version and the unchanged bound,
+    and the device time of phase A, phase B and the reductions apart."""
     from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 
     args = fused_inputs(kind, D, M, Din, n, 12, "cuda")
     gen = torch.Generator(device="cuda").manual_seed(12)
     g = [torch.randn((n, D), generator=gen, device="cuda") for _ in range(2)]
+    run = lambda: cfr._launch_backward(kind, *args, *g)
     with torch.no_grad():
-        ms = event_ms(lambda: cfr._launch_backward(kind, *args, *g), 10)
+        ms = event_ms(run, 10)
         plain_ms = event_ms(
             lambda: cfr.fused_conditional_backward_plain(kind, *args, *g), 5)
+        split = device_split(run, 5, {
+            "phase A": ("fused_bwd_a",), "phase B": ("gram_bwd", "gram_finish"),
+            "reductions": ("reduce_parts",)})
     Pinv, Xs, _, _, q_mu, Sq = args
     bound, by = backward_bound_ms(Pinv, Xs, q_mu, Sq)
-    blocks = cfr._library().dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D)
-    scratch_mb = slab_mb(blocks, cfr.backward_slab_shapes(M, Din, D))
-    # each 64-point tile reads and writes the (1 + D) M x M squares of its
-    # block's slab once (reckoned from the shapes, not measured)
-    rmw_gb = 8e-9 * -(-n // 64) * (1 + D) * M * M
+    mb = scratch_mb(cfr, n, M, D, M * Din + M * D + 1, True)
     log(f"[timing] fused conditional backward {KINDS[kind]} D={D} M={M} "
-        f"Din={Din} n={n}: kernel+reduce {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; "
-        f"{blocks} blocks, scratch {scratch_mb:.1f} MB, slab read-modify-write "
-        f"{rmw_gb:.2f} GB per call ({gpu})")
+        f"Din={Din} n={n}: both phases {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound:.3f} ms ({by}), {bound / ms:.1%} of the bound; device "
+        f"{phases_line(split)}; scratch {mb:.1f} MB, scratch traffic "
+        f"{whitened_traffic_gb(cfr, M, D, n, True):.2f} GB per call (reckoned) ({gpu})")
+    return ms, plain_ms, bound, by
+
+
+def gram_bound_ms(Mi, D, n):
+    """Least time for phase B of a whitened backward on these shapes: the
+    lower triangles of the D weighted Grams (with gv's weighting) and of
+    dA Kuf^T, and dSq = triu(2 Sq C) over Sq's nonzeros, over the fp32
+    peak; or A, dA, Kuf and gv read and dPinv and dSq written once over the
+    memory rate, whichever is larger."""
+    tri = Mi * (Mi + 1)
+    flops = float(n) * ((D + 1) * tri + D * Mi) + 2 * D * tri * (2 * Mi + 1) / 6
+    nbytes = 4.0 * (3 * Mi * n + D * n + D * Mi * Mi + (1 + D) * Mi * Mi)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_gram(module, D, n, gpu):
+    """Phase B of a whitened backward alone (``module``'s gram_backward)
+    beside its plain version and its bound."""
+    args = gram_inputs(D, M, n, 15)
+    with torch.no_grad():
+        ms = event_ms(lambda: module.gram_backward(*args), 10)
+        plain_ms = event_ms(lambda: module.gram_backward_plain(*args), 5)
+    bound, by = gram_bound_ms(M, D, n)
+    log(f"[timing] phase B of {module.__name__.split('.')[-1]} D={D} M={M} "
+        f"n={n}: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({by}), {bound / ms:.1%} of the bound ({gpu})")
     return ms, plain_ms, bound, by
 
 
@@ -1419,19 +1668,26 @@ def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False):
 
 
 def time_fused_white(D, n, gpu, backward=False):
-    """Kernel #3 (or #4 with its slab reduction, through the wrapper's
-    launch, scratch allocation included) beside its plain version, on the
-    operands of an RBF + Linear layer (Din = 8)."""
+    """Kernel #3 (or #4, both phases through the wrapper's launch, scratch
+    allocation included, with the device time of each phase apart) beside
+    its plain version, on the operands of an RBF + Linear layer
+    (Din = 8)."""
     from dgp_tpu_torch.ops import conditional_fused as cf
 
     args = composite_inputs(D, M, DIN, n, 14)
+    split = {}
     with torch.no_grad():
         if backward:
             gen = torch.Generator(device=DEVICE).manual_seed(14)
             g = [torch.randn((n, D), generator=gen, device=DEVICE) for _ in range(2)]
-            ms = event_ms(lambda: cf._launch_backward(*args, *g), 10)
+            run = lambda: cf._launch_backward(*args, *g)
+            ms = event_ms(run, 10)
             plain_ms = event_ms(
                 lambda: cf.fused_conditional_white_backward_plain(*args, *g), 5)
+            split = device_split(run, 5, {
+                "phase A": ("conditional_fused_bwd_a",),
+                "phase B": ("gram_bwd", "gram_finish"),
+                "reductions": ("reduce_parts",)})
         else:
             ms = event_ms(lambda: cf._launch(*args), 10)
             plain_ms = event_ms(lambda: cf.fused_conditional_white_plain(*args), 5)
@@ -1439,16 +1695,13 @@ def time_fused_white(D, n, gpu, backward=False):
     bound, by = fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward)
     extra = ""
     if backward:
-        blocks = cf._library().dgp_conditional_fused_bwd_blocks(n, M, D)
-        # each 64-point tile reads and writes the (1 + D) M x M squares of
-        # its block's slab once (reckoned from the shapes, not measured)
-        rmw_gb = 8e-9 * -(-n // 64) * (1 + D) * M * M
-        extra = (f"; {blocks} blocks, scratch "
-                 f"{slab_mb(blocks, cf.backward_slab_shapes(M, D)):.1f} MB, slab "
-                 f"read-modify-write {rmw_gb:.2f} GB per call")
+        extra = (f"; device {phases_line(split)}; scratch "
+                 f"{scratch_mb(cf, n, M, D, M * D, False):.1f} MB, scratch "
+                 f"traffic {whitened_traffic_gb(cf, M, D, n, False):.2f} GB per "
+                 f"call (reckoned)")
     log(f"[timing] fused whitened{' backward (#4)' if backward else ' (#3)'} "
-        f"D={D} M={M} n={n}: kernel{'+reduce' if backward else ''} {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+        f"D={D} M={M} n={n}: {'both phases' if backward else 'kernel'} "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
         f"{bound / ms:.1%} of the bound{extra} ({gpu})")
     return ms, plain_ms, bound, by
 
@@ -1639,6 +1892,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from dgp_tpu_torch.ops import conditional_fused as cf
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
     gpu = gpu_line()
     log(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
@@ -1656,9 +1912,33 @@ def main():
         for seed, (D, Mi, Din, n) in enumerate([
                 (HIDDEN, M, DIN, S * N_TRAIN + 37),   # layer 1, training
                 (1, M, HIDDEN, S * N_TRAIN + 37),     # layer 2
-                (3, 64, 5, 10_007)]):
+                (3, 64, 5, 10_007),
+                # either side of a tile's edge and of the padded M, at the
+                # layers' input width
+                *[(3, m, DIN, t) for m in BACKWARD_EDGE_M for t in BACKWARD_EDGE_N]]):
             err_bwd = max(err_bwd, check_backward(kind, D, Mi, Din, n,
-                                                  100 + 10 * kind + seed))
+                                                  100 + 100 * kind + seed))
+        for seed, (D, Mi, Din, n) in enumerate([
+                (HIDDEN, M, DIN, S * N_TRAIN + 37), (2, 100, DIN, 1_037)]):
+            err_bwd = max(err_bwd, check_backward(kind, D, Mi, Din, n,
+                                                  150 + 100 * kind + seed,
+                                                  clamp=True))
+    # one point past the first pass of points: two passes, their sums added
+    err_bwd = max(err_bwd, check_backward(0, HIDDEN, M, DIN, pass_edge(), 199))
+    # Din = 5 at M = 100 and 128, and one more RBF draw at M = 128, n = 63:
+    # Kuu ill-conditioned, held by the witness rule
+    for kind in KINDS:
+        for seed, (Mi, n) in enumerate(
+                [(m, t) for m in BACKWARD_WITNESS_M for t in BACKWARD_EDGE_N]):
+            err_bwd = max(err_bwd, check_backward(
+                kind, 3, Mi, 5, n, 170 + 100 * kind + seed, witness=True))
+    err_bwd = max(err_bwd, check_backward(0, 3, M, 5, 63, 114, witness=True))
+    err_gram = {"rbf": 0.0, "white": 0.0}
+    for seed, D in enumerate((HIDDEN, 1)):   # the layers' phase-B shapes
+        err_gram["rbf"] = max(err_gram["rbf"], check_gram(
+            cfr, D, M, S * N_TRAIN, 700 + seed))
+        err_gram["white"] = max(err_gram["white"], check_gram(
+            cf, D, M, S * N_TRAIN, 710 + seed))
 
     err_qf = err_qf_bwd = 0.0
     for seed, (D, Mi, n) in enumerate([
@@ -1703,6 +1983,11 @@ def main():
     for seed, (D, Mi, Din, n) in enumerate(clamped):
         err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
             D, Mi, Din, n, 550 + seed, clamp=True))
+    for seed, (D, Mi, Din, n) in enumerate([
+            *[(3, m, DIN, t) for m in (*BACKWARD_EDGE_M, 50) for t in BACKWARD_EDGE_N],
+            (HIDDEN, M, DIN, pass_edge())]):
+        err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
+            D, Mi, Din, n, 560 + seed))
 
     # #7 and #8: the whitened models' [2, 128, 128] stack (the probe's
     # shape), a BO Gram-sized and two odd stacks, the models' own Kuu
@@ -1763,13 +2048,16 @@ def main():
                        COMPOSITE_NAT_STEPS))
 
     paths.append(run_bo(gpu))
-    launches = [sum(c[k] for c in paths) for k in range(8)]
+    launches = [sum(c[k] for c in paths) for k in range(10)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
     ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
     bwd = time_backward(0, HIDDEN, DIN, S * N_TRAIN, gpu)
     time_backward(0, 1, HIDDEN, S * N_TRAIN, gpu)
+    gram = {"rbf": time_gram(cfr, HIDDEN, S * N_TRAIN, gpu),
+            "white": time_gram(cf, HIDDEN, S * N_TRAIN, gpu)}
+    time_gram(cfr, 1, S * N_TRAIN, gpu)
     qf = time_quadform(HIDDEN, S * N_REQUEST, gpu)
     time_quadform(1, S * N_REQUEST, gpu)
     time_quadform(HIDDEN, 10_000, gpu)  # a small n: where would plain win?
@@ -1781,6 +2069,8 @@ def main():
     time_fused_white(1, 10_000, gpu)
     fw_bwd = time_fused_white(HIDDEN, S * N_TRAIN, gpu, backward=True)
     time_fused_white(1, S * N_TRAIN, gpu, backward=True)
+    time_backward(1, HIDDEN, DIN, S * N_TRAIN, gpu)   # the Matern forms
+    time_backward(2, HIDDEN, DIN, S * N_TRAIN, gpu)
     chol7 = time_cholesky(1, M, False, gpu)   # a non-whitened layer's KL
     time_cholesky(2, M, False, gpu)           # the probe's shape
     chol8 = time_cholesky(2, M, True, gpu)    # the whitened models' Kuu stack
@@ -1806,6 +2096,23 @@ def main():
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     qf_source = "dgp_tpu_torch/csrc/quadform.cu"
     fw_source = "dgp_tpu_torch/csrc/conditional_fused.cu"
+    phase_b = [{
+        "name": f"{name}_gram",
+        "route": "cuda",
+        "source": src,
+        "replaces": replaces,
+        "launches": launches[k],
+        "max_abs_err": err_gram[key],
+        "ms": gram[key][0],
+        "plain_ms": gram[key][1],
+        "bound_ms": gram[key][2],
+        "bound_by": gram[key][3],
+        "library_ms": None,
+    } for name, src, replaces, k, key in [
+        ("conditional_fused_rbf_bwd", source,
+         "dgp_tpu/ops/conditional_fused_rbf.py:145", 8, "rbf"),
+        ("conditional_fused_bwd", fw_source,
+         "dgp_tpu/ops/conditional_fused.py:87", 9, "white")]]
     kernels = [{
         "name": "conditional_fused_rbf",
         "route": "cuda",
@@ -1902,7 +2209,7 @@ def main():
         "bound_ms": chol8[2],
         "bound_by": chol8[3],
         "library_ms": chol8[4],
-    }]
+    }, *phase_b]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1910,5 +2217,71 @@ def main():
     return 0
 
 
+# -- steps: one checkout's Adam steps and backward host cost --------------------
+
+
+def host_us(fn, reps=50):
+    """Host µs per call of ``fn``: the time for the call to return with the
+    card idle before it. The launches are asynchronous, so this is the
+    host's own work. Median of ``reps`` calls."""
+    fn()
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    sync()
+    return 1e6 * sorted(times)[reps // 2]
+
+
+def steps_main(tree):
+    """``python3 chip_smoke.py --steps [TREE]``: drive the port of the
+    checkout at TREE (by default the one beside this script), so that two
+    commits can be timed in turns in one call: the widest D that the
+    backward plans of #2 (Din = 8) and #4 take at M = 128; the host µs per
+    call of their backward wrappers at the layer-1 training shape; and the
+    wall ms per Adam step of bench.py's whitened RBF and RBF + Linear
+    models, with the device time of three steps of each. Prints no result
+    line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if tree is not None:
+        sys.path.insert(0, os.path.abspath(tree))
+    from dgp_tpu_torch.ops import conditional_fused as cf
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    gpu = gpu_line()
+    log(f"[steps] the port at {os.path.dirname(cf.__file__)} ({gpu})")
+    widest = {
+        "#2": max(D for D in range(1, 257) if cfr.backward_supported(M, DIN, D)),
+        "#4": max(D for D in range(1, 257) if cf.backward_supported(M, D))}
+    log(f"[steps] widest D of the backward plans at M = {M}: #2 (Din = "
+        f"{DIN}) {widest['#2']}, #4 {widest['#4']}")
+    n = S * N_TRAIN
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    g = [torch.randn((n, HIDDEN), generator=gen, device=DEVICE) for _ in range(2)]
+    rbf = fused_inputs(0, HIDDEN, M, DIN, n, 12, DEVICE)
+    white = composite_inputs(HIDDEN, M, DIN, n, 14)
+    with torch.no_grad():
+        us = {"#2": host_us(lambda: cfr._launch_backward(0, *rbf, *g)),
+              "#4": host_us(lambda: cf._launch_backward(*white, *g))}
+    log(f"[steps] host µs per backward call (D={HIDDEN} M={M} Din={DIN} "
+        f"n={n}, median of 50 with the card idle before each): "
+        f"#2 {us['#2']:.1f}, #4 {us['#4']:.1f} ({gpu})")
+    trained = training_model()
+    trained_c = training_model(composite=True)
+    for model in (trained, trained_c):
+        time_steps(model, gpu, rounds=5, nat=False)
+    profile_run("three whitened Adam steps", lambda: trained.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
+    profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--steps"]:
+        sys.exit(steps_main(sys.argv[2] if len(sys.argv) > 2 else None))
     sys.exit(main())

@@ -385,20 +385,6 @@ cholesky_kernel(const float* __restrict__ A, float* __restrict__ L,
   }
 }
 
-// Opts the kernel into the most shared memory a block may take, once per
-// device (the attribute holds for every later launch there).
-template <typename K>
-cudaError_t allow_shared_memory_once(K kern, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ULL << (dev & 63);
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  err = allow_shared_memory(kern, MAX_SMEM);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <bool INV, int NT>

@@ -4,6 +4,37 @@
 // (conditional_fused.cu), which read it from device memory. Both pass the
 // prior variance of point j of the tile as kff(j): the constant v of a
 // stationary kernel, or the tile's slice of Kff.
+//
+// The backward of both (#2 and #4) runs in two phases, whose device code is
+// here. With A = Pinv kuf per point and gv_d the clamp-masked g_var_d:
+//
+//   B_d = Sq[d] A      GB_d = 2 B_d diag(gv_d)
+//   dA  = sum_d Sq[d]^T GB_d - 2 A diag(sum_d gv_d) + q_mu g_mean^T
+//   dKuf = Pinv^T dA                                   per point (phase A)
+//   dPinv = tril(dA Kuf^T)    dSq[d] = triu(2 Sq[d] C_d),
+//   C_d = A diag(gv_d) A^T                             sums over points (phase B)
+//
+// Pinv = Lu^{-1} is lower- and Sq = tril(q_sqrt)^T upper-triangular on the
+// whitened path, and only tril(dPinv) and triu(dSq) reach a parameter (the
+// Cholesky adjoint reads the lower triangle of dPinv, and tril(q_sqrt) cuts
+// the rest of dSq), so both phases skip the zero halves and the outputs are
+// exact zeros off those patterns.
+//   * Phase A: a persistent grid of one block of 256 threads per SM walks
+//     tiles of BTN = 128 points. Pinv and tril(q_sqrt[d]) = Sq[d]^T are
+//     staged as packed lower triangles (row r padded to round4(r + 1)
+//     floats: 33 KB at M = 128) through a ring of two buffers filled by
+//     cp.async, so the next operand (Pinv, Sq[0..D-1], Pinv again per tile)
+//     lands while the current one is used. Each thread owns 2G rows (G from
+//     the top, G mirrored from the bottom) by 8 points, so that every
+//     triangular product gives every thread the same number of FMAs. A, dA
+//     (and, where the caller builds it, Kuf) and gv are written to scratch
+//     for phase B; no M x M sum is kept, so nothing is read back per tile.
+//   * Phase B (gram_bwd): the D weighted Grams C_d and dA Kuf^T as split-K
+//     SIMT products, one block per (matrix, slice of GKB points), ten warps
+//     at M = 128 each owning one 32 x 32 tile of the lower triangle; each
+//     slice's sums go to their own slot, which reduce_parts adds in slice
+//     order. gram_finish forms dSq[d] = triu(2 Sq[d] C_d) and tril(dPinv).
+//     No float atomics: two runs on the same inputs give the same bits.
 
 #pragma once
 
@@ -57,110 +88,611 @@ __device__ __forceinline__ void conditional_tile(float* W, float* T, float* red,
   __syncthreads();
 }
 
-// Shared memory of the backward's tile step, each [MP][TS] tile at row
-// stride TS: KU (kuf), AT (a), GB (gb_d, then da); per point of the tile
-// t1s, gvS (gv_d of the current d), sS (s = sum_d gv_d), gmS and gvarS
-// (g_mean, g_var [TN][D]); qm (q_mu [M][D]) and dqmS (the block's dq_mu).
-struct BackwardTiles {
-  float *W, *KU, *AT, *GB, *red, *t1s, *gvS, *sS, *gmS, *gvarS, *qm, *dqmS;
+// -- backward ------------------------------------------------------------------
+
+constexpr int BTN = 128;           // points per phase-A tile
+constexpr int BTS = BTN + 4;       // row stride of phase A's tiles: 32 lanes reading
+                                   // float4 from 32 rows then hit every bank once
+constexpr int BNT = 256;           // phase-A threads: 16 row groups x 16 column groups
+constexpr int BRED = BNT / 32;     // per-point column partials, one per warp
+constexpr int GK = 32;             // phase B: points per K-step
+constexpr int GS = GK + 4;         // phase B: row stride of a staged panel
+constexpr int GKB = 1024;          // phase B: points per split-K slice
+
+// Packed lower triangle: row r holds columns 0..r, zero-padded to
+// round4(r + 1) floats, at offset tri_off(r); tri_off(MP) floats in all.
+__host__ __device__ inline int tri_off(int r) {
+  const int q = r >> 2, m = r & 3;
+  return 8 * q * (q + 1) + 4 * (q + 1) * m;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// P (packed, MP rows) = tril(G) for G row-major [M][M]; rows past M are
+// zero. Asynchronous: the caller commits the group and waits for it. Bytes
+// past the triangle are zero-filled by cp.async, never read.
+template <int MP>
+__device__ __forceinline__ void stage_tri(float* P, const float* __restrict__ G, int M,
+                                          int tid) {
+  constexpr int TPR = BNT / MP;  // threads per row
+  const int r = tid / TPR, t = tid % TPR;
+  float* row = P + tri_off(r);
+  const int len = round4(r + 1);
+  if ((M & 3) == 0 && (reinterpret_cast<unsigned long long>(G) & 15) == 0) {
+    for (int c = 4 * t; c < len; c += 4 * TPR) {
+      const int valid = r < M ? min(r + 1 - c, 4) : 0;
+      cp_async16(row + c, valid > 0 ? G + r * M + c : G, 4 * valid);
+    }
+  } else {
+    for (int c = t; c < len; c += TPR) {
+      const bool ok = r < M && c <= r;
+      cp_async4(row + c, ok ? G + r * M + c : G, ok ? 4 : 0);
+    }
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void lds(const float* p, float (&v)[G]) {
+  if constexpr (G == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ void lds4(const float* p, float (&v)[4]) { lds<4>(p, v); }
+
+// Row r < 2G of a thread's register tile: G rows from G ty (low), then G
+// rows from MP - G (ty + 1) (high, the mirror), so that the k range of a
+// triangular product, long for one group where it is short for the other,
+// adds up to the same MP + G for every thread.
+template <int MP, int G>
+__device__ __forceinline__ int row_of(int ty, int r) {
+  return r < G ? G * ty + r : MP - G * (ty + 1) + (r - G);
+}
+
+// Column c < 8 of a thread's register tile: 4 tx + c, then 64 + 4 tx + c - 4,
+// so that each half-warp's float4 reads of a tile row are one contiguous run.
+__device__ __forceinline__ int col_of(int tx, int c) {
+  return (c < 4 ? 0 : BTN / 2 - 4) + 4 * tx + c;
+}
+
+// v[0..7] = the thread's 8 columns of row p (p points at the row's start)
+__device__ __forceinline__ void lds8(const float* p, int tx, float (&v)[8]) {
+  float a[4], b[4];
+  lds4(p + 4 * tx, a);
+  lds4(p + BTN / 2 + 4 * tx, b);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v[c] = a[c];
+    v[4 + c] = b[c];
+  }
+}
+
+__device__ __forceinline__ void sts8(float* p, int tx, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p + 4 * tx) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + BTN / 2 + 4 * tx) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// acc[r][c] += sum_{k <= row} L[row][k] T[k][col]: L packed lower (rows
+// past the diagonal read as the zero padding), T [MP][BTS]. The G rows of a
+// group share one padded length (e0 low, e1 high), so row q of a group
+// starts q rows of that length after its first.
+template <int MP, int G>
+__device__ __forceinline__ void tri_rows(const float* L, const float* T, int ty, int tx,
+                                         float (&acc)[2 * G][8]) {
+  const int e0 = round4(G * ty + G), e1 = round4(MP - G * ty);
+  const float* lo = L + tri_off(G * ty);
+  const float* hi = L + tri_off(MP - G * (ty + 1));
+  auto step = [&](int k, auto both) {
+    float t[4][8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) lds8(T + (k + q) * BTS, tx, t[q]);
+#pragma unroll
+    for (int r = decltype(both)::value ? 0 : G; r < 2 * G; ++r) {
+      float w[4];
+      lds4(r < G ? lo + r * e0 + k : hi + (r - G) * e1 + k, w);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        acc[r][c] = fmaf(w[3], t[3][c], fmaf(w[2], t[2][c], fmaf(w[1], t[1][c],
+                         fmaf(w[0], t[0][c], acc[r][c]))));
+    }
+  };
+#pragma unroll 1
+  for (int k = 0; k < e0; k += 4) step(k, std::true_type{});
+#pragma unroll 1
+  for (int k = e0; k < e1; k += 4) step(k, std::false_type{});
+}
+
+// acc[r][c] = sum_{k >= row} L[k][row] T[k][col]: the product with L^T, L
+// packed lower, T [MP][BTS].
+template <int MP, int G>
+__device__ __forceinline__ void tri_cols(const float* L, const float* T, int ty, int tx,
+                                         float (&acc)[2 * G][8]) {
+#pragma unroll
+  for (int r = 0; r < 2 * G; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  const int r0 = G * ty, r1 = MP - G * (ty + 1);
+  auto step = [&](const float* row, int k, auto both) {
+    float t[8], w[G];
+    lds8(T + k * BTS, tx, t);
+    lds<G>(row + r0, w);
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[q][c] = fmaf(w[q], t[c], acc[q][c]);
+    if (decltype(both)::value) {
+      float h[G];
+      lds<G>(row + r1, h);
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[G + q][c] = fmaf(h[q], t[c], acc[G + q][c]);
+    }
+  };
+  int off = tri_off(r0);
+#pragma unroll 2
+  for (int k = r0; k < r1; ++k) {  // the low rows only
+    step(L + off, k, std::false_type{});
+    off += round4(k + 1);
+  }
+#pragma unroll 2
+  for (int k = r1; k < MP; ++k) {  // both groups
+    step(L + off, k, std::true_type{});
+    off += round4(k + 1);
+  }
+}
+
+// red[warp][col] = sum over the warp's two row groups of acc[.][c]^2
+template <int R>
+__device__ __forceinline__ void colsumsq_bwd(const float (&acc)[R][8], float* red, int tid,
+                                             int tx) {
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float s = 0.0f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) s = fmaf(acc[r][c], acc[r][c], s);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    if (lane < 16) red[warp * BTN + col_of(tx, c)] = s;
+  }
+}
+
+// The ring of two packed operand buffers. Stage s holds, for s mod (D + 2):
+// 0 Pinv (for A), 1..D Sq[s - 1]^T, D + 1 Pinv (for dKuf).
+struct Ring {
+  float* buf[2];
+  const float* pinv;
+  const float* sqT;
+  long long MM;
+  int M, D, s;
+
+  __device__ const float* src(int t) const {
+    const int i = t % (D + 2);
+    return (i == 0 || i == D + 1) ? pinv : sqT + (i - 1) * MM;
+  }
+  template <int MP>
+  __device__ void start(int tid) {
+    s = 0;
+    stage_tri<MP>(buf[0], src(0), M, tid);
+    cp_async_commit();
+  }
+  // Waits for stage s and makes it (and every shared-memory write before
+  // the call) visible to the block, starts stage s + 1 into the other
+  // buffer, and returns stage s's buffer.
+  template <int MP>
+  __device__ const float* next(int tid) {
+    cp_async_wait_all();
+    __syncthreads();
+    stage_tri<MP>(buf[(s + 1) & 1], src(s + 1), M, tid);
+    cp_async_commit();
+    return buf[(s++) & 1];
+  }
 };
 
-// Backward, from the kuf tile and this tile's cotangents, with W holding
-// Pinv^T, sS zeroed and the block synchronised. Recomputes a (into AT), t1
-// and b_d, and chains:
-//
-//   gv_d  = g_var_d where (kff(j) - t1) + t2_d > 0, else 0      s = sum_d gv_d
-//   gb_d  = 2 b_d gv_d        da = sum_d Sq[d]^T gb_d - 2 a s + q_mu g_mean^T
-//
-// adding gb_d a^T into dsq[d] and da kuf^T into dpinv (the block's slab; the
-// first tile writes), a g_mean into dqmS, and leaving dkuf = Pinv^T da in
-// acc, da in GB, s in sS and Pinv^T in W. KU, AT and GB are still being read
-// on return: the caller synchronises before it overwrites them.
-template <int RM, typename Kff>
-__device__ __forceinline__ void conditional_tile_backward(
-    const BackwardTiles& t, const float* __restrict__ pinvT,
-    const float* __restrict__ sqT, float* dpinv, float* dsq, int M, int D, bool first,
-    int tid, Kff kff, float (&acc)[RM][4]) {
-  constexpr int MP = 16 * RM;
-  const int ty = tid >> 4, tx = tid & 15;
-  const long long MM = static_cast<long long>(M) * M;
+// Phase A's shared memory beside the ring, each tile [MP][BTS]: T1 (kuf,
+// then gb_d, then da), T2 (a); per point of the tile t1s and sS
+// (sum_d gv_d), gmS (g_mean^T [D][BTN]); qm (q_mu [M][D]).
+struct BackwardTiles {
+  float *T1, *T2, *red, *t1s, *sS, *gmS, *qm;
+};
 
-  // a = Pinv @ kuf, t1
-  tile_product<RM, TS>(t.W, t.KU, ty, tx, acc);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-    *reinterpret_cast<float4*>(t.AT + (ty * RM + r) * TS + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  colsumsq_partials<RM>(acc, t.red, tid);
-  __syncthreads();
-  if (tid < TN) t.t1s[tid] = colsum(t.red, tid);
-
-  // per output d: b_d, the clamp mask, gb_d, and the sums over d
-  float da[RM][4];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) da[r][c] = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    __syncthreads();  // W, red, gvS and GB are free again
-    stage<MP>(t.W, sqT + d * MM, M, tid);
-    __syncthreads();
-    tile_product<RM, TS>(t.W, t.AT, ty, tx, acc);  // b_d = Sq[d] @ a
-    colsumsq_partials<RM>(acc, t.red, tid);
-    __syncthreads();
-    if (tid < TN) {
-      const float lin = (kff(tid) - t.t1s[tid]) + colsum(t.red, tid);
-      const float g = lin > 0.0f ? t.gvarS[tid * D + d] : 0.0f;
-      t.gvS[tid] = g;
-      t.sS[tid] += g;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-      *reinterpret_cast<float4*>(t.GB + (ty * RM + r) * TS + tx * 4) = make_float4(
-          2.0f * acc[r][0] * t.gvS[tx * 4 + 0], 2.0f * acc[r][1] * t.gvS[tx * 4 + 1],
-          2.0f * acc[r][2] * t.gvS[tx * 4 + 2], 2.0f * acc[r][3] * t.gvS[tx * 4 + 3]);
-    __syncthreads();
-    tile_product_t<RM>(t.W, t.GB, ty, tx, da);                        // += Sq[d]^T gb_d
-    outer_accumulate<RM>(dsq + d * MM, t.GB, t.AT, M, ty, tx, first);  // dSq[d] += gb_d a^T
-  }
-  __syncthreads();
-
-  // da complete, into GB; Pinv^T back into W
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int row = ty * RM + r;
-    const float4 a4 = *reinterpret_cast<const float4*>(t.AT + row * TS + tx * 4);
-    const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-    float out[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = tx * 4 + c;
-      float qg = 0.0f;
-      if (row < M)
-        for (int d = 0; d < D; ++d) qg = fmaf(t.qm[row * D + d], t.gmS[col * D + d], qg);
-      out[c] = (da[r][c] - 2.0f * a[c] * t.sS[col]) + qg;
-    }
-    *reinterpret_cast<float4*>(t.GB + row * TS + tx * 4) =
-        make_float4(out[0], out[1], out[2], out[3]);
-  }
-  stage<MP>(t.W, pinvT, M, tid);
-  __syncthreads();
-
-  // dq_mu += a g_mean
-  for (int e = tid; e < M * D; e += NT) {
-    const int m = e / D, d = e % D;
+// f(m, c, sum_j T[m][j] X[c][j]) for m < M, c < C: T [MP][BTS], X [C][BTN].
+// A lane takes a row m and walks its points four at a time, each warp one
+// (32 rows, c) block: float4 reads of 32 rows at stride BTS hit every bank
+// once, and X's reads are the warp's broadcast.
+template <typename F>
+__device__ __forceinline__ void row_dots(const float* T, const float* X, int C, int M,
+                                         int tid, F f) {
+  const int warp = tid >> 5, lane = tid & 31, blocks = (M + 31) / 32;
+  for (int item = warp; item < blocks * C; item += BNT / 32) {
+    const int m = 32 * (item % blocks) + lane, c = item / blocks;
+    if (m >= M) continue;
     float s = 0.0f;
-    for (int j = 0; j < TN; ++j) s = fmaf(t.AT[m * TS + j], t.gmS[j * D + d], s);
-    t.dqmS[e] += s;
+#pragma unroll 4
+    for (int j = 0; j < BTN; j += 4) {
+      float a[4], x[4];
+      lds4(T + m * BTS + j, a);
+      lds4(X + c * BTN + j, x);
+      s = fmaf(a[3], x[3], fmaf(a[2], x[2], fmaf(a[1], x[1], fmaf(a[0], x[0], s))));
+    }
+    f(m, c, s);
   }
-  // dkuf = Pinv^T da (into acc); dPinv += da kuf^T
+}
+
+// One tile of phase A, with the kuf tile in T1 (zero past M and past the
+// tile's nt points), its g_mean in gmS and the ring about to hand out Pinv.
+// Recomputes a (into T2), t1 and b_d, and chains
+//
+//   gv_d = g_var_d where (kff(j) - t1) + t2_d > 0, else 0     s = sum_d gv_d
+//   gb_d = 2 b_d gv_d     da = sum_d Sq[d]^T gb_d - 2 a s + q_mu g_mean^T
+//
+// writing a, da [M][ld] and gv [D][ld] (this tile's columns) for phase B
+// and a g_mean into dqm (the tile's slot, [M][D]), and leaving
+// dkuf = Pinv^T da in acc, da in T1, a in T2 and s in sS. Every thread
+// reduces t2_d for its own 8 points from the per-warp partials, so each
+// output d takes three barriers; the threads of row group 0 write the
+// per-point results. T1 is still being read on return: the caller
+// synchronises before it overwrites it.
+template <int MP, int G, typename Kff>
+__device__ __forceinline__ void tile_backward(const BackwardTiles& t, Ring& ring,
+                                              const float* __restrict__ gvar, int nt,
+                                              float* a_out, float* da_out, float* gv_out,
+                                              long long ld, float* dqm, int M, int D, int tid,
+                                              Kff kff, float (&acc)[2 * G][8]) {
+  constexpr int R = 2 * G;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
+  // the column sums of this thread's 8 points, over the warps' partials
+  auto colsums = [&](float (&out)[8]) {
 #pragma unroll
-  for (int r = 0; r < RM; ++r)
+    for (int c = 0; c < 8; ++c) out[c] = 0.0f;
+#pragma unroll
+    for (int g = 0; g < BRED; ++g) {
+      float v[8];
+      lds8(t.red + g * BTN, tx, v);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) out[c] += v[c];
+    }
+  };
+
+  // a = Pinv kuf, t1
+  const float* L = ring.next<MP>(tid);
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+  tri_rows<MP, G>(L, t.T1, ty, tx, acc);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row_of<MP, G>(ty, r);
+    sts8(t.T2 + row * BTS, tx, acc[r]);
+    if (row < M) sts8(a_out + row * ld, tx, acc[r]);
+  }
+  colsumsq_bwd<R>(acc, t.red, tid, tx);
+  __syncthreads();
+  if (ty == 0) {
+    float t1[8];
+    const float zero[8] = {};
+    colsums(t1);
+    sts8(t.t1s, tx, t1);
+    sts8(t.sS, tx, zero);
+  }
+
+  // per output d: b_d, the clamp mask, gb_d, and da += Sq[d]^T gb_d
+  float da[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) da[r][c] = 0.0f;
+  for (int d = 0; d < D; ++d) {
+    float gvar8[8];  // loaded now, used after the product
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = col_of(tx, c);
+      gvar8[c] = col < nt ? __ldg(gvar + col * D + d) : 0.0f;
+    }
+    L = ring.next<MP>(tid);  // also: red and T1 are free again, t1s and sS visible
+    tri_cols<MP, G>(L, t.T2, ty, tx, acc);  // b_d = Sq[d] a
+    colsumsq_bwd<R>(acc, t.red, tid, tx);
+    __syncthreads();
+    float t2[8], t1[8], gv[8];
+    colsums(t2);
+    lds8(t.t1s, tx, t1);
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      gv[c] = (kff(col_of(tx, c)) - t1[c]) + t2[c] > 0.0f ? gvar8[c] : 0.0f;
+    if (ty == 0) {
+      float s[8];
+      lds8(t.sS, tx, s);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[c] += gv[c];
+      sts8(t.sS, tx, s);
+      sts8(gv_out + d * ld, tx, gv);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float gb[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) gb[c] = 2.0f * acc[r][c] * gv[c];
+      sts8(t.T1 + row_of<MP, G>(ty, r) * BTS, tx, gb);
+    }
+    __syncthreads();
+    tri_rows<MP, G>(L, t.T1, ty, tx, da);  // += Sq[d]^T gb_d
+  }
+
+  // da complete (in registers), then into T1 once every read of gb is done
+  float s8[8];
+  lds8(t.sS, tx, s8);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row_of<MP, G>(ty, r);
+    float a[8], qg[8] = {};
+    lds8(t.T2 + row * BTS, tx, a);
+    if (row < M)
+      for (int d = 0; d < D; ++d) {
+        float g[8];
+        lds8(t.gmS + d * BTN, tx, g);
+        const float q = t.qm[row * D + d];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) qg[c] = fmaf(q, g[c], qg[c]);
+      }
+#pragma unroll
+    for (int c = 0; c < 8; ++c) da[r][c] = (da[r][c] - 2.0f * a[c] * s8[c]) + qg[c];
+  }
+  L = ring.next<MP>(tid);  // Pinv again
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row_of<MP, G>(ty, r);
+    sts8(t.T1 + row * BTS, tx, da[r]);
+    if (row < M) sts8(da_out + row * ld, tx, da[r]);
+  }
+  // dq_mu's share of this tile: a g_mean
+  row_dots(t.T2, t.gmS, D, M, tid, [&](int m, int d, float s) { dqm[m * D + d] = s; });
+  __syncthreads();
+  tri_cols<MP, G>(L, t.T1, ty, tx, acc);  // dkuf = Pinv^T da
+}
+
+// Phase B: parts[slice][mat] (its lower triangle, [M][M] row-major) = the
+// sum over slice's points p of
+//   mat < D:  gv[mat][p] A[:, p] A[:, p]^T      (C_mat)
+//   mat == D: dA[:, p] Kuf[:, p]^T               (dPinv before its projection)
+// Block (mat, slice); warp w owns the w-th 32 x 32 tile of the lower
+// triangle, each lane an 8 x 4 register tile (rows 4 r + lane / 8, columns
+// 8 c + lane % 8 of the tile). Panels of GK points arrive by cp.async in
+// two buffers, the next while the current is multiplied; for a Gram only
+// A (into Q) and gv come in, and P = A gv is formed in shared memory.
+// Points are summed in order: deterministic.
+template <int NB>
+__global__ void __launch_bounds__(16 * NB * (NB + 1), 2)
+gram_bwd(const float* __restrict__ A, const float* __restrict__ dA, long long lda,
+         const float* __restrict__ Kuf, long long ldk, const float* __restrict__ gv,
+         float* __restrict__ parts, int nc, int M, int D) {
+  constexpr int MP = 32 * NB, NTH = 16 * NB * (NB + 1);
+  constexpr int CH = MP * GK / 4;  // 16-byte chunks of one panel
+  extern __shared__ float4 smem4[];
+  float* Ps = reinterpret_cast<float*>(smem4);  // [2][MP][GS]
+  float* Qs = Ps + 2 * MP * GS;                 // [2][MP][GS]
+  float* Ws = Qs + 2 * MP * GS;                 // [2][GK]
+  const int mat = blockIdx.x, tid = threadIdx.x;
+  const int p_begin = blockIdx.y * GKB, p_end = min(nc, p_begin + GKB);
+  const bool gram = mat < D;
+  const float* P = gram ? A : dA;   // unused for a Gram
+  const float* Q = gram ? A : Kuf;
+  const long long ldq = gram ? lda : ldk;
+  const float* w = gv + (gram ? mat : 0) * lda;
+  auto aligned = [](const float* p, long long ld) {
+    return ld % 4 == 0 && (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+  };
+  const bool p16 = aligned(P, lda), q16 = aligned(Q, ldq);
+
+  // one panel of an operand [M][ld] into X [MP][GS]; zero past M and p_end
+  auto panel = [&](float* X, const float* src, long long ld, bool al, int p0) {
+    for (int c = tid; c < CH; c += NTH) {
+      const int row = c / (GK / 4), k = 4 * (c % (GK / 4)), p = p0 + k;
+      float* dst = X + row * GS + k;
+      const float* s = src + row * ld + p;
+      if (al) {
+        const int valid = row < M ? max(0, min(p_end - p, 4)) : 0;
+        cp_async16(dst, valid > 0 ? s : src, 4 * valid);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const bool ok = row < M && p + q < p_end;
+          cp_async4(dst + q, ok ? s + q : src, ok ? 4 : 0);
+        }
+      }
+    }
+  };
+  auto load = [&](int p0, int b) {
+    panel(Qs + b * MP * GS, Q, ldq, q16, p0);
+    if (gram) {
+      if (tid < GK) {
+        const bool ok = p0 + tid < p_end;
+        cp_async4(Ws + b * GK + tid, ok ? w + p0 + tid : w, ok ? 4 : 0);
+      }
+    } else {
+      panel(Ps + b * MP * GS, P, lda, p16, p0);
+    }
+    cp_async_commit();
+  };
+
+  const int warp = tid >> 5, lane = tid & 31;
+  int bi = 0, bj = warp;
+  while (bj > bi) {
+    bj -= bi + 1;
+    ++bi;
+  }
+  const int i0 = 32 * bi + (lane >> 3), j0 = 32 * bj + (lane & 7);
+
+  float acc[8][4];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-  tile_product_t<RM>(t.W, t.GB, ty, tx, acc);
-  outer_accumulate<RM>(dpinv, t.GB, t.KU, M, ty, tx, first);
+  load(p_begin, 0);
+  int b = 0;
+  for (int p0 = p_begin; p0 < p_end; p0 += GK, b ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();  // panel b is in; every read of panel b ^ 1 is done
+    if (p0 + GK < p_end) load(p0 + GK, b ^ 1);
+    float* Pb = Ps + b * MP * GS;
+    const float* Qb = Qs + b * MP * GS;
+    if (gram) {  // P = A gv (block-uniform branch)
+      for (int e = tid; e < MP * GK; e += NTH) {
+        const int row = e / GK, k = e % GK;
+        Pb[row * GS + k] = Qb[row * GS + k] * Ws[b * GK + k];
+      }
+      __syncthreads();
+    }
+#pragma unroll 1
+    for (int k = 0; k < GK; k += 4) {
+      float q[4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) lds4(Qb + (j0 + 8 * c) * GS + k, q[c]);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        float p[4];
+        lds4(Pb + (i0 + 4 * r) * GS + k, p);
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          acc[r][c] = fmaf(p[3], q[c][3], fmaf(p[2], q[c][2], fmaf(p[1], q[c][1],
+                           fmaf(p[0], q[c][0], acc[r][c]))));
+      }
+    }
+  }
+
+  float* out = parts + (static_cast<long long>(blockIdx.y) * (D + 1) + mat) * M * M;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int i = i0 + 4 * r;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + 8 * c;
+      if (i < M && j <= i) out[i * M + j] = acc[r][c];
+    }
+  }
+}
+
+// out[e] = (accumulate ? out[e] : 0) + sum_b parts[b][e], in b order, 32
+// parts at a time and then those sums (a rounding error that grows with
+// count / 32 + 32, not with count); with tri_m > 0 the parts are stacks of
+// tri_m x tri_m matrices and only their lower triangles are summed (the
+// rest of out is left as it is).
+__global__ void reduce_parts(const float* __restrict__ parts, float* __restrict__ out,
+                             int count, long long len, int tri_m, int accumulate) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= len) return;
+  if (tri_m > 0 && (e / tri_m) % tri_m < e % tri_m) return;
+  float s = 0.0f;
+  for (int b0 = 0; b0 < count; b0 += 32) {
+    const float* p = parts + b0 * len + e;
+    const int m = min(32, count - b0);
+    float c = 0.0f;
+#pragma unroll 8
+    for (int b = 0; b < m; ++b) c += p[b * len];
+    s += c;
+  }
+  out[e] = accumulate ? out[e] + s : s;
+}
+
+inline cudaError_t launch_reduce_parts(const float* parts, float* out, int count,
+                                       long long len, int tri_m, bool accumulate,
+                                       cudaStream_t stream) {
+  reduce_parts<<<static_cast<unsigned>((len + 255) / 256), 256, 0, stream>>>(
+      parts, out, count, len, tri_m, accumulate ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// From the summed lower triangles G [(D + 1)][M][M]: dSq[d] = triu(2 Sq[d] C_d)
+// with Sq[d] = sqT[d]^T (upper-triangular) and C_d the symmetric Gram whose
+// lower triangle is G[d]; dPinv = tril(G[D]). Exact zeros off the patterns.
+__global__ void gram_finish(const float* __restrict__ G, const float* __restrict__ sqT,
+                            float* __restrict__ dpinv, float* __restrict__ dsq, int M, int D) {
+  const long long MM = static_cast<long long>(M) * M;
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= (D + 1) * MM) return;
+  const int mat = static_cast<int>(e / MM), i = static_cast<int>((e / M) % M),
+            j = static_cast<int>(e % M);
+  const float* Gm = G + mat * MM;
+  if (mat == D) {
+    dpinv[i * M + j] = i >= j ? Gm[i * M + j] : 0.0f;
+    return;
+  }
+  float s = 0.0f;
+  if (i <= j) {
+    const float* L = sqT + mat * MM;
+    for (int k = i; k < M; ++k)
+      s = fmaf(L[k * M + i], k >= j ? Gm[k * M + j] : Gm[j * M + k], s);
+    s *= 2.0f;
+  }
+  dsq[e] = s;
+}
+
+// Phase B on n points (one chunk) and its reduction: gram (+)= the slices'
+// sums. parts holds ceil(n / GKB) (D + 1) M^2 floats. A, dA and gv have row
+// stride lda, Kuf ldk.
+inline cudaError_t launch_gram(const float* A, const float* dA, long long lda,
+                               const float* Kuf, long long ldk, const float* gv,
+                               float* parts, float* gram, long long n, int M, int D,
+                               bool accumulate, cudaStream_t stream) {
+  const int slices = static_cast<int>((n + GKB - 1) / GKB);
+  const dim3 grid(static_cast<unsigned>(D + 1), static_cast<unsigned>(slices));
+  cudaError_t err;
+  if (M <= 64) {
+    constexpr int NB = 2;
+    static std::atomic<unsigned long long> allowed{0};
+    const size_t bytes = sizeof(float) * (4 * 32 * NB * GS + 2 * GK);
+    err = allow_shared_memory_once(gram_bwd<NB>, allowed);
+    if (err != cudaSuccess) return err;
+    gram_bwd<NB><<<grid, 16 * NB * (NB + 1), bytes, stream>>>(A, dA, lda, Kuf, ldk, gv,
+                                                              parts, static_cast<int>(n), M, D);
+  } else {
+    constexpr int NB = 4;
+    static std::atomic<unsigned long long> allowed{0};
+    const size_t bytes = sizeof(float) * (4 * 32 * NB * GS + 2 * GK);
+    err = allow_shared_memory_once(gram_bwd<NB>, allowed);
+    if (err != cudaSuccess) return err;
+    gram_bwd<NB><<<grid, 16 * NB * (NB + 1), bytes, stream>>>(A, dA, lda, Kuf, ldk, gv,
+                                                              parts, static_cast<int>(n), M, D);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_reduce_parts(parts, gram, slices,
+                             static_cast<long long>(D + 1) * M * M, M, accumulate, stream);
+}
+
+inline cudaError_t launch_gram_finish(const float* gram, const float* sqT, float* dpinv,
+                                      float* dsq, int M, int D, cudaStream_t stream) {
+  const long long len = static_cast<long long>(D + 1) * M * M;
+  gram_finish<<<static_cast<unsigned>((len + 255) / 256), 256, 0, stream>>>(
+      gram, sqT, dpinv, dsq, M, D);
+  return cudaGetLastError();
 }
 
 }  // namespace

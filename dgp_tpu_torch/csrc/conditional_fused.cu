@@ -40,32 +40,31 @@
 //
 //   gv_d  = g_var_d where (kff - t1) + t2_d > 0, else 0        (the clamp mask)
 //   s     = sum_d gv_d                  dKff = s                written per tile
-//   gb_d  = 2 b_d gv_d
-//   da    = sum_d Sq[d]^T gb_d - 2 a s + q_mu g_mean^T
+//   da    = sum_d Sq[d]^T (2 b_d gv_d) - 2 a s + q_mu g_mean^T
 //   dKuf  = Pinv^T da                                           written per tile
-//   dPinv = da kuf^T     dq_mu = a g_mean     dSq[d] = gb_d a^T  sums over points
+//   dq_mu = a g_mean                                            per-tile slots
+//   dPinv = tril(da kuf^T)   dSq[d] = triu(2 Sq[d] a diag(gv_d) a^T)  sums over n
 //
-// What bounds it: six M x M products per output on full squares (a, dKuf and
-// dPinv once; b_d, Sq[d]^T gb_d and dSq[d] per d), 2 M^2 (3 + 3 D) FLOP per
-// point against 4 (2 M + 2 + 2 D) bytes: fp32 arithmetic again. The TPU kernel
-// zeroed its sums on grid step 0 and added into them on a grid that runs in
-// order; here blocks run concurrently, so the cross-tile sums take the scheme
-// of the other backward kernels:
-//   * A persistent grid: as many blocks as the card holds at once (one per SM
-//     at M = 128), block b taking tiles b, b + grid, ...: a static assignment,
-//     so every sum has one fixed order.
-//   * Each block owns a slab of (1 + D) M^2 + M D floats in the wrapper's
-//     scratch (about 78 MB for 132 blocks at D = 8, M = 128, whatever n is).
-//     dq_mu accumulates in shared memory and is written once; each tile's
-//     da kuf^T and gb_d a^T are added into the slab by the thread that owns
-//     the element (a read-modify-write nobody else touches).
-//   * reduce_slabs adds the slabs in block order. No float atomics: two runs
-//     on the same inputs give the same bits.
-//   * Shared memory: the staged operand W (64 KB at M = 128) and three
-//     [MP][TN + 4] tiles: kuf (later dKuf), a, and gb_d (later da); Sq[d] is
-//     staged once per tile and read both ways; Pinv^T is staged at the end of
-//     a tile for dKuf and stays for the next tile's a. 185,344 bytes at
-//     M = 128, D = 8: one block per SM.
+// It assumes Pinv lower- and Sq upper-triangular, as on the whitened path,
+// and returns dPinv and dSq on those patterns (only they reach a
+// parameter). What bounds it: with the triangles' zero halves skipped,
+// (2 + 2 D) M (M + 1) FLOP per point in the tile products and
+// (1 + D) M (M + 1) in the sums over points, against 4 (2 M + 2 + 2 D)
+// bytes per point: fp32 arithmetic. The sums over points take the two-phase
+// scheme of the stationary kernel's backward (conditional_fused_rbf.cu and
+// conditional.cuh):
+//   * Phase A (conditional_fused_bwd_a): a persistent grid of one 256-thread
+//     block per SM walks tiles of 128 points, reads each kuf tile from Kuf,
+//     runs tile_backward and writes dKuf straight from registers and dKff;
+//     a, da and gv go to scratch, dq_mu's share of the tile to its slot.
+//   * Phase B (gram_bwd, reduce_parts, gram_finish) reads Kuf itself beside
+//     the scratch: split-K Grams, summed slice by slice in order.
+//   * No float atomics: two runs on the same inputs give the same bits.
+//     Passes of 2^17 points bound the scratch (A, dA [M][pass], gv [D][pass]
+//     and phase B's slots: 167 MB at M = 128, D = 8, n = 100,000).
+//   * Shared memory at M = 128, D = 8: the ring of packed operands
+//     (2 x 33 KB), the kuf / gb / da and a tiles ([128][132] each), q_mu and
+//     g_mean: 216,576 bytes, one block per SM (D up to 23 at M = 128).
 //   * Rows of M past M and points past n hold kuf = 0, kff = 0 and
 //     g_mean = g_var = 0, so lin = 0 masks them and all their contributions
 //     are 0; their dKuf and dKff entries are never written.
@@ -145,24 +144,21 @@ conditional_fused_fwd(const float* __restrict__ pinvT, const float* __restrict__
 // -- backward -------------------------------------------------------------------
 
 struct BwdLayout {  // offsets in floats; total floats
-  int ku, at, gb, red, t1, kff, gv, ss, gm, gvar, qm, dqm, total;
+  int ring1, t1, t2, red, t1s, kff, ss, gm, qm, total;
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int MP, int M, int D) {
   BwdLayout L;
-  int o = MP * MP;                        // W: the staged operand [MP][MP]
-  L.ku = o;   o += MP * TS;               // kuf, then dKuf
-  L.at = o;   o += MP * TS;               // a
-  L.gb = o;   o += MP * TS;               // gb_d, then da
-  L.red = o;  o += NWARP * TN;            // per-warp column partials
-  L.t1 = o;   o += TN;
-  L.kff = o;  o += TN;
-  L.gv = o;   o += TN;                    // gv_d of the current d
-  L.ss = o;   o += TN;                    // s = sum_d gv_d
-  L.gm = o;   o += round4(TN * D);        // g_mean tile [TN][D]
-  L.gvar = o; o += round4(TN * D);        // g_var tile [TN][D]
+  int o = tri_off(MP);                    // ring buffer 0: a packed triangle
+  L.ring1 = o; o += tri_off(MP);          // ring buffer 1
+  L.t1 = o;   o += MP * BTS;              // kuf, then gb_d, then da
+  L.t2 = o;   o += MP * BTS;              // a
+  L.red = o;  o += BRED * BTN;            // per-point column partials
+  L.t1s = o;  o += BTN;
+  L.kff = o;  o += BTN;
+  L.ss = o;   o += BTN;                   // s = sum_d gv_d
+  L.gm = o;   o += round4(BTN * D);       // g_mean tile, transposed [D][BTN]
   L.qm = o;   o += round4(M * D);
-  L.dqm = o;  o += round4(M * D);         // dq_mu, summed over this block's tiles
   L.total = o;
   return L;
 }
@@ -175,86 +171,67 @@ inline bool bwd_fits(int M, int D) {
   return M >= 1 && M <= 128 && D >= 1 && bwd_smem_bytes(M, D) <= MAX_SMEM;
 }
 
-// Floats of one block's slab and of the summed output:
-// dPinv [M][M], dSq [D][M][M], dq_mu [M][D].
-__host__ __device__ inline long long slab_floats(int M, int D) {
-  return static_cast<long long>(1 + D) * M * M + static_cast<long long>(M) * D;
-}
-
-template <int RM>
-__global__ void __launch_bounds__(NT, 1)
-conditional_fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ kuf,
-                      const float* __restrict__ qmu, const float* __restrict__ sqT,
-                      const float* __restrict__ kff, const float* __restrict__ gmean,
-                      const float* __restrict__ gvar, float* __restrict__ dkuf,
-                      float* __restrict__ dkff, float* scratch, long long n, int M,
-                      int D) {
-  constexpr int MP = 16 * RM;
+// Phase A of the backward over n points (one chunk): per tile of BTN points
+// the kuf tile read from Kuf (row stride ldk), tile_backward, then dKuf
+// (same stride) and dKff.
+template <int MP>
+__global__ void __launch_bounds__(BNT, 1)
+conditional_fused_bwd_a(const float* __restrict__ pinv, const float* __restrict__ kuf,
+                        long long ldk, const float* __restrict__ qmu,
+                        const float* __restrict__ sqT, const float* __restrict__ kff,
+                        const float* __restrict__ gmean, const float* __restrict__ gvar,
+                        float* __restrict__ dkuf, float* __restrict__ dkff,
+                        float* __restrict__ a_s, float* __restrict__ da_s,
+                        float* __restrict__ gv_s, long long ld, float* __restrict__ parts,
+                        long long n, int M, int D) {
+  constexpr int G = MP / 32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const BwdLayout L = bwd_layout(MP, M, D);
-  const BackwardTiles tiles{smem, smem + L.ku, smem + L.at, smem + L.gb,
-                            smem + L.red, smem + L.t1, smem + L.gv, smem + L.ss,
-                            smem + L.gm, smem + L.gvar, smem + L.qm, smem + L.dqm};
-  float* W = tiles.W;
-  float* KU = tiles.KU;
-  float* sS = tiles.sS;
+  const BackwardTiles t{smem + L.t1, smem + L.t2, smem + L.red, smem + L.t1s,
+                        smem + L.ss, smem + L.gm, smem + L.qm};
   float* kffS = smem + L.kff;
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, static_cast<long long>(M) * M, M, D, 0};
 
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long MM = static_cast<long long>(M) * M;
-  float* slab = scratch + blockIdx.x * slab_floats(M, D);
-  float* s_dpinv = slab;
-  float* s_dsq = slab + MM;
-  float* s_dqm = s_dsq + D * MM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
 
-  // once per block: q_mu, Pinv^T, and the block's dq_mu accumulator
-  for (int e = tid; e < M * D; e += NT) {
-    tiles.qm[e] = __ldg(qmu + e);
-    tiles.dqmS[e] = 0.0f;
-  }
-  stage<MP>(W, pinvT, M, tid);
+  // once per block: q_mu and the ring's first operand
+  ring.start<MP>(tid);
+  for (int e = tid; e < M * D; e += BNT) t.qm[e] = __ldg(qmu + e);
 
-  const long long ntiles = (n + TN - 1) / TN;
-  bool first = true;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, first = false) {
-    const long long p0 = tile * TN;
-    const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
+  const long long ntiles = (n + BTN - 1) / BTN;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * BTN;
+    const int nt = static_cast<int>(n - p0 < BTN ? n - p0 : BTN);
 
-    // this tile's kuf, kff and cotangents; points past n read as 0
-    load_tile<MP, TS>(KU, kuf, n, p0, nt, M, tid);
-    for (int e = tid; e < TN * D; e += NT) {
-      const bool in = e < nt * D;
-      tiles.gmS[e] = in ? __ldg(gmean + p0 * D + e) : 0.0f;
-      tiles.gvarS[e] = in ? __ldg(gvar + p0 * D + e) : 0.0f;
+    // this tile's kuf, kff and g_mean; zero past M and past n
+    for (int e = tid; e < MP * BTN; e += BNT) {
+      const int m = e / BTN, j = e % BTN;
+      t.T1[m * BTS + j] = (m < M && j < nt) ? __ldg(kuf + m * ldk + p0 + j) : 0.0f;
     }
-    if (tid < TN) {
-      kffS[tid] = tid < nt ? __ldg(kff + p0 + tid) : 0.0f;
-      sS[tid] = 0.0f;
-    }
-    __syncthreads();
+    for (int e = tid; e < BTN * D; e += BNT)
+      t.gmS[(e % D) * BTN + e / D] = e < nt * D ? __ldg(gmean + p0 * D + e) : 0.0f;
+    if (tid < BTN) kffS[tid] = tid < nt ? __ldg(kff + p0 + tid) : 0.0f;
 
-    float acc[RM][4];  // dKuf = Pinv^T da
-    conditional_tile_backward<RM>(tiles, pinvT, sqT, s_dpinv, s_dsq, M, D, first, tid,
-                                  [kffS](int j) { return kffS[j]; }, acc);
-    __syncthreads();  // every read of the kuf tile is done
+    float acc[2 * G][8];  // dKuf = Pinv^T da
+    tile_backward<MP, G>(t, ring, gvar + p0 * D, nt, a_s + p0, da_s + p0, gv_s + p0, ld,
+                         parts + tile * M * D, M, D, tid,
+                         [kffS](int j) { return kffS[j]; }, acc);
 
-    // dKuf over kuf, then out one contiguous run per row; dKff = s
+    // dKuf straight from registers; dKff = s
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
-      *reinterpret_cast<float4*>(KU + (ty * RM + r) * TS + tx * 4) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    __syncthreads();
-    for (int e = tid; e < MP * TN; e += NT) {
-      const int m = e / TN, j = e % TN;
-      if (m < M && j < nt) dkuf[m * n + p0 + j] = KU[m * TS + j];
+    for (int r = 0; r < 2 * G; ++r) {
+      const int row = row_of<MP, G>(ty, r);
+      if (row >= M) continue;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (col_of(tx, c) < nt) dkuf[row * ldk + p0 + col_of(tx, c)] = acc[r][c];
     }
-    if (tid < nt) dkff[p0 + tid] = sS[tid];
-    __syncthreads();  // the next tile overwrites KU, sS, kffS and the cotangents
+    if (tid < nt) dkff[p0 + tid] = t.sS[tid];
+    __syncthreads();  // the next tile overwrites T1, kffS and gmS
   }
-
-  // the block's dq_mu, which lived on chip, into its slab
-  for (int e = tid; e < M * D; e += NT) s_dqm[e] = tiles.dqmS[e];
+  cp_async_wait_all();
 }
 
 // -- host side ------------------------------------------------------------------
@@ -278,20 +255,6 @@ cudaError_t launch_fwd(const float* pinvT, const float* kuf, const float* qmu,
   return cudaGetLastError();
 }
 
-template <int RM>
-cudaError_t launch_bwd(const float* pinvT, const float* kuf, const float* qmu,
-                       const float* sqT, const float* kff, const float* gmean,
-                       const float* gvar, float* dkuf, float* dkff, float* scratch,
-                       long long n, int M, int D, int blocks, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, D));
-  auto kern = conditional_fused_bwd<RM>;
-  const cudaError_t err = allow_shared_memory(kern, bytes);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, NT, bytes, stream>>>(pinvT, kuf, qmu, sqT, kff, gmean, gvar, dkuf,
-                                      dkff, scratch, n, M, D);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -302,7 +265,7 @@ extern "C" {
 // is 0.
 int dgp_conditional_fused_supported(int M, int D) { return fits(M, D) ? 1 : 0; }
 
-// The same for the backward's plan, which is larger (D up to 38 at M = 128).
+// The same for the backward's plan, which is larger (D up to 23 at M = 128).
 int dgp_conditional_fused_bwd_supported(int M, int D) { return bwd_fits(M, D) ? 1 : 0; }
 
 // Launches the forward on `stream`. pinvT = Pinv^T [M][M], kuf [M][n],
@@ -319,36 +282,77 @@ int dgp_conditional_fused_fwd(const float* pinvT, const float* kuf, const float*
   }));
 }
 
-// How many slabs of slab_floats(M, D) floats the backward needs as scratch
-// for n points (its persistent grid). 0 if the sizes are outside the plan or
-// CUDA reports an error.
+// Phase A's persistent grid for n points (one chunk): the blocks the card
+// holds at once, capped at the number of tiles. 0 if the sizes are outside
+// the plan or CUDA reports an error.
 int dgp_conditional_fused_bwd_blocks(long long n, int M, int D) {
   if (n < 1 || !bwd_fits(M, D)) return 0;
   return dispatch(M, [&](auto R) {
-    return resident_blocks(conditional_fused_bwd<decltype(R)::value>,
-                           static_cast<size_t>(bwd_smem_bytes(M, D)), n);
+    return resident_blocks<BNT, BTN>(conditional_fused_bwd_a<16 * decltype(R)::value>,
+                                     static_cast<size_t>(bwd_smem_bytes(M, D)), n);
   });
 }
 
-// Launches the backward and then the slab reduction on `stream`. Inputs as
-// the forward's, plus gmean, gvar [n][D]. Outputs: dkuf [M][n], dkff [n],
-// and out [slab_floats] = dPinv [M][M], dSq [D][M][M] (in Sq's own layout),
-// dq_mu [M][D]. scratch holds `blocks` slabs, with
-// blocks = dgp_conditional_fused_bwd_blocks(...). Returns cudaGetLastError().
-int dgp_conditional_fused_bwd(const float* pinvT, const float* kuf, const float* qmu,
-                              const float* sqT, const float* kff, const float* gmean,
-                              const float* gvar, float* dkuf, float* dkff,
-                              float* scratch, float* out, long long n, int M, int D,
-                              int blocks, void* stream) {
-  if (n < 1 || !bwd_fits(M, D) || blocks < 1 || blocks > (n + TN - 1) / TN)
+// Points per phase-A tile and per phase-B slice: the wrapper sizes its
+// scratch with them.
+int dgp_conditional_fused_bwd_tile() { return BTN; }
+int dgp_conditional_fused_bwd_slice() { return GKB; }
+
+// Phase A of the backward on the n points of one chunk, then the tiles'
+// dq_mu shares added in tile order into dqmu [M][D] (added to what it holds
+// if accumulate). pinv = Pinv [M][M] (lower-triangular), sqT[d] =
+// tril(q_sqrt[d]) [D][M][M], qmu [M][D]; kuf and dkuf [M][.] at row stride
+// ldk, and kff, gmean, gvar, dkff, all starting at the chunk. Writes a_s,
+// da_s [M][ld] and gv_s [D][ld] (ld a multiple of the tile, at least the
+// chunk's tiles) for phase B; parts holds ceil(n / tile) [M][D] slots.
+// Returns cudaGetLastError().
+int dgp_conditional_fused_bwd_a(const float* pinv, const float* kuf, long long ldk,
+                                const float* qmu, const float* sqT, const float* kff,
+                                const float* gmean, const float* gvar, float* dkuf,
+                                float* dkff, float* a_s, float* da_s, float* gv_s,
+                                long long ld, float* parts, float* dqmu, long long n, int M,
+                                int D, int blocks, int accumulate, void* stream) {
+  const long long ntiles = (n + BTN - 1) / BTN;
+  if (n < 1 || !bwd_fits(M, D) || blocks < 1 || blocks > ntiles || ld < ntiles * BTN ||
+      ld % BTN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, D));
   const cudaError_t err = dispatch(M, [&](auto R) {
-    return launch_bwd<decltype(R)::value>(pinvT, kuf, qmu, sqT, kff, gmean, gvar, dkuf,
-                                          dkff, scratch, n, M, D, blocks, s);
+    static std::atomic<unsigned long long> allowed{0};
+    auto kern = conditional_fused_bwd_a<16 * decltype(R)::value>;
+    const cudaError_t e = allow_shared_memory_once(kern, allowed);
+    if (e != cudaSuccess) return e;
+    kern<<<blocks, BNT, bytes, s>>>(pinv, kuf, ldk, qmu, sqT, kff, gmean, gvar, dkuf, dkff,
+                                    a_s, da_s, gv_s, ld, parts, n, M, D);
+    return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce_slabs(scratch, out, blocks, slab_floats(M, D), s));
+  return static_cast<int>(launch_reduce_parts(parts, dqmu, static_cast<int>(ntiles),
+                                              static_cast<long long>(M) * D, 0,
+                                              accumulate != 0, s));
+}
+
+// Phase B on the n points of one chunk: gram [(D + 1)][M][M] (+)= the lower
+// triangles of C_d = A diag(gv_d) A^T and of dA Kuf^T over those points
+// (phase A's a_s, da_s, gv_s at row stride ld, Kuf at ldk), summed slice by
+// slice in order; parts holds ceil(n / slice) (D + 1) M^2 floats.
+int dgp_conditional_fused_bwd_gram(const float* a_s, const float* da_s, long long ld,
+                                   const float* kuf, long long ldk, const float* gv_s,
+                                   float* parts, float* gram, long long n, int M, int D,
+                                   int accumulate, void* stream) {
+  if (n < 1 || M < 1 || M > 128 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_gram(a_s, da_s, ld, kuf, ldk, gv_s, parts, gram, n, M, D,
+                                      accumulate != 0, static_cast<cudaStream_t>(stream)));
+}
+
+// dPinv [M][M] = tril of gram's last matrix; dSq [D][M][M] (in Sq's own
+// layout) = triu(2 Sq[d] C_d), with Sq[d] = sqT[d]^T. Exact zeros elsewhere.
+int dgp_conditional_fused_bwd_finish(const float* gram, const float* sqT, float* dpinv,
+                                     float* dsq, int M, int D, void* stream) {
+  if (M < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_gram_finish(gram, sqT, dpinv, dsq, M, D, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dgp_cuda_error_string(int err) {

@@ -47,48 +47,46 @@
 // chains them to every tensor input:
 //
 //   gv_d  = g_var_d where (v - t1) + t2_d > 0, else 0
-//   gb_d  = 2 b_d gv_d
-//   da    = sum_d Sq[d]^T gb_d - 2 a sum_d gv_d + q_mu g_mean^T
-//   dkuf  = Pinv^T da
-//   dPinv = da kuf^T       dq_mu = a g_mean       dSq[d] = gb_d a^T
+//   da    = sum_d Sq[d]^T (2 b_d gv_d) - 2 a sum_d gv_d + q_mu g_mean^T
+//   dkuf  = Pinv^T da      dq_mu = a g_mean
 //   dv    = sum(dkuf kuf) / v + sum(gv)           (Kuf = v f(sq), Kff = v)
 //   dsq   = (dk/dsq) dkuf where sq > 0, else 0    (smooth Matern forms in sq)
-//   dXs   = 2 Xs sum_m dsq - 2 dsq^T Zs           dZs = 2 Zs sum_n dsq - 2 dsq Xs
+//   dXs   = 2 sum_m dsq (Xs - Zs)                 dZs = 2 sum_n dsq (Zs - Xs)
+//   dPinv = tril(da kuf^T)  dSq[d] = triu(2 Sq[d] a diag(gv_d) a^T)  (sums over n)
 //
-// What bounds it: 2 M^2 (3 + 3 D) FLOP per point on full squares (six M x M
-// products per output, three times the forward) against 4 (2 Din + 2 D)
-// bytes per point: fp32 arithmetic again, in plain IEEE FMA like the forward.
-// What is new is that every output but dXs is a sum over all points. The TPU
-// kernel zeroed its accumulators on grid step 0 and added into them on a grid
-// that runs in order; here blocks run concurrently. One slab of partial sums
-// per point tile would need (1 + D) M^2 floats for each 64 points (0.9 GB at
-// n = 100,000, M = 128, D = 8), so instead:
-//   * A persistent grid: as many blocks as the card holds at once (one per
-//     SM at M = 128), block b taking tiles b, b + grid, b + 2 grid, ... The
-//     assignment is static, so every sum has one fixed order.
-//   * Each block owns one slab [(1 + D) M^2 + M Din + M D + 1] in device
-//     memory (the wrapper's scratch: about 78 MB for 132 blocks at M = 128,
-//     D = 8, Din = 8, whatever n is). dZs, dq_mu and dv accumulate in shared
-//     memory and registers and are written once; the M x M sums dPinv and
-//     dSq[d] do not fit in registers beside the products, so each tile's
-//     da kuf^T and gb_d a^T are added into the slab by the thread that owns
-//     the element (a read-modify-write only that thread ever touches; about
-//     128 KB of traffic per tile per square, mostly from L2).
-//   * A second kernel, reduce_slabs, adds the slabs in block order into the
-//     outputs. No float atomics anywhere: two runs on the same inputs give
-//     the same bits.
-//   * Shared memory holds the staged operand W (64 KB at M = 128) and three
-//     [MP][TN + 4] tiles: kuf (later dsq), a, and gb_d (later da); the row
-//     stride is padded so the a gb^T products read both tiles without bank
-//     conflicts. 196,160 bytes at M = 128, Din = D = 8: one block per SM.
-//     Sq[d] is staged once per tile and read in both orientations
-//     (b_d = Sq[d] a down its columns, Sq[d]^T gb_d along its rows); Pinv is
-//     staged at the end of a tile for dkuf and stays for the next tile's a.
+// It assumes Pinv lower- and Sq upper-triangular (Lu^{-1} and tril(q_sqrt)^T
+// on the whitened path) and returns dPinv and dSq on those patterns: only
+// they reach a parameter. What bounds it: with the triangles' zero halves
+// skipped, (2 + 2 D) M (M + 1) FLOP per point in the tile products and
+// (1 + D) M (M + 1) in the sums over points, against 4 (2 Din + 2 D) bytes
+// per point: fp32 arithmetic, in plain IEEE FMA like the forward. The TPU
+// kernel kept the M x M sums in scratch across a grid that runs in order;
+// blocks here run concurrently, and a per-tile read-modify-write of such
+// sums in device memory (1.8 GB per call at L1) was what held the first
+// port of this kernel back. So it runs in two phases (conditional.cuh):
+//   * Phase A (fused_bwd_a): a persistent grid of one 256-thread block per
+//     SM walks tiles of 128 points. Per tile it builds kuf from the points
+//     (and writes it to scratch for phase B), runs conditional.cuh's
+//     tile_backward (a, t1, per d b_d, the mask and da, all triangular
+//     products on operands staged as packed triangles through a cp.async
+//     ring), then dsq over dkuf in shared memory, dXs for the tile's rows,
+//     and the tile's slot of dZs, dq_mu and dv. No M x M sum is kept.
+//   * Phase B (gram_bwd, reduce_parts, gram_finish): the Grams
+//     a diag(gv_d) a^T and da kuf^T over all points as split-K products,
+//     one slot per slice of 1,024 points added in slice order, then
+//     dSq[d] = triu(2 Sq[d] C_d) and tril(dPinv).
+//   * The tiles' small sums are added in tile order (reduce_parts). No float
+//     atomics: two runs on the same inputs give the same bits. The wrapper
+//     passes points in passes of 2^17 (ops/_launch.py), which bound the
+//     scratch (A, dA, Kuf [M][pass], gv [D][pass] and phase B's slots:
+//     222 MB at M = 128, D = 8, n = 100,000), and adds the passes' sums in
+//     order.
+//   * Shared memory at M = 128, Din = D = 8: the ring (2 x 33 KB), the kuf /
+//     gb / da tile and the a tile ([128][132] each), q_mu, g_mean, Zs and
+//     the points: 225,408 bytes, one block per SM (D + Din up to 22).
 //   * Rows past n read g_mean = g_var = 0, which makes every one of their
 //     contributions 0; padded rows of M hold kuf = 0 and are masked in dsq.
 // The clamp masks are recomputed from (v - t1) + t2 and sq, as on the TPU.
-// The steps after the kuf tile, forward and backward, are shared with the
-// Kuf-consuming kernels (conditional_fused.cu) through conditional.cuh.
 
 #include "conditional.cuh"
 
@@ -210,29 +208,25 @@ fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
 // -- backward -------------------------------------------------------------------
 
 struct BwdLayout {  // offsets in floats; total floats
-  int ku, at, gb, zs, xs, xx, zz, red, t1, gv, ss, gm, gvar, qm, dzs, dqm, wsum, total;
+  int ring1, t1, t2, red, t1s, ss, gm, qm, zs, xs, xx, zz, wsum, total;
 };
 
 __host__ __device__ inline BwdLayout bwd_layout(int MP, int M, int Din, int D) {
   BwdLayout L;
-  int o = MP * MP;                        // W: the staged operand [MP][MP]
-  L.ku = o;   o += MP * TS;               // kuf, then dsq
-  L.at = o;   o += MP * TS;               // a
-  L.gb = o;   o += MP * TS;               // gb_d, then da
-  L.zs = o;   o += round4(MP * Din);
-  L.xs = o;   o += round4(Din * TN);      // xs^T [Din][TN]
-  L.xx = o;   o += TN;
-  L.zz = o;   o += MP;
-  L.red = o;  o += NWARP * TN;            // per-warp column partials
-  L.t1 = o;   o += TN;
-  L.gv = o;   o += TN;                    // gv_d of the current d
-  L.ss = o;   o += TN;                    // sum_d gv_d
-  L.gm = o;   o += round4(TN * D);        // g_mean tile [TN][D]
-  L.gvar = o; o += round4(TN * D);        // g_var tile [TN][D]
+  int o = tri_off(MP);                    // ring buffer 0: a packed triangle
+  L.ring1 = o; o += tri_off(MP);          // ring buffer 1
+  L.t1 = o;   o += MP * BTS;              // kuf, then gb_d, da, dsq
+  L.t2 = o;   o += MP * BTS;              // a
+  L.red = o;  o += BRED * BTN;            // per-point column partials
+  L.t1s = o;  o += BTN;
+  L.ss = o;   o += BTN;                   // sum_d gv_d
+  L.gm = o;   o += round4(BTN * D);       // g_mean tile, transposed [D][BTN]
   L.qm = o;   o += round4(M * D);
-  L.dzs = o;  o += round4(MP * Din);      // dZs, summed over this block's tiles
-  L.dqm = o;  o += round4(M * D);         // dq_mu, likewise
-  L.wsum = o; o += 2 * NWARP;
+  L.zs = o;   o += round4(MP * Din);
+  L.xs = o;   o += round4(Din * BTN);     // xs^T [Din][BTN]
+  L.xx = o;   o += BTN;
+  L.zz = o;   o += MP;
+  L.wsum = o; o += 2 * (BNT / 32);
   L.total = o;
   return L;
 }
@@ -245,10 +239,10 @@ inline bool bwd_fits(int M, int Din, int D) {
   return M >= 1 && M <= 128 && Din >= 1 && D >= 1 && bwd_smem_bytes(M, Din, D) <= MAX_SMEM;
 }
 
-// Floats of one block's slab and of the summed output:
-// dPinv [M][M], dSq [D][M][M], dZs [M][Din], dq_mu [M][D], dv.
-__host__ __device__ inline long long slab_floats(int M, int Din, int D) {
-  return static_cast<long long>(1 + D) * M * M + M * Din + M * D + 1;
+// Floats of one tile's slot of small sums (and of their total):
+// dZs [M][Din], dq_mu [M][D], dv.
+__host__ __device__ inline long long small_floats(int M, int Din, int D) {
+  return static_cast<long long>(M) * Din + static_cast<long long>(M) * D + 1;
 }
 
 template <int KIND>
@@ -260,173 +254,161 @@ __device__ __forceinline__ float dkuf_dsq(float v, float sq, float kuf) {
   return -((5.0f / 6.0f) * v) * (1.0f + a * r) * expf(-a * r);
 }
 
-template <int KIND, int RM>
-__global__ void __launch_bounds__(NT, 1)
-fused_bwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
-          const float* __restrict__ zs, const float* __restrict__ vptr,
-          const float* __restrict__ qmu, const float* __restrict__ sqT,
-          const float* __restrict__ gmean, const float* __restrict__ gvar,
-          float* __restrict__ dxs, float* scratch,
-          long long n, int M, int Din, int D) {
-  constexpr int MP = 16 * RM;
+// Phase A of the backward over n points (one chunk): per tile of BTN points
+// the kuf tile, tile_backward, then dsq, dXs and the tile's slot of small
+// sums. Writes kuf [M][ld] for phase B beside a, da and gv.
+template <int KIND, int MP>
+__global__ void __launch_bounds__(BNT, 1)
+fused_bwd_a(const float* __restrict__ pinv, const float* __restrict__ xs,
+            const float* __restrict__ zs, const float* __restrict__ vptr,
+            const float* __restrict__ qmu, const float* __restrict__ sqT,
+            const float* __restrict__ gmean, const float* __restrict__ gvar,
+            float* __restrict__ dxs, float* __restrict__ a_s, float* __restrict__ da_s,
+            float* __restrict__ kuf_s, float* __restrict__ gv_s, long long ld,
+            float* __restrict__ parts, long long n, int M, int Din, int D) {
+  constexpr int G = MP / 32;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const BwdLayout L = bwd_layout(MP, M, Din, D);
-  const BackwardTiles tiles{smem, smem + L.ku, smem + L.at, smem + L.gb,
-                            smem + L.red, smem + L.t1, smem + L.gv, smem + L.ss,
-                            smem + L.gm, smem + L.gvar, smem + L.qm, smem + L.dqm};
-  float* W = tiles.W;
-  float* KU = tiles.KU;
-  float* sS = tiles.sS;
+  const BackwardTiles t{smem + L.t1, smem + L.t2, smem + L.red, smem + L.t1s,
+                        smem + L.ss, smem + L.gm, smem + L.qm};
   float* zsS = smem + L.zs;
   float* xsS = smem + L.xs;
   float* xx = smem + L.xx;
   float* zz = smem + L.zz;
-  float* dzsS = smem + L.dzs;
   float* wsum = smem + L.wsum;
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float v = __ldg(vptr);
   const long long MM = static_cast<long long>(M) * M;
-  float* slab = scratch + blockIdx.x * slab_floats(M, Din, D);
-  float* s_dpinv = slab;
-  float* s_dsq = slab + MM;
-  float* s_dzs = s_dsq + D * MM;
-  float* s_dqm = s_dzs + M * Din;
-  float* s_dv = s_dqm + M * D;
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, MM, M, D, 0};
 
-  // once per block: q_mu, Zs, Pinv^T, and the block's own accumulators
-  for (int e = tid; e < M * D; e += NT) {
-    tiles.qm[e] = __ldg(qmu + e);
-    tiles.dqmS[e] = 0.0f;
-  }
-  for (int e = tid; e < MP * Din; e += NT) {
-    zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
-    dzsS[e] = 0.0f;
-  }
-  stage<MP>(W, pinvT, M, tid);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
+  const float v = __ldg(vptr);
+  const long long slot = small_floats(M, Din, D);
+
+  // once per block: q_mu, Zs, ||z||^2, and the ring's first operand
+  ring.start<MP>(tid);
+  for (int e = tid; e < M * D; e += BNT) t.qm[e] = __ldg(qmu + e);
+  for (int e = tid; e < MP * Din; e += BNT) zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
   __syncthreads();
   if (tid < MP) {
     float s = 0.0f;
     for (int c = 0; c < Din; ++c) s = fmaf(zsS[tid * Din + c], zsS[tid * Din + c], s);
     zz[tid] = s;
   }
-  float dv_kuf = 0.0f;  // this thread's share of sum(dkuf * kuf)
-  float dv_gv = 0.0f;   // and of sum(gv)
 
-  const long long ntiles = (n + TN - 1) / TN;
-  bool first = true;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x, first = false) {
-    const long long p0 = tile * TN;
-    const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
+  const long long ntiles = (n + BTN - 1) / BTN;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * BTN;
+    const int nt = static_cast<int>(n - p0 < BTN ? n - p0 : BTN);
+    float* small = parts + tile * slot;
 
-    // phase 0: this tile's points and cotangents; rows past n read as 0
-    for (int e = tid; e < TN * Din; e += NT) {
+    // this tile's points and g_mean; rows past n read as 0
+    for (int e = tid; e < BTN * Din; e += BNT) {
       const int j = e / Din, c = e % Din;
-      xsS[c * TN + j] = j < nt ? __ldg(xs + (p0 + j) * Din + c) : 0.0f;
+      xsS[c * BTN + j] = j < nt ? __ldg(xs + (p0 + j) * Din + c) : 0.0f;
     }
-    for (int e = tid; e < TN * D; e += NT) {
-      const bool in = e < nt * D;
-      tiles.gmS[e] = in ? __ldg(gmean + p0 * D + e) : 0.0f;
-      tiles.gvarS[e] = in ? __ldg(gvar + p0 * D + e) : 0.0f;
-    }
+    for (int e = tid; e < BTN * D; e += BNT)
+      t.gmS[(e % D) * BTN + e / D] = e < nt * D ? __ldg(gmean + p0 * D + e) : 0.0f;
     __syncthreads();
-    if (tid < TN) {
+    if (tid < BTN) {
       float s = 0.0f;
-      for (int c = 0; c < Din; ++c) s = fmaf(xsS[c * TN + tid], xsS[c * TN + tid], s);
+      for (int c = 0; c < Din; ++c) s = fmaf(xsS[c * BTN + tid], xsS[c * BTN + tid], s);
       xx[tid] = s;
-      sS[tid] = 0.0f;
     }
     __syncthreads();
 
-    // phase 1: the kuf tile; padded rows are 0
-    for (int e = tid; e < MP * TN; e += NT) {
-      const int m = e / TN, j = e % TN;
+    // the kuf tile, zero past M and past n, also into kuf_s for phase B
+    for (int e = tid; e < MP * BTN; e += BNT) {
+      const int m = e / BTN, j = e % BTN;
       float k = 0.0f;
-      if (m < M) {
+      if (m < M && j < nt) {
         float cross = 0.0f;
-        for (int c = 0; c < Din; ++c) cross = fmaf(zsS[m * Din + c], xsS[c * TN + j], cross);
+        for (int c = 0; c < Din; ++c) cross = fmaf(zsS[m * Din + c], xsS[c * BTN + j], cross);
         k = kuf_of<KIND>(v, fmaxf((xx[j] - 2.0f * cross) + zz[m], 0.0f));
       }
-      KU[m * TS + j] = k;
+      t.T1[m * BTS + j] = k;
+      if (m < M) kuf_s[m * ld + p0 + j] = k;
     }
-    __syncthreads();
 
-    // phases 2-4: a, t1, b_d and the clamp mask per output, the slab sums
-    // dSq and dPinv, dq_mu; dkuf into acc (Kff == v)
-    float acc[RM][4];
-    conditional_tile_backward<RM>(tiles, pinvT, sqT, s_dpinv, s_dsq, M, D, first, tid,
-                                  [v](int) { return v; }, acc);
-    __syncthreads();  // every read of the kuf tile is done
+    // a, t1, b_d and the clamp mask per output, da, dq_mu; dkuf into acc
+    float acc[2 * G][8];
+    tile_backward<MP, G>(t, ring, gvar + p0 * D, nt, a_s + p0, da_s + p0, gv_s + p0, ld,
+                         small + static_cast<long long>(M) * Din, M, D, tid,
+                         [v](int) { return v; }, acc);
+    __syncthreads();  // every read of da in T1 is done
+#pragma unroll
+    for (int r = 0; r < 2 * G; ++r) sts8(t.T1 + row_of<MP, G>(ty, r) * BTS, tx, acc[r]);
 
-    // dv's kuf share, and dsq over kuf in place (own elements only)
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int row = ty * RM + r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx * 4 + c;
-        const float k = KU[row * TS + col];
-        dv_kuf = fmaf(acc[r][c], k, dv_kuf);
-        float ds = 0.0f;
-        if (row < M) {
-          float cross = 0.0f;
-          for (int q = 0; q < Din; ++q) cross = fmaf(zsS[row * Din + q], xsS[q * TN + col], cross);
-          const float sq = fmaxf((xx[col] - 2.0f * cross) + zz[row], 0.0f);
-          if (sq > 0.0f) ds = dkuf_dsq<KIND>(v, sq, k) * acc[r][c];
-        }
-        KU[row * TS + col] = ds;
+    // dv's kuf share, and dsq = (dk/dsq) dkuf where sq > 0 over dkuf in T1
+    // (this thread's own elements)
+    float dv_kuf = 0.0f;
+#pragma unroll 1
+    for (int e = 0; e < 16 * G; ++e) {
+      const int row = row_of<MP, G>(ty, e >> 3), col = col_of(tx, e & 7);
+      float& cell = t.T1[row * BTS + col];
+      float ds = 0.0f;
+      if (row < M && col < nt) {
+        float cross = 0.0f;
+        for (int q = 0; q < Din; ++q)
+          cross = fmaf(zsS[row * Din + q], xsS[q * BTN + col], cross);
+        const float sq = fmaxf((xx[col] - 2.0f * cross) + zz[row], 0.0f);
+        const float k = kuf_of<KIND>(v, sq);
+        dv_kuf = fmaf(cell, k, dv_kuf);
+        if (sq > 0.0f) ds = dkuf_dsq<KIND>(v, sq, k) * cell;
       }
+      cell = ds;
     }
-    if (tid < TN) dv_gv += sS[tid];
+    float dv_gv = tid < BTN ? t.sS[tid] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      dv_kuf += __shfl_down_sync(0xffffffffu, dv_kuf, off);
+      dv_gv += __shfl_down_sync(0xffffffffu, dv_gv, off);
+    }
+    if (lane == 0) {
+      wsum[warp] = dv_kuf;
+      wsum[BNT / 32 + warp] = dv_gv;
+    }
     __syncthreads();
 
-    // dXs = 2 xs sum_m dsq - 2 dsq^T zs: this tile's rows, one contiguous run
-    for (int o = tid; o < nt * Din; o += NT) {
+    // dXs = 2 sum_m dsq (xs - zs): this tile's rows, one contiguous run.
+    // Summed over the differences, not as 2 xs sum dsq - 2 dsq^T zs: the
+    // two sums are large and cancel
+    for (int o = tid; o < nt * Din; o += BNT) {
       const int j = o / Din, c = o % Din;
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int m = 0; m < M; ++m) {
-        const float ds = KU[m * TS + j];
-        s1 += ds;
-        s2 = fmaf(ds, zsS[m * Din + c], s2);
+      const float x = xsS[c * BTN + j];
+      float s = 0.0f;
+      for (int m = 0; m < M; ++m) s = fmaf(t.T1[m * BTS + j], x - zsS[m * Din + c], s);
+      dxs[p0 * Din + o] = 2.0f * s;
+    }
+    // the tile's dZs = 2 sum_n dsq (zs - xs) (a lane per row m, as
+    // row_dots; points past the tile's nt hold dsq = 0), and dv
+    for (int item = warp, blocks = (M + 31) / 32; item < blocks * Din;
+         item += BNT / 32) {
+      const int m = 32 * (item % blocks) + lane, c = item / blocks;
+      if (m >= M) continue;
+      const float z = zsS[m * Din + c];
+      float s = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < BTN; j += 4) {
+        float ds[4], x[4];
+        lds4(t.T1 + m * BTS + j, ds);
+        lds4(xsS + c * BTN + j, x);
+        s = fmaf(ds[3], z - x[3], fmaf(ds[2], z - x[2], fmaf(ds[1], z - x[1],
+                 fmaf(ds[0], z - x[0], s))));
       }
-      dxs[p0 * Din + o] = 2.0f * xsS[c * TN + j] * s1 - 2.0f * s2;
+      small[m * Din + c] = 2.0f * s;
     }
-    // dZs += 2 zs sum_n dsq - 2 dsq xs
-    for (int e = tid; e < M * Din; e += NT) {
-      const int m = e / Din, c = e % Din;
-      float s1 = 0.0f, s2 = 0.0f;
-      for (int j = 0; j < TN; ++j) {
-        const float ds = KU[m * TS + j];
-        s1 += ds;
-        s2 = fmaf(ds, xsS[c * TN + j], s2);
+    if (tid == 0) {
+      float a = 0.0f, b = 0.0f;
+      for (int w = 0; w < BNT / 32; ++w) {
+        a += wsum[w];
+        b += wsum[BNT / 32 + w];
       }
-      dzsS[e] += 2.0f * zsS[e] * s1 - 2.0f * s2;
+      small[slot - 1] = a / v + b;
     }
-    __syncthreads();  // the next tile overwrites KU, xsS, gmS
+    __syncthreads();  // the next tile overwrites T1, xsS, gmS and wsum
   }
-
-  // the block's sums that lived on chip, into its slab
-  for (int e = tid; e < M * Din; e += NT) s_dzs[e] = dzsS[e];
-  for (int e = tid; e < M * D; e += NT) s_dqm[e] = tiles.dqmS[e];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    dv_kuf += __shfl_down_sync(0xffffffffu, dv_kuf, off);
-    dv_gv += __shfl_down_sync(0xffffffffu, dv_gv, off);
-  }
-  if ((tid & 31) == 0) {
-    wsum[tid >> 5] = dv_kuf;
-    wsum[NWARP + (tid >> 5)] = dv_gv;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float a = 0.0f, b = 0.0f;
-    for (int w = 0; w < NWARP; ++w) {
-      a += wsum[w];
-      b += wsum[NWARP + w];
-    }
-    *s_dv = a / v + b;
-  }
+  cp_async_wait_all();
 }
 
 // -- host side ------------------------------------------------------------------
@@ -456,26 +438,15 @@ cudaError_t launch_fwd(const float* pinvT, const float* xs, const float* zs,
   return cudaGetLastError();
 }
 
-template <int KIND, int RM>
-cudaError_t launch_bwd(const float* pinvT, const float* xs, const float* zs,
-                       const float* v, const float* qmu, const float* sqT,
-                       const float* gmean, const float* gvar, float* dxs,
-                       float* scratch, long long n, int M, int Din, int D,
-                       int blocks, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, Din, D));
-  auto kern = fused_bwd<KIND, RM>;
-  const cudaError_t err = allow_shared_memory(kern, bytes);
-  if (err != cudaSuccess) return err;
-  kern<<<blocks, NT, bytes, stream>>>(pinvT, xs, zs, v, qmu, sqT, gmean, gvar, dxs,
-                                      scratch, n, M, Din, D);
-  return cudaGetLastError();
-}
-
-// Blocks the card holds at once for this backward kernel (its persistent
-// grid), capped at the number of point tiles; 0 on a CUDA error.
-template <int KIND, int RM>
-int bwd_resident_blocks(long long n, int M, int Din, int D) {
-  return resident_blocks(fused_bwd<KIND, RM>, static_cast<size_t>(bwd_smem_bytes(M, Din, D)), n);
+// f(Int<KIND>, Int<MP>) for the kernel kind and the padded M
+template <typename F>
+auto dispatch_bwd(int kind, int M, F f) {
+  const bool small = padded_m(M) == 64;
+  switch (kind) {
+    case 0: return small ? f(Int<0>{}, Int<64>{}) : f(Int<0>{}, Int<128>{});
+    case 1: return small ? f(Int<1>{}, Int<64>{}) : f(Int<1>{}, Int<128>{});
+    default: return small ? f(Int<2>{}, Int<64>{}) : f(Int<2>{}, Int<128>{});
+  }
 }
 
 }  // namespace
@@ -506,36 +477,76 @@ int dgp_fused_rbf_supported(int M, int Din, int D) { return fits(M, Din, D) ? 1 
 // The same for the backward's plan, which is larger.
 int dgp_fused_rbf_bwd_supported(int M, int Din, int D) { return bwd_fits(M, Din, D) ? 1 : 0; }
 
-// How many slabs of slab_floats(M, Din, D) floats the backward needs as
-// scratch for n points: its persistent grid. 0 if the sizes are outside the
-// plan or CUDA reports an error.
+// Phase A's persistent grid for n points (one chunk): the blocks the card
+// holds at once, capped at the number of tiles. 0 if the sizes are outside
+// the plan or CUDA reports an error.
 int dgp_fused_rbf_bwd_blocks(int kind, long long n, int M, int Din, int D) {
   if (kind < 0 || kind > 2 || n < 1 || !bwd_fits(M, Din, D)) return 0;
-  return dispatch(kind, M, [&](auto K, auto R) {
-    return bwd_resident_blocks<decltype(K)::value, decltype(R)::value>(n, M, Din, D);
+  return dispatch_bwd(kind, M, [&](auto K, auto P) {
+    return resident_blocks<BNT, BTN>(fused_bwd_a<decltype(K)::value, decltype(P)::value>,
+                                     static_cast<size_t>(bwd_smem_bytes(M, Din, D)), n);
   });
 }
 
-// Launches the backward and then the slab reduction on `stream`. Inputs as
-// the forward's, plus gmean, gvar [n][D]. Outputs: dxs [n][Din], and out
-// [slab_floats] = dPinv [M][M], dSq [D][M][M] (in Sq's own layout),
-// dZs [M][Din], dq_mu [M][D], dv. scratch holds `blocks` slabs, with
-// blocks = dgp_fused_rbf_bwd_blocks(...). Returns cudaGetLastError().
-int dgp_fused_rbf_bwd(int kind, const float* pinvT, const float* xs,
-                      const float* zs, const float* v, const float* qmu,
-                      const float* sqT, const float* gmean, const float* gvar,
-                      float* dxs, float* scratch, float* out, long long n,
-                      int M, int Din, int D, int blocks, void* stream) {
+// Points per phase-A tile and per phase-B slice: the wrapper sizes its
+// scratch with them.
+int dgp_fused_rbf_bwd_tile() { return BTN; }
+int dgp_fused_rbf_bwd_slice() { return GKB; }
+
+// Phase A of the backward on the n points of one chunk, then the tiles'
+// small sums added in tile order into small [M Din + M D + 1] = dZs, dq_mu,
+// dv (added to what small holds if accumulate). Inputs as the forward's but
+// pinv = Pinv [M][M] itself (lower-triangular) and sqT[d] = tril(q_sqrt[d]),
+// plus gmean, gvar [n][D]; xs, gmean, gvar and dxs [n][Din] start at the
+// chunk. Writes a_s, da_s, kuf_s [M][ld] and gv_s [D][ld] (ld a multiple of
+// the tile, at least the chunk's tiles) for phase B; parts holds
+// ceil(n / tile) slots of small sums. Returns cudaGetLastError().
+int dgp_fused_rbf_bwd_a(int kind, const float* pinv, const float* xs, const float* zs,
+                        const float* v, const float* qmu, const float* sqT,
+                        const float* gmean, const float* gvar, float* dxs, float* a_s,
+                        float* da_s, float* kuf_s, float* gv_s, long long ld, float* parts,
+                        float* small, long long n, int M, int Din, int D, int blocks,
+                        int accumulate, void* stream) {
+  const long long ntiles = (n + BTN - 1) / BTN;
   if (kind < 0 || kind > 2 || n < 1 || !bwd_fits(M, Din, D) || blocks < 1 ||
-      blocks > (n + TN - 1) / TN)
+      blocks > ntiles || ld < ntiles * BTN || ld % BTN != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dispatch(kind, M, [&](auto K, auto R) {
-    return launch_bwd<decltype(K)::value, decltype(R)::value>(
-        pinvT, xs, zs, v, qmu, sqT, gmean, gvar, dxs, scratch, n, M, Din, D, blocks, s);
+  const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, Din, D));
+  const cudaError_t err = dispatch_bwd(kind, M, [&](auto K, auto P) {
+    static std::atomic<unsigned long long> allowed{0};
+    auto kern = fused_bwd_a<decltype(K)::value, decltype(P)::value>;
+    const cudaError_t e = allow_shared_memory_once(kern, allowed);
+    if (e != cudaSuccess) return e;
+    kern<<<blocks, BNT, bytes, s>>>(pinv, xs, zs, v, qmu, sqT, gmean, gvar, dxs, a_s, da_s,
+                                    kuf_s, gv_s, ld, parts, n, M, Din, D);
+    return cudaGetLastError();
   });
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_reduce_slabs(scratch, out, blocks, slab_floats(M, Din, D), s));
+  return static_cast<int>(launch_reduce_parts(parts, small, static_cast<int>(ntiles),
+                                              small_floats(M, Din, D), 0, accumulate != 0, s));
+}
+
+// Phase B on the n points of one chunk: gram [(D + 1)][M][M] (+)= the lower
+// triangles of C_d = A diag(gv_d) A^T and of dA Kuf^T over those points
+// (phase A's a_s, da_s, gv_s at row stride ld, Kuf at ldk), summed slice by
+// slice in order; parts holds ceil(n / slice) (D + 1) M^2 floats.
+int dgp_fused_rbf_bwd_gram(const float* a_s, const float* da_s, long long ld,
+                           const float* kuf, long long ldk, const float* gv_s, float* parts,
+                           float* gram, long long n, int M, int D, int accumulate,
+                           void* stream) {
+  if (n < 1 || M < 1 || M > 128 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_gram(a_s, da_s, ld, kuf, ldk, gv_s, parts, gram, n, M, D,
+                                      accumulate != 0, static_cast<cudaStream_t>(stream)));
+}
+
+// dPinv [M][M] = tril of gram's last matrix; dSq [D][M][M] (in Sq's own
+// layout) = triu(2 Sq[d] C_d), with Sq[d] = sqT[d]^T. Exact zeros elsewhere.
+int dgp_fused_rbf_bwd_finish(const float* gram, const float* sqT, float* dpinv, float* dsq,
+                             int M, int D, void* stream) {
+  if (M < 1 || D < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      launch_gram_finish(gram, sqT, dpinv, dsq, M, D, static_cast<cudaStream_t>(stream)));
 }
 
 const char* dgp_cuda_error_string(int err) {

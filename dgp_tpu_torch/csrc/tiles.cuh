@@ -8,6 +8,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -204,17 +205,35 @@ cudaError_t allow_shared_memory(K kern, size_t bytes) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-// Blocks of `kern` the card holds at once (a persistent grid), capped at the
-// number of point tiles for n points; 0 on a CUDA error.
+// Opts the kernel into the most shared memory a block may take, once per
+// device (the attribute holds for every later launch there): each caller
+// keeps one `done` per kernel.
 template <typename K>
+cudaError_t allow_shared_memory_once(K kern, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ULL << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = allow_shared_memory(kern, MAX_SMEM);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+// Blocks of `kern` (THREADS threads and `bytes` of shared memory a block,
+// TILE points a tile) the card holds at once (a persistent grid), capped at
+// the number of tiles of n points; 0 on a CUDA error. It opts the kernel
+// into the most shared memory a block may take, never less: a launch that
+// set the attribute once must not find it lowered by this query.
+template <int THREADS = NT, int TILE = TN, typename K>
 int resident_blocks(K kern, size_t bytes, long long n) {
   int dev = 0, sms = 0, per_sm = 0;
-  if (allow_shared_memory(kern, bytes) != cudaSuccess ||
+  if (allow_shared_memory(kern, MAX_SMEM) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, bytes) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, bytes) != cudaSuccess)
     return 0;
-  const long long tiles = (n + TN - 1) / TN;
+  const long long tiles = (n + TILE - 1) / TILE;
   const long long resident = static_cast<long long>(sms) * per_sm;
   return static_cast<int>(tiles < resident ? tiles : resident);
 }

@@ -13,15 +13,18 @@ whitened layer that the stationary kernel (``conditional_fused_rbf``) does
 not take: Sum, Product and Linear kernels, and kernels with ``active_dims``.
 Kuf and Kff are built by the kernel's own ``K`` / ``K_diag`` in PyTorch.
 
-The backward is a second CUDA kernel in the same source (it replaces the
-TPU's ``conditional_fused._bwd_kernel``): per point tile it recomputes A and
-B, applies the clamp mask ``(Kff - t1) + t2 > 0`` and emits the operator
-cotangents. ``dKuf`` and ``dKff`` are written per tile; ``dPinv``, ``dq_mu``
-and ``dSq`` are sums over all points, which a fixed number of persistent
-blocks accumulate into one slab each, and a second kernel adds the slabs in
-a fixed order (deterministic; the scratch is bounded by the number of
-blocks, not by n). Autograd carries dKuf and dKff on into ``kernel.K`` and
-``kernel.K_diag``, and so to Z, X and the hyperparameters.
+The backward (it replaces the TPU's ``conditional_fused._bwd_kernel``)
+runs in two CUDA phases in the same source. Phase A recomputes A and B per
+point tile, applies the clamp mask ``(Kff - t1) + t2 > 0`` and writes dKuf
+and dKff, and A, dA and the masked g_var to scratch; phase B forms the sums
+over all points, dPinv = tril(dA Kuf^T) and dSq[d] = triu(2 Sq[d] A diag(gv_d)
+A^T), as split-K Grams summed in a fixed order (deterministic). Points go
+through in passes of ``_launch.BACKWARD_PASS``, which bound the scratch.
+It assumes what the whitened path gives it, Pinv lower- and Sq
+upper-triangular, and returns dPinv and dSq on those patterns, exact zeros
+elsewhere: the Cholesky adjoint reads only the lower triangle of dPinv, and
+tril(q_sqrt) cuts the rest of dSq. Autograd carries dKuf and dKff on into
+``kernel.K`` and ``kernel.K_diag``, and so to Z, X and the hyperparameters.
 
 :func:`fused_conditional_white_plain` and
 :func:`fused_conditional_white_backward_plain` are the same functions in
@@ -37,7 +40,9 @@ import torch
 
 from .. import _build
 from ..config import ieee_fp32
-from ._launch import persistent_grid, run_kernel, split_slab
+from ._launch import (backward_passes, backward_scratch, finish_gram,
+                      phase_a_blocks, pointer, run_gram, run_kernel)
+from ._launch import gram_backward as _gram_backward
 
 _LIB = "conditional_fused"
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -46,9 +51,15 @@ _SIGNATURES = {
     "dgp_conditional_fused_supported": [_I, _I],
     "dgp_conditional_fused_bwd_supported": [_I, _I],
     "dgp_conditional_fused_bwd_blocks": [_N, _I, _I],
-    "dgp_conditional_fused_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _N, _I, _I, _I, _P],
+    "dgp_conditional_fused_bwd_tile": [],
+    "dgp_conditional_fused_bwd_slice": [],
+    "dgp_conditional_fused_bwd_a": [_P, _P, _N, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P, _P, _N, _P, _P, _N, _I, _I, _I, _I, _P],
+    "dgp_conditional_fused_bwd_gram": [_P, _P, _N, _P, _N, _P, _P, _P, _N, _I,
+                                       _I, _I, _P],
+    "dgp_conditional_fused_bwd_finish": [_P, _P, _P, _P, _I, _I, _P],
 }
+_PREFIX = "dgp_conditional_fused_bwd"
 
 
 def supported(M, D):
@@ -108,7 +119,9 @@ def fused_conditional_white_backward_plain(Pinv, Kuf, q_mu, Sq, Kff, g_mean,
     This is the kernel's hand-derived chain written out on whole tensors,
     not autograd of :func:`fused_conditional_white_plain`: the gradient
     passes only where the recomputed ``(Kff - t1) + t2`` is strictly
-    positive."""
+    positive. dPinv and dSq are projected on the patterns of Pinv (lower)
+    and Sq (upper), as the kernel returns them: only those entries reach a
+    parameter on the whitened path."""
     A, B, t1, t2 = _a_b(Pinv, Kuf, Sq)
     gv = g_var.T * (((Kff - t1) + t2) > 0.0)           # [D, n]
     s = torch.sum(gv, dim=0)                           # [n]
@@ -116,7 +129,18 @@ def fused_conditional_white_backward_plain(Pinv, Kuf, q_mu, Sq, Kff, g_mean,
     dA = (torch.sum(Sq.transpose(1, 2) @ gb, dim=0)
           - (2.0 * A) * s[None, :]
           + q_mu @ g_mean.T)                           # [M, n]
-    return dA @ Kuf.T, Pinv.T @ dA, A @ g_mean, gb @ A.T, s
+    return (torch.tril(dA @ Kuf.T), Pinv.T @ dA, A @ g_mean,
+            torch.triu(gb @ A.T), s)
+
+
+@ieee_fp32()
+def gram_backward_plain(A, dA, Kuf, gv, Sq):
+    """Phase B of the whitened backward (#2 and #4) in plain PyTorch:
+    (tril(dA Kuf^T), triu(2 Sq[d] A diag(gv_d) A^T)) for A, dA, Kuf [M, n],
+    gv [D, n] and Sq [D, M, M]. On the whitened path these are dPinv and
+    dSq, since sum_n gb_d a^T = 2 Sq[d] (A diag(gv_d) A^T)."""
+    C = (A[None] * gv[:, None, :]) @ A.T               # [D, M, M]
+    return torch.tril(dA @ Kuf.T), torch.triu(2.0 * (Sq @ C))
 
 
 def _library():
@@ -169,35 +193,51 @@ def _launch(Pinv, Kuf, q_mu, Sq, Kff):
     return mean, var
 
 
-def backward_slab_shapes(M, D):
-    """The parts of one block's slab of partial sums, and of the summed
-    output: dPinv, dSq, dq_mu."""
-    return [(M, M), (D, M, M), (M, D)]
+def _backward_operands(Pinv, Kuf, q_mu, Sq, Kff):
+    """Contiguous operands in the backward's layouts: Pinv itself and
+    Sq^T = tril(q_sqrt), which it stages as packed lower triangles."""
+    return (Pinv.contiguous(), Kuf.contiguous(), q_mu.contiguous(),
+            Sq.transpose(1, 2).contiguous(), Kff.contiguous())
 
 
 def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
     D, M, n = _checked(Pinv, Kuf, q_mu, Sq, Kff, g_mean=g_mean, g_var=g_var)
     if n == 0:
         return tuple(torch.zeros_like(t) for t in (Pinv, Kuf, q_mu, Sq, Kff))
-    f32 = dict(dtype=torch.float32, device=Kuf.device)
-    operands = _kernel_operands(Pinv, Kuf, q_mu, Sq, Kff)
+    dev = Kuf.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    pinv, kuf, qm, sqT, kff = _backward_operands(Pinv, Kuf, q_mu, Sq, Kff)
     gm, gv = g_mean.contiguous(), g_var.contiguous()
     lib = _library()
-    shapes = backward_slab_shapes(M, D)
-    blocks, scratch, out = persistent_grid(
-        lambda: lib.dgp_conditional_fused_bwd_blocks(n, M, D), Kuf.device,
-        shapes, f"the fused whitened conditional's backward kernel does not "
-        f"take M={M}, D={D}")
+    if not backward_supported(M, D):
+        raise RuntimeError(f"the fused whitened conditional's backward kernel "
+                           f"does not take M={M}, D={D}")
+    sc = backward_scratch(lib, _PREFIX, n, M, D, M * D, False, dev)
     dKuf = torch.empty((M, n), **f32)
     dKff = torch.empty((n,), **f32)
-    run_kernel(lib, lib.dgp_conditional_fused_bwd, Kuf.device,
-               "fused whitened conditional backward kernel launch",
-               *[t.data_ptr() for t in operands], gm.data_ptr(), gv.data_ptr(),
-               dKuf.data_ptr(), dKff.data_ptr(), scratch.data_ptr(),
-               out.data_ptr(), n, M, D, blocks)
-    FusedConditionalWhite.backward_launches += 1
-    dPinv, dSq, dq_mu = split_slab(out, shapes)
-    return dPinv, dKuf, dq_mu, dSq, dKff
+    for start, count in backward_passes(n):
+        blocks = phase_a_blocks(lib, _PREFIX, dev, count, M, D)
+        run_kernel(lib, lib.dgp_conditional_fused_bwd_a, dev,
+                   "fused whitened conditional backward phase A launch",
+                   pinv.data_ptr(), pointer(kuf, start), n, qm.data_ptr(),
+                   sqT.data_ptr(), pointer(kff, start), pointer(gm, start * D),
+                   pointer(gv, start * D), pointer(dKuf, start),
+                   pointer(dKff, start), sc.a, sc.da, sc.gv, sc.ld,
+                   sc.tile_parts, sc.small.data_ptr(), count, M, D, blocks,
+                   int(start > 0))
+        FusedConditionalWhite.backward_launches += 1
+        run_gram(lib, _PREFIX, dev, sc.a, sc.da, sc.ld, pointer(kuf, start), n,
+                 sc.gv, sc.gram_parts, sc.gram, count, M, D, start > 0)
+        FusedConditionalWhite.gram_launches += 1
+    dPinv, dSq = finish_gram(lib, _PREFIX, dev, sc.gram, sqT, M, D)
+    return dPinv, dKuf, sc.small.view(M, D), dSq, dKff
+
+
+def gram_backward(A, dA, Kuf, gv, Sq):
+    """Phase B alone on float32 CUDA tensors, in passes as the backward runs
+    it: (dPinv, dSq) as :func:`gram_backward_plain` computes them."""
+    return _gram_backward(_library(), _PREFIX, FusedConditionalWhite, A, dA, Kuf,
+                          gv, Sq)
 
 
 class FusedConditionalWhite(torch.autograd.Function):
@@ -205,11 +245,17 @@ class FusedConditionalWhite(torch.autograd.Function):
     gradient: the CUDA kernels for CUDA tensors, the plain versions for CPU
     tensors.
 
-    ``launches`` counts forward-kernel launches and ``backward_launches``
-    backward-kernel launches (never plain-version calls)."""
+    The backward assumes Pinv lower- and Sq upper-triangular (the whitened
+    path's Lu^{-1} and tril(q_sqrt)^T) and returns dPinv and dSq on those
+    patterns, on the card and on the CPU alike.
+
+    ``launches`` counts forward-kernel launches, ``backward_launches`` the
+    backward's phase-A launches and ``gram_launches`` its phase-B launches,
+    one of each per pass of points (never plain-version calls)."""
 
     launches = 0
     backward_launches = 0
+    gram_launches = 0
 
     @staticmethod
     def forward(ctx, Pinv, Kuf, q_mu, Sq, Kff):

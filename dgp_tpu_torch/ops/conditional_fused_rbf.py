@@ -14,16 +14,19 @@ on the scaled inputs ``Xs = X / ls``, ``Zs = Z / ls`` (the lengthscale
 division stays outside). It is bound by fp32 arithmetic; see the source for
 the design.
 
-The backward is a second CUDA kernel in the same source (it replaces the
-TPU's ``conditional_fused_rbf._bwd_kernel``): per point tile it recomputes
-sq, Kuf, A and B and chains the cotangents of (mean, var) to all six tensor
-inputs. ``dXs`` is written per tile; ``dPinv``, ``dZs``, ``dvariance``,
-``dq_mu`` and ``dSq`` are sums over all points, which a fixed number of
-persistent blocks accumulate into one slab each, and a second kernel adds
-the slabs in a fixed order (deterministic; the scratch is bounded by the
-number of blocks, not by n). Autograd handles what surrounds the kernel: the
-lengthscale scaling, the softplus of the variance, Pinv's Cholesky and solve,
-and Sq's tril and transpose.
+The backward (it replaces the TPU's ``conditional_fused_rbf._bwd_kernel``)
+runs in two CUDA phases in the same source. Phase A recomputes sq, Kuf, A
+and B per point tile and chains the cotangents of (mean, var) to ``dXs``
+and to the per-tile shares of ``dZs``, ``dvariance`` and ``dq_mu``, and
+writes Kuf, A, dA and the masked g_var to scratch; phase B forms dPinv =
+tril(dA Kuf^T) and dSq[d] = triu(2 Sq[d] A diag(gv_d) A^T) as split-K Grams.
+Every sum runs in a fixed order (deterministic), and points go through in
+passes of ``_launch.BACKWARD_PASS``, which bound the scratch. It assumes
+what the whitened path gives it, Pinv lower- and Sq upper-triangular, and
+returns dPinv and dSq on those patterns, exact zeros elsewhere: only those
+entries reach a parameter. Autograd handles what surrounds the kernel: the
+lengthscale scaling, the softplus of the variance, Pinv's Cholesky and
+solve, and Sq's tril and transpose.
 
 :func:`fused_conditional_plain` and :func:`fused_conditional_backward_plain`
 are the same functions in plain PyTorch. The wrapper takes them only for
@@ -39,18 +42,28 @@ import torch
 
 from .. import _build
 from ..config import ieee_fp32
-from ._launch import persistent_grid, run_kernel, split_slab
+from ._launch import (backward_passes, backward_scratch, finish_gram,
+                      phase_a_blocks, pointer, run_gram, run_kernel)
+from ._launch import gram_backward as _gram_backward
+# phase B's plain version, shared with the Kuf-consuming kernels
+from .conditional_fused import gram_backward_plain  # noqa: F401
 
 _LIB = "conditional_fused_rbf"
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "dgp_fused_rbf_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I, _P],
     "dgp_fused_rbf_supported": [_I, _I, _I],
-    "dgp_fused_rbf_bwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _N,
-                          _I, _I, _I, _I, _P],
     "dgp_fused_rbf_bwd_supported": [_I, _I, _I],
     "dgp_fused_rbf_bwd_blocks": [_I, _N, _I, _I, _I],
+    "dgp_fused_rbf_bwd_tile": [],
+    "dgp_fused_rbf_bwd_slice": [],
+    "dgp_fused_rbf_bwd_a": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                            _P, _N, _P, _P, _N, _I, _I, _I, _I, _I, _P],
+    "dgp_fused_rbf_bwd_gram": [_P, _P, _N, _P, _N, _P, _P, _P, _N, _I, _I, _I,
+                               _P],
+    "dgp_fused_rbf_bwd_finish": [_P, _P, _P, _P, _I, _I, _P],
 }
+_PREFIX = "dgp_fused_rbf_bwd"
 
 
 def supported(M, Din, D):
@@ -148,7 +161,10 @@ def fused_conditional_backward_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq,
     This is the kernel's hand-derived chain written out on whole tensors,
     not autograd of :func:`fused_conditional_plain`: the gradient passes
     only where the recomputed ``(v - t1) + t2`` and ``sq`` are strictly
-    positive, and the Matern chain works in sq (:func:`_dkuf_dsq`)."""
+    positive, and the Matern chain works in sq (:func:`_dkuf_dsq`). dPinv
+    and dSq are projected on the patterns of Pinv (lower) and Sq (upper),
+    as the kernel returns them: only those entries reach a parameter on the
+    whitened path."""
     sqd, kuf, A = _sq_kuf_a(kind, Pinv, Xs, Zs, variance)
     B = Sq @ A                                         # [D, M, n]
     t1 = torch.sum(A * A, dim=0)
@@ -160,9 +176,9 @@ def fused_conditional_backward_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq,
           - (2.0 * A) * torch.sum(gv, dim=0)[None, :]
           + q_mu @ g_mean.T)                           # [M, n]
     dkuf = Pinv.T @ dA
-    dPinv = dA @ kuf.T
+    dPinv = torch.tril(dA @ kuf.T)
     dq_mu = A @ g_mean
-    dSq = gb @ A.T                                     # [D, M, M]
+    dSq = torch.triu(gb @ A.T)                         # [D, M, M]
     # Kuf = v f(sq) and Kff = v
     dv = torch.sum(dkuf * kuf) / variance + torch.sum(gv)
     dsqd = _dkuf_dsq(kind, variance, sqd, kuf) * dkuf * (sqd > 0.0)
@@ -225,10 +241,12 @@ def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
     return mean, var
 
 
-def backward_slab_shapes(M, Din, D):
-    """The parts of one block's slab of partial sums, and of the summed
-    output: dPinv, dSq, dZs, dq_mu, dvariance."""
-    return [(M, M), (D, M, M), (M, Din), (M, D), (1,)]
+def _backward_operands(Pinv, Xs, Zs, variance, q_mu, Sq):
+    """Contiguous operands in the backward's layouts: Pinv itself and
+    Sq^T = tril(q_sqrt), which it stages as packed lower triangles."""
+    return (Pinv.contiguous(), Xs.contiguous(), Zs.contiguous(),
+            variance.reshape(1).contiguous(), q_mu.contiguous(),
+            Sq.transpose(1, 2).contiguous())
 
 
 def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
@@ -239,34 +257,58 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
         return (torch.zeros_like(Pinv), torch.zeros_like(Xs),
                 torch.zeros_like(Zs), torch.zeros_like(variance),
                 torch.zeros_like(q_mu), torch.zeros_like(Sq))
-    operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
+    pinv, xs, zs, v, qm, sqT = _backward_operands(Pinv, Xs, Zs, variance, q_mu,
+                                                  Sq)
     gm, gv = g_mean.contiguous(), g_var.contiguous()
     lib = _library()
-    shapes = backward_slab_shapes(M, Din, D)
-    blocks, scratch, out = persistent_grid(
-        lambda: lib.dgp_fused_rbf_bwd_blocks(kind, n, M, Din, D), dev, shapes,
-        f"the fused conditional's backward kernel does not take kind {kind}, "
-        f"M={M}, Din={Din}, D={D}")
+    if not backward_supported(M, Din, D):
+        raise RuntimeError(f"the fused conditional's backward kernel does not "
+                           f"take kind {kind}, M={M}, Din={Din}, D={D}")
+    sc = backward_scratch(lib, _PREFIX, n, M, D, M * Din + M * D + 1, True,
+                          dev)
     dXs = torch.empty((n, Din), dtype=torch.float32, device=dev)
-    run_kernel(lib, lib.dgp_fused_rbf_bwd, dev,
-               "fused conditional backward kernel launch", kind,
-               *[t.data_ptr() for t in operands], gm.data_ptr(), gv.data_ptr(),
-               dXs.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, M, Din,
-               D, blocks)
-    FusedConditional.backward_launches += 1
-    dPinv, dSq, dZs, dq_mu, dv = split_slab(out, shapes)
-    return dPinv, dXs, dZs, dv.view(variance.shape), dq_mu, dSq
+    for start, count in backward_passes(n):
+        blocks = phase_a_blocks(lib, _PREFIX, dev, kind, count, M, Din, D)
+        run_kernel(lib, lib.dgp_fused_rbf_bwd_a, dev,
+                   "fused conditional backward phase A launch", kind,
+                   pinv.data_ptr(), pointer(xs, start * Din), zs.data_ptr(),
+                   v.data_ptr(), qm.data_ptr(), sqT.data_ptr(),
+                   pointer(gm, start * D), pointer(gv, start * D),
+                   pointer(dXs, start * Din), sc.a, sc.da, sc.kuf, sc.gv,
+                   sc.ld, sc.tile_parts, sc.small.data_ptr(), count, M, Din,
+                   D, blocks, int(start > 0))
+        FusedConditional.backward_launches += 1
+        run_gram(lib, _PREFIX, dev, sc.a, sc.da, sc.ld, sc.kuf, sc.ld, sc.gv,
+                 sc.gram_parts, sc.gram, count, M, D, start > 0)
+        FusedConditional.gram_launches += 1
+    dPinv, dSq = finish_gram(lib, _PREFIX, dev, sc.gram, sqT, M, D)
+    dZs, dq_mu, dv = torch.split(sc.small, [M * Din, M * D, 1])
+    return (dPinv, dXs, dZs.view(M, Din), dv.view(variance.shape),
+            dq_mu.view(M, D), dSq)
+
+
+def gram_backward(A, dA, Kuf, gv, Sq):
+    """Phase B alone on float32 CUDA tensors, in passes as the backward runs
+    it: (dPinv, dSq) as :func:`gram_backward_plain` computes them."""
+    return _gram_backward(_library(), _PREFIX, FusedConditional, A, dA, Kuf,
+                          gv, Sq)
 
 
 class FusedConditional(torch.autograd.Function):
     """(mean, var) of the whitened stationary conditional and its gradient:
     the CUDA kernels for CUDA tensors, the plain versions for CPU tensors.
 
-    ``launches`` counts forward-kernel launches and ``backward_launches``
-    backward-kernel launches (never plain-version calls)."""
+    The backward assumes Pinv lower- and Sq upper-triangular (the whitened
+    path's Lu^{-1} and tril(q_sqrt)^T) and returns dPinv and dSq on those
+    patterns, on the card and on the CPU alike.
+
+    ``launches`` counts forward-kernel launches, ``backward_launches`` the
+    backward's phase-A launches and ``gram_launches`` its phase-B launches,
+    one of each per pass of points (never plain-version calls)."""
 
     launches = 0
     backward_launches = 0
+    gram_launches = 0
 
     @staticmethod
     def forward(ctx, kind, Pinv, Xs, Zs, variance, q_mu, Sq):

@@ -49,6 +49,16 @@ def t(a):
     return torch.as_tensor(a)
 
 
+def projected(name, g):
+    """A full gradient on the backward's pattern: dPinv's lower triangle,
+    dSq's upper one; the others as they are."""
+    if name == "dPinv":
+        return np.tril(np.asarray(g))
+    if name == "dSq":
+        return np.triu(np.asarray(g))
+    return np.asarray(g)
+
+
 @pytest.mark.parametrize("D,M,n,clamp", [(3, 7, 11, False), (1, 5, 1, False),
                                          (2, 6, 13, True), (2, 4, 0, False)])
 def test_plain_forward_matches_reference(D, M, n, clamp):
@@ -65,8 +75,9 @@ def test_plain_forward_matches_reference(D, M, n, clamp):
 @pytest.mark.parametrize("clamp", [False, True])
 def test_backward_plain_matches_jax_grad(clamp):
     """The hand-written backward's five outputs against jax.grad of the
-    reference; with ``clamp`` some variances are clamped to 0 and pass no
-    gradient."""
+    reference, dPinv and dSq projected on the patterns of Pinv and Sq as the
+    backward returns them; with ``clamp`` some variances are clamped to 0
+    and pass no gradient."""
     *args, wm, wv = data(3, 7, 17, clamp, seed=1)
 
     def loss(*a):
@@ -78,7 +89,7 @@ def test_backward_plain_matches_jax_grad(clamp):
     got = tcf.fused_conditional_white_backward_plain(*[t(a) for a in args],
                                                      t(wm), t(wv))
     for name, g, w in zip(NAMES, got, want):
-        w = np.asarray(w)
+        w = projected(name, w)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-10,
                                    atol=1e-12 * np.abs(w).max(), err_msg=name)
@@ -91,7 +102,8 @@ def test_function_f32_matches_pallas_interpreter(monkeypatch):
     """FusedConditionalWhite on float32 CPU tensors, forward and gradients,
     against the TPU kernels themselves (interpreted); n = 300 is one padded
     tile. Tolerances as in tests/test_conditional_fused.py: the interpreted
-    kernel emulates the MXU's bf16 passes."""
+    kernel emulates the MXU's bf16 passes. dPinv and dSq are compared on
+    the patterns of Pinv and Sq, as the port's backward returns them."""
     monkeypatch.setattr(jcf, "_INTERPRET", True)
     *args, wm, wv = data(2, 16, 300, dtype=np.float32, seed=2)
 
@@ -110,9 +122,25 @@ def test_function_f32_matches_pallas_interpreter(monkeypatch):
                                atol=1e-3 * float(vj.max()))
     got = torch.autograd.grad((mean, var), leaves, grad_outputs=(t(wm), t(wv)))
     for name, g, w in zip(NAMES, got, want):
-        w = np.asarray(w)
+        w = projected(name, w)
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-3,
                                    atol=1e-3 * np.abs(w).max(), err_msg=name)
+
+
+def test_gram_plain_is_the_direct_sum_on_the_pattern():
+    """Phase B's factorised dSq[d] = triu(2 Sq[d] (A diag(gv_d) A^T)) is
+    triu(sum_n gb_d a^T) with gb_d = 2 (Sq[d] A) gv_d, and its dPinv is
+    tril(dA Kuf^T), in f64."""
+    rng = np.random.default_rng(4)
+    D, M, n = 3, 7, 23
+    A, dA, Kuf = (t(rng.normal(size=(M, n))) for _ in range(3))
+    gv = t(rng.normal(size=(D, n)) * (rng.uniform(size=(D, n)) > 0.3))
+    Sq = t(np.triu(rng.normal(size=(D, M, M))))
+    dPinv, dSq = tcf.gram_backward_plain(A, dA, Kuf, gv, Sq)
+    gb = 2.0 * (Sq @ A) * gv[:, None, :]
+    np.testing.assert_allclose(dSq.numpy(), np.triu((gb @ A.T).numpy()),
+                               rtol=1e-10, atol=1e-12 * float(dSq.abs().max()))
+    np.testing.assert_array_equal(dPinv.numpy(), np.tril((dA @ Kuf.T).numpy()))
 
 
 @pytest.mark.parametrize("n", [13, 0])

@@ -12,6 +12,7 @@ import torch
 import chip_smoke
 from dgp_tpu_torch.config import kernels_scope
 from dgp_tpu_torch.models import dgp as tdgp
+from dgp_tpu_torch.ops import _launch
 from dgp_tpu_torch.ops import cholesky as tch
 from dgp_tpu_torch.ops import conditional_fused as cf
 from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
@@ -101,6 +102,16 @@ def test_kernel_refuses_float64(cuda):
         cfr.fused_conditional_white_stationary(0, *args)
 
 
+# the whitened backwards' points per pass
+PASS = _launch.BACKWARD_PASS
+
+
+def off_pattern(dPinv, dSq):
+    """Whether a whitened backward's dPinv has a nonzero entry above its
+    diagonal or its dSq one below."""
+    return bool(torch.triu(dPinv, 1).any() or torch.tril(dSq, -1).any())
+
+
 def kernel_grads(kind, args, g):
     leaves = [a.clone().requires_grad_(True) for a in args]
     out = cfr.fused_conditional_white_stationary(kind, *leaves)
@@ -109,23 +120,31 @@ def kernel_grads(kind, args, g):
     return grads
 
 
+# the edges of the padded M (8 and 100 pad to 64 and 128), of phase A's
+# 128-point tiles and of the passes of points
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(KINDS))
-@pytest.mark.parametrize("D,M,Din,n", [(3, 64, 5, 1037), (8, 128, 8, 4101)])
+@pytest.mark.parametrize("D,M,Din,n", [(3, 64, 5, 1037), (8, 128, 8, 4101),
+                                       (3, 8, 5, 1), (2, 100, 5, 129),
+                                       (3, 128, 5, 65),
+                                       (8, 128, 8, PASS + 1)])
 def test_backward_kernel_matches_plain(cuda, kind, D, M, Din, n):
-    """Backward kernel vs its plain version in f64 on the same f32 inputs:
-    each gradient within 1e-4 of its own largest magnitude (dvariance, a
-    signed sum of n*D terms that cancel, within 1e-4 of sum|g_var|); and a
-    second run bit for bit equal (the slabs are summed in a fixed order)."""
+    """Backward kernel (both phases) vs its plain version in f64 on the
+    same f32 inputs: each gradient within 1e-4 of its own largest magnitude
+    (dvariance, a signed sum of n*D terms that cancel, within 1e-4 of
+    sum|g_var|); dPinv and dSq exactly 0 off the patterns of Pinv and Sq;
+    one launch of each phase per pass of points; and a second run bit for
+    bit equal (every sum in a fixed order)."""
     args = inputs(kind, D, M, Din, n, cuda, seed=kind)
     gen = torch.Generator(device=cuda).manual_seed(kind)
     g = [torch.randn((n, D), generator=gen, device=cuda) for _ in range(2)]
-    before = (cfr.FusedConditional.launches,
-              cfr.FusedConditional.backward_launches)
+    FC = cfr.FusedConditional
+    before = (FC.launches, FC.backward_launches, FC.gram_launches)
     got = kernel_grads(kind, args, g)
-    assert (cfr.FusedConditional.launches,
-            cfr.FusedConditional.backward_launches) == (before[0] + 1,
-                                                        before[1] + 1)
+    passes = -(-n // PASS)
+    assert (FC.launches, FC.backward_launches, FC.gram_launches) == (
+        before[0] + 1, before[1] + passes, before[2] + passes)
+    assert not off_pattern(got[0], got[5])
     again = kernel_grads(kind, args, g)
     want = cfr.fused_conditional_backward_plain(
         kind, *[a.double() for a in args], *[x.double() for x in g])
@@ -145,8 +164,8 @@ def test_backward_kernel_size_gate(cuda):
     both, so no step launches a forward whose backward cannot follow."""
     assert cfr.backward_supported(128, 8, 8) and cfr.backward_supported(64, 5, 3)
     assert not cfr.backward_supported(129, 8, 8)
-    # a width only the forward's plan takes (the backward keeps three tiles
-    # and per-output cotangent tiles beside the staged operand)
+    # a width only the forward's plan takes (the backward keeps two tiles of
+    # 128 points and a ring of two packed operands beside q_mu and g_mean)
     D = next(D for D in range(8, 200) if cfr.supported(128, 8, D)
              and not cfr.backward_supported(128, 8, D))
     f32 = dict(dtype=torch.float32, device=cuda)
@@ -441,13 +460,15 @@ def composite_grads(args, g):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,M,Din,n,clamp", [
     (3, 64, 5, 1037, False), (8, 128, 8, 4101, False), (2, 50, 3, 65, False),
-    (1, 100, 7, 64, False), (8, 128, 8, 4101, True), (2, 100, 8, 1037, True)])
+    (1, 100, 7, 64, False), (8, 128, 8, 4101, True), (2, 100, 8, 1037, True),
+    (3, 8, 5, 1, False), (3, 128, 5, 129, False), (8, 128, 8, PASS + 1, False)])
 def test_conditional_fused_kernels_match_plain(cuda, D, M, Din, n, clamp):
     """Kernels #3 and #4 against their plain versions in f64 on the same
     f32 inputs: mean within 1e-4 of max|mean|, var within 1e-4 of max Kff
     (the variance cancels against Kff); each gradient within 1e-4 of its
-    own largest magnitude (dKff per point too); and a second backward bit
-    for bit equal. With ``clamp`` some variances are clamped to 0 and the
+    own largest magnitude (dKff per point too), dPinv and dSq exactly 0
+    off the patterns of Pinv and Sq; and a second backward bit for bit
+    equal. With ``clamp`` some variances are clamped to 0 and the
     mask zeroes their g_var; where a pre-clamp variance lies within the
     variance's tolerance of 0 the two may take the mask on opposite sides,
     so g_var is 0 there."""
@@ -458,13 +479,14 @@ def test_conditional_fused_kernels_match_plain(cuda, D, M, Din, n, clamp):
     lin, band = chip_smoke.clamp_band(args)
     g[1] = g[1].masked_fill(lin.T.abs() <= band, 0.0)
     assert not clamp or 0 < int((lin <= 0).sum()) < n * D
-    before = (cf.FusedConditionalWhite.launches,
-              cf.FusedConditionalWhite.backward_launches)
+    FW = cf.FusedConditionalWhite
+    before = (FW.launches, FW.backward_launches, FW.gram_launches)
     (mk, vk), got = composite_grads(args, g)
     _, again = composite_grads(args, g)
-    assert (cf.FusedConditionalWhite.launches,
-            cf.FusedConditionalWhite.backward_launches) == (before[0] + 2,
-                                                            before[1] + 2)
+    passes = -(-n // PASS)
+    assert (FW.launches, FW.backward_launches, FW.gram_launches) == (
+        before[0] + 2, before[1] + 2 * passes, before[2] + 2 * passes)
+    assert not off_pattern(got[0], got[3])
     d = [a.double() for a in args]
     mp, vp = cf.fused_conditional_white_plain(*d)
     assert mk.shape == vk.shape == (n, D) and mk.dtype == torch.float32
@@ -477,6 +499,27 @@ def test_conditional_fused_kernels_match_plain(cuda, D, M, Din, n, clamp):
         assert torch.equal(a, b), name
         assert (float((a.double() - w).abs().max())
                 <= 1e-4 * float(w.abs().max())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("module", [cfr, cf])
+@pytest.mark.parametrize("D,M,n", [(8, 128, 100_000), (1, 128, 1_025),
+                                   (3, 50, 63)])
+def test_gram_kernels_match_plain(cuda, module, D, M, n):
+    """Phase B of each whitened backward alone (split-K Grams, their
+    reduction, dSq = triu(2 Sq C)) against its plain version in f64 on the
+    same f32 inputs: dPinv and dSq within 1e-4 of their largest magnitude,
+    exact zeros off the patterns, a repeat bit for bit equal."""
+    args = chip_smoke.gram_inputs(D, M, n, seed=D + M)
+    with torch.no_grad():
+        got = module.gram_backward(*args)
+        again = module.gram_backward(*args)
+        torch.cuda.synchronize()
+        want = module.gram_backward_plain(*[a.double() for a in args])
+    assert not off_pattern(*got)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == w.shape and torch.equal(a, b)
+        assert float((a.double() - w).abs().max()) <= 1e-4 * float(w.abs().max())
 
 
 @pytest.mark.cuda

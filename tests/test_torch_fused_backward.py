@@ -1,7 +1,9 @@
 """The fused conditional's hand-derived backward (the plain version the
 CUDA backward kernel is held to), in float64 on CPU: against autograd of the
-plain forward, against jax.grad of dgp_tpu's conditional, and (float32)
-against the JAX Pallas backward kernel run by its interpreter."""
+plain forward and jax.grad of dgp_tpu's function, each projected as the
+backward returns dPinv and dSq (on the patterns of the lower-triangular Pinv
+and the upper-triangular Sq), against jax.grad of dgp_tpu's conditional, and
+(float32) against the JAX Pallas backward kernel run by its interpreter."""
 
 import numpy as np
 import pytest
@@ -28,6 +30,28 @@ NAMES = ("dPinv", "dXs", "dZs", "dvariance", "dq_mu", "dSq")
 
 def t(a, dtype=F64):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+def projected(name, g):
+    """A full gradient on the backward's pattern: dPinv's lower triangle,
+    dSq's upper one; the others as they are."""
+    if name == "dPinv":
+        return np.tril(np.asarray(g))
+    if name == "dSq":
+        return np.triu(np.asarray(g))
+    return np.asarray(g)
+
+
+def jax_function(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
+    """dgp_tpu's fused stationary conditional in jnp: its Pallas kernel's
+    math with dgp_tpu's own k(sq)."""
+    xx = jnp.sum(Xs * Xs, axis=1)[None, :]
+    zz = jnp.sum(Zs * Zs, axis=1)[:, None]
+    sqd = jnp.maximum((xx - 2.0 * (Zs @ Xs.T)) + zz, 0.0)
+    A = Pinv @ jcfr._kuf_tile(kind, variance, sqd)
+    B = Sq @ A
+    var = (variance - jnp.sum(A * A, axis=0)) + jnp.sum(B * B, axis=1)
+    return A.T @ q_mu, jnp.maximum(var, 0.0).T
 
 
 def raw_inputs(D=3, M=7, n=23, Din=2, seed=0):
@@ -58,9 +82,34 @@ def test_backward_plain_matches_autograd_of_plain_forward(kind):
                                                 g_var)
     for name, g, w, leaf in zip(NAMES, got, want, leaves):
         assert g.shape == leaf.shape and g.dtype == leaf.dtype, name
-        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-9,
-                                   atol=1e-12 * float(w.abs().max()),
+        w = projected(name, w.numpy())
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-9,
+                                   atol=1e-12 * float(np.abs(w).max()),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_backward_plain_matches_projected_jax_grad(kind):
+    """The plain backward against jax.grad of dgp_tpu's function in f64,
+    projected on the patterns of Pinv and Sq, as the kernel returns them;
+    entries off the patterns are exactly 0."""
+    a = raw_inputs(seed=20 + kind)
+    g_mean, g_var = a.pop("g_mean"), a.pop("g_var")
+
+    def loss(*xs):
+        m, v = jax_function(kind, *xs)
+        return jnp.sum(m * g_mean) + jnp.sum(v * g_var)
+
+    want = jax.jit(jax.grad(loss, argnums=tuple(range(6))))(
+        *[jnp.asarray(v) for v in a.values()])
+    got = tcfr.fused_conditional_backward_plain(
+        kind, *[t(v) for v in a.values()], t(g_mean), t(g_var))
+    for name, g, w in zip(NAMES, got, want):
+        w = projected(name, w)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-10,
+                                   atol=1e-12 * np.abs(w).max(), err_msg=name)
+    assert not torch.triu(got[0], 1).any() and not torch.tril(got[5], -1).any()
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -154,7 +203,9 @@ def test_gradients_match_jax_grad_through_conditional_diag(kind, monkeypatch):
 
 def test_backward_plain_f32_matches_pallas_interpreter(monkeypatch):
     """One float32 case against the JAX Pallas backward kernel itself
-    (interpreted; n = 1100 is not a tile multiple, so the JAX side pads).
+    (interpreted; n = 1100 is not a tile multiple, so the JAX side pads),
+    projected on the patterns of Pinv and Sq as the port's backward returns
+    them.
     2e-2 of each gradient's scale is the tolerance of
     tests/test_conditional_fused_rbf.py: the TPU kernel's products emulate
     bf16 passes even when interpreted. It is the TPU kernel's budget, not
@@ -176,7 +227,7 @@ def test_backward_plain_f32_matches_pallas_interpreter(monkeypatch):
         lambda *xs: jcfr.fused_conditional_white_stationary(kind, *xs), *args)
     want = vjp((jnp.asarray(g_mean.numpy()), jnp.asarray(g_var.numpy())))
     for name, g, w in zip(NAMES, got, want):
-        w = np.asarray(w)
+        w = projected(name, w)
         assert g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), w, rtol=2e-2,
                                    atol=2e-2 * float(np.abs(w).max()),

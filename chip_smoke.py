@@ -3,18 +3,25 @@
 
     python3 chip_smoke.py                  # the phases below
     python3 chip_smoke.py --steps [TREE]   # one checkout's Adam steps and
-                                           # backward host cost (steps_main)
+                                           # #1-#4's host cost (steps_main)
 
 Phases, each of which raises (exit code 1) on any fault:
 
 1. build   — compile every CUDA source of the port with nvcc (sm_90a), the
              jobs started together; print the build time, ptxas's register
              and spill report, and the card's name and power limit.
-2. kernels — hold the fused-conditional kernel to its plain PyTorch version
-             in float64 on the same float32 inputs, for RBF, Matern-3/2 and
-             Matern-5/2, at the serving model's layer shapes (D=8 and D=1,
-             M=128, Din=8, n=262,181, a ragged last tile) and at a small odd
-             shape (D=3, M=64, Din=5). Then its backward (phase A and phase
+2. kernels — print the widest D of the whitened kernels' plans at M=128;
+             hold the fused-conditional kernel (#1) to its plain PyTorch
+             version in float64 on the same float32 inputs, for RBF,
+             Matern-3/2 and Matern-5/2, at the serving model's layer shapes
+             (D=8 and D=1, M=128, Din=8, n=262,181: more tiles than resident
+             blocks, a ragged last tile), at a small odd shape (D=3, M=64,
+             Din=5), at M = 8, 64, 100, 128 by n = 1, 63, 64, 65, 127, 128,
+             129, 1,025 and 262,181 (Din = 8), and in Din = 5 at M = 100
+             and 128 by the same n (and one more RBF draw at M = 128,
+             n = 1,025) under the witness rule below; each with a
+             repeat and a run with NaN above Pinv's diagonal and below Sq's
+             bit for bit equal to the first. Then its backward (phase A and phase
              B) likewise, at the training model's layer shapes
              (n = 100,037), the small odd shape, M = 8, 64, 100, 128 by
              n = 1, 63, 64, 65, 129, 1,025 (Din = 8), one point past a
@@ -33,8 +40,9 @@ Phases, each of which raises (exit code 1) on any fault:
              n=30,000 in the acquisition).
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
-             varies per point), at the same four shapes, the edge shapes
-             above and M = 50: all five gradients, exact zeros off the
+             varies per point), at the same four shapes (#3 also at #1's
+             edge shapes, with the repeat and NaN runs), the backward's edge
+             shapes and M = 50: all five gradients, exact zeros off the
              patterns, and a second run bit for bit equal to the first;
              again at the layer-1 training shape and at M=100 with a Kff
              that makes the clamp max(var, 0) zero many variances; and #3
@@ -101,10 +109,13 @@ Phases, each of which raises (exit code 1) on any fault:
              seconds per infill, split into training and acquisition.
 6. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
-             n = 100,000), beside the fp32 bound of the work these inputs
-             need (#2/#4 also phase A, phase B and the reductions apart,
-             from torch.profiler, and phase B alone), and kernel #3
-             against its plain version at n = 10,000;
+             n = 100,000), beside the bound of the work these inputs
+             need at the rates of the kernel's route (#2/#4 also phase A,
+             phase B and the reductions apart, from torch.profiler, and
+             phase B alone); #1 (all three kinds) and #3 also at
+             n = 100,000, with the profiler's device time, and beside the
+             fp32 bound too (their products b_d run on the tensor cores);
+             #3 against its plain version at n = 10,000;
              #7 and #8 at the models' and the BO's stacks beside the
              library calls for the same function (cholesky_ex, and
              solve_triangular for #8), event-timed and, from torch.profiler,
@@ -139,6 +150,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12    # dense, on the tensor cores
 PEAK_BYTES = 3.35e12
 KINDS = {0: "RBF", 1: "Matern32", 2: "Matern52"}
 DIN, HIDDEN, M, S = 8, 8, 128, 10
@@ -166,16 +178,19 @@ TOL_REQUEST = 1e-3
 # float64 by more than TOL_REQUEST, the kernels' arm may be off by twice the
 # library arm's error, but never by more than this much of scale
 WITNESS_CAP = 1e-2
-# the whitened backwards' (#2, #4) edge shapes: the plan pads M to 64 or
-# 128, phase A takes tiles of 128 points and phase B slices of 1,024
-BACKWARD_EDGE_M = (8, 64, 100, 128)
+# the whitened kernels' (#1-#4) edge shapes: the plans pad M to 64 or 128,
+# the forwards and phase A take tiles of 128 points and phase B slices of
+# 1,024; 262,181 points make more tiles than resident blocks, the last one
+# ragged
+EDGE_M = (8, 64, 100, 128)
 BACKWARD_EDGE_N = (1, 63, 64, 65, 129, 1_025)
+FORWARD_EDGE_N = (1, 63, 64, 65, 127, 128, 129, 1_025, 262_144 + 37)
 # 100 or 128 inducing inputs drawn in 5 dimensions make Kuu so
 # ill-conditioned (RBF: max|Pinv| 65-83) that plain fp32 is itself near
-# TOL_BWD of scale off float64 in dXs: #2 is held there to TOL_BWD plus
-# twice plain fp32's error on the same draw (the witness rule of #3's
-# M = 100, Din = 3 case)
-BACKWARD_WITNESS_M = (100, 128)
+# TOL_BWD of scale off float64 in dXs: #1 and #2 are held there to TOL (or
+# TOL_BWD) plus twice plain fp32's error on the same draw (the witness rule
+# of #3's M = 100, Din = 3 case)
+WITNESS_M = (100, 128)
 # #7/#8 checks either side of each edge of their 16-column panels
 CHOLESKY_EDGES = (31, 32, 33, 64, 95, 127, 129)
 DEVICE = "cuda"
@@ -242,24 +257,70 @@ def fused_inputs(kind, D, Mi, Din, n, seed, device):
                 torch.tril(q_sqrt).transpose(-1, -2))
 
 
-def check_kernel(kind, D, Mi, Din, n, seed):
+def with_garbage(Pinv, Sq):
+    """Pinv with NaN above its diagonal and Sq with NaN below its own: the
+    whitened kernels read only the lower triangle of Pinv and the upper one
+    of Sq, so their results must keep their bits."""
+    above = torch.ones(Pinv.shape, dtype=torch.bool, device=Pinv.device).triu(1)
+    return (Pinv.masked_fill(above, float("nan")),
+            Sq.masked_fill(above.T, float("nan")))
+
+
+def check_repeats(what, run, args, pinv_at, sq_at, outputs):
+    """``run(*args)`` again, and on a copy of args with NaN off the patterns
+    of Pinv (args[pinv_at]) and Sq (args[sq_at]): both bit for bit equal to
+    ``outputs``."""
+    dirty = list(args)
+    dirty[pinv_at], dirty[sq_at] = with_garbage(args[pinv_at], args[sq_at])
+    for label, inputs in (("a repeat", args), ("NaN off the patterns", dirty)):
+        with torch.no_grad():
+            again = run(*inputs)
+        sync()
+        if not all(torch.equal(a, b) for a, b in zip(outputs, again)):
+            raise AssertionError(f"{what}: {label} changed the output bits")
+
+
+def check_kernel(kind, D, Mi, Din, n, seed, witness=False):
+    """Kernel #1 against its plain version in float64 on the same float32
+    inputs: mean within TOL of max|mean|, var within TOL of v; a repeat and
+    a run with NaN above Pinv's diagonal and below Sq's bit for bit equal.
+    With ``witness`` the inputs are conditioned so badly that the plain
+    version in float32 is itself near TOL of float64; each output is then
+    held to TOL of its scale plus twice that plain fp32 error."""
     from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 
     args = fused_inputs(kind, D, Mi, Din, n, seed, DEVICE)
+    before = cfr.FusedConditional.launches
+    run = lambda *a: cfr.fused_conditional_white_stationary(kind, *a)
     with torch.no_grad():
-        mk, vk = cfr.fused_conditional_white_stationary(kind, *args)
+        mk, vk = run(*args)
         sync()
         mp, vp = cfr.fused_conditional_plain(kind, *[a.double() for a in args])
-    if not (torch.isfinite(mk).all() and torch.isfinite(vk).all()):
-        raise AssertionError(f"{KINDS[kind]}: non-finite kernel output")
+        m32, v32 = (cfr.fused_conditional_plain(kind, *args) if witness
+                    else (mp, vp))
+    if cfr.FusedConditional.launches != before + 1:
+        raise AssertionError("the fused conditional did not launch its kernel")
+    if (mk.shape != (n, D) or not torch.isfinite(mk).all()
+            or not torch.isfinite(vk).all()):
+        raise AssertionError(f"{KINDS[kind]}: bad shape or non-finite kernel output")
+    check_repeats(f"{KINDS[kind]} D={D} M={Mi} n={n}", run, args, 0, 5, (mk, vk))
     v = float(args[3])
     em = float((mk.double() - mp).abs().max())
     ev = float((vk.double() - vp).abs().max())
     scale_m = float(mp.abs().max())
-    ok = em <= TOL * scale_m and ev <= TOL * v
+    tol_m, tol_v = TOL * scale_m, TOL * v
+    extra = f", {em / scale_m:.2e} / {ev / v:.2e} of scale (mean / var)"
+    if witness:
+        em32 = float((m32.double() - mp).abs().max())
+        ev32 = float((v32.double() - vp).abs().max())
+        tol_m, tol_v = tol_m + 2 * em32, tol_v + 2 * ev32
+        extra += (f", plain fp32 {em32:.3e} / {ev32:.3e}, max|Pinv| "
+                  f"{float(args[0].abs().max()):.1f} [tol: TOL of scale + 2x "
+                  f"plain fp32]")
+    ok = em <= tol_m and ev <= tol_v
     log(f"[kernels] {KINDS[kind]:8s} D={D} M={Mi} Din={Din} n={n}: "
-        f"max|dmean| {em:.3e} (tol {TOL * scale_m:.3e} = {TOL}*max|mean|), "
-        f"max|dvar| {ev:.3e} (tol {TOL * v:.3e} = {TOL}*v) "
+        f"max|dmean| {em:.3e} (tol {tol_m:.3e}), max|dvar| {ev:.3e} (tol "
+        f"{tol_v:.3e}){extra}; repeat and NaN off the patterns bit-equal "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{KINDS[kind]} kernel disagrees with its plain version")
@@ -603,7 +664,9 @@ def check_fused_white(D, Mi, Din, n, seed, clamp=False, witness=False):
     ``clamp`` (see :func:`composite_inputs`) some variances must be clamped
     to 0. With ``witness`` the inputs are conditioned so badly that the
     plain version in float32 is itself beyond TOL of float64; the kernel is
-    then held to twice that plain fp32 error plus TOL of scale."""
+    then held to twice that plain fp32 error plus TOL of scale. A repeat
+    and a run with NaN above Pinv's diagonal and below Sq's must give the
+    same bits."""
     from dgp_tpu_torch.ops import conditional_fused as cf
 
     args = composite_inputs(D, Mi, Din, n, seed, clamp=clamp)
@@ -611,11 +674,14 @@ def check_fused_white(D, Mi, Din, n, seed, clamp=False, witness=False):
     with torch.no_grad():
         mk, vk = cf.fused_conditional_white(*args)
         sync()
+        launched = cf.FusedConditionalWhite.launches - before
+        check_repeats(f"kernel #3 D={D} M={Mi} n={n}", cf.fused_conditional_white,
+                      args, 0, 3, (mk, vk))
         mp, vp = cf.fused_conditional_white_plain(*[a.double() for a in args])
         # the plain version in float32 on the same inputs: how far fp32
         # itself lands from f64 at this Kuu's conditioning
         m32, v32 = cf.fused_conditional_white_plain(*args)
-    if cf.FusedConditionalWhite.launches != before + 1:
+    if launched != 1:
         raise AssertionError("the fused whitened conditional did not launch its kernel")
     if (mk.shape != (n, D) or not torch.isfinite(mk).all()
             or not torch.isfinite(vk).all()):
@@ -629,14 +695,16 @@ def check_fused_white(D, Mi, Din, n, seed, clamp=False, witness=False):
     if witness:
         tol_m, tol_v = tol_m + 2 * em32, tol_v + 2 * ev32
     clamped = int((vp == 0).sum())
-    ok = em <= tol_m and ev <= tol_v and (not clamp or 0 < clamped < n * D)
+    ok = (em <= tol_m and ev <= tol_v
+          and (not clamp or 0 < clamped < n * D))
     log(f"[kernels] fused whitened (#3) D={D} M={Mi} Din={Din} n={n}, Kff in "
         f"[{float(args[4].min()):.2f}, {kff:.2f}], max|Pinv| "
         f"{float(args[0].abs().max()):.1f}, {clamped} of {n * D} variances "
         f"clamped: max|dmean| {em:.3e} (tol {tol_m:.3e}; plain fp32 "
         f"{em32:.3e}), max|dvar| {ev:.3e} (tol {tol_v:.3e}; plain fp32 "
-        f"{ev32:.3e}){' [tol: TOL of scale + 2x plain fp32]' if witness else ''}"
-        f" {'ok' if ok else 'FAIL'}")
+        f"{ev32:.3e})"
+        f"{' [tol: TOL of scale + 2x plain fp32]' if witness else ''}"
+        f"; repeat and NaN off the patterns bit-equal {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("kernel #3 disagrees with its plain version")
     return max(em, ev)
@@ -1429,38 +1497,60 @@ def event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def fused_bound_ms(Pinv, Xs, q_mu, Sq):
+def ops_ms(flops, b_flops, tensor_cores):
+    """Least ms for ``flops`` operations, ``b_flops`` of them the products
+    b_d = Sq[d] A: all at the fp32 peak, or with ``tensor_cores`` those
+    products in 3xTF32 (three TF32 products each) at the dense TF32 peak."""
+    if not tensor_cores:
+        return 1e3 * flops / PEAK_FP32_FLOPS
+    return 1e3 * ((flops - b_flops) / PEAK_FP32_FLOPS
+                  + 3 * b_flops / PEAK_TF32_FLOPS)
+
+
+def fused_bound_ms(Pinv, Xs, q_mu, Sq, tensor_cores=False):
     """Least time for the fused conditional on these inputs: its FLOP over
-    the fp32 peak or its bytes (each input read once, each output written
+    the peak rate or its bytes (each input read once, each output written
     once) over the memory rate, whichever is larger. The two M x M products
     count only the nonzeros of Pinv and Sq: on the whitened path these are
-    triangular, so the function needs M(M+1) FLOP per point for each, where
-    the kernel spends 2M^2 on the full square."""
+    triangular, so the function needs M(M+1) FLOP per point for each. With
+    ``tensor_cores`` the products b_d run at the rate of the kernel's route
+    (:func:`ops_ms`); else every operation at the fp32 peak."""
     n, Din = Xs.shape
     Mi, D = q_mu.shape
-    nnz = int(torch.count_nonzero(Pinv)) + int(torch.count_nonzero(Sq))
+    nnz_s = int(torch.count_nonzero(Sq))
+    nnz = int(torch.count_nonzero(Pinv)) + nnz_s
     # cross term z.x, the Pinv and Sq products, mean, t1 = ||A||^2, t2
     per_point = 2 * Mi * Din + 2 * nnz + 2 * Mi * D + 2 * Mi + 2 * Mi * D
-    flops = float(n) * per_point
+    t_ops = ops_ms(float(n) * per_point, float(n) * 2 * nnz_s, tensor_cores)
     nbytes = 4.0 * (n * Din + Mi * Mi + Mi * Din + 1 + Mi * D + D * Mi * Mi
                     + 2 * n * D)
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_kernel(kind, D, Din, n, gpu):
+    """Kernel #1 through its wrapper (CUDA events) and on the device alone
+    (torch.profiler) beside its plain version and its bound: the route's
+    (b_d on the tensor cores), and the fp32 bound (every operation at the
+    fp32 peak) beside it."""
     from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
 
     args = fused_inputs(kind, D, M, Din, n, 11, "cuda")
+    run = lambda: cfr._launch(kind, *args)
     with torch.no_grad():
-        ms = event_ms(lambda: cfr.fused_conditional_white_stationary(kind, *args), 10)
+        ms = event_ms(run, 10)
         plain_ms = event_ms(lambda: cfr.fused_conditional_plain(kind, *args), 5)
+        dev_us, seen = device_us(run, 5, "fused_fwd")
     Pinv, Xs, _, _, q_mu, Sq = args
-    bound, by = fused_bound_ms(Pinv, Xs, q_mu, Sq)
-    log(f"[timing] fused conditional {KINDS[kind]} D={D} M={M} Din={Din} n={n}: "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms "
-        f"({by}), {bound / ms:.1%} of the bound ({gpu})")
-    return ms, plain_ms, bound, by
+    bound, by = fused_bound_ms(Pinv, Xs, q_mu, Sq, tensor_cores=True)
+    fp32_bound, _ = fused_bound_ms(Pinv, Xs, q_mu, Sq)
+    log(f"[timing] fused conditional (#1) {KINDS[kind]} D={D} M={M} Din={Din} "
+        f"n={n}: kernel {ms:.3f} ms (device {fmt_us(dev_us)} over "
+        f"{round(5 * seen)} of 5 launches), plain "
+        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}; b_d in 3xTF32 on "
+        f"the tensor cores), {bound / ms:.1%} of the bound; fp32 bound "
+        f"{fp32_bound:.3f} ms, {fp32_bound / ms:.1%} ({gpu})")
+    return ms, plain_ms, bound, by, fp32_bound
 
 
 def backward_bound_ms(Pinv, Xs, q_mu, Sq):
@@ -1643,11 +1733,12 @@ def time_quadform(D, n, gpu, backward=False):
     return ms, plain_ms, bound, by
 
 
-def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False):
+def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False, tensor_cores=False):
     """Least time for kernel #3 (or #4) on these inputs, as
     :func:`fused_bound_ms` reckons it: each M x M product counts the nonzeros
     of Pinv and Sq (triangular on the whitened path). Forward: a = Pinv kuf
-    and the D products b_d = Sq[d] a, the mean, t1 and t2. Backward: a,
+    and the D products b_d = Sq[d] a, the mean, t1 and t2 (with
+    ``tensor_cores``, b_d at the rate of the kernel's route). Backward: a,
     dKuf = Pinv^T da and dPinv on Pinv's pattern, b_d, Sq[d]^T gb_d and dSq[d]
     on Sq's (only those entries reach a parameter), t1, t2, q_mu g_mean^T and
     dq_mu. Bytes: Kuf and Kff read and mean and var written (forward); Kuf,
@@ -1663,8 +1754,10 @@ def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False):
     else:
         per_point = 2 * (nnz_p + nnz_s) + 2 * Mi * D + 2 * Mi + 2 * Mi * D
         nbytes = 4.0 * (Mi * n + n + 2 * n * D + small)
-    t_ops, t_bytes = float(n) * per_point / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops = ops_ms(float(n) * per_point, float(n) * 2 * nnz_s,
+                   tensor_cores and not backward)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_fused_white(D, n, gpu, backward=False):
@@ -1689,21 +1782,29 @@ def time_fused_white(D, n, gpu, backward=False):
                 "phase B": ("gram_bwd", "gram_finish"),
                 "reductions": ("reduce_parts",)})
         else:
-            ms = event_ms(lambda: cf._launch(*args), 10)
+            run = lambda: cf._launch(*args)
+            ms = event_ms(run, 10)
             plain_ms = event_ms(lambda: cf.fused_conditional_white_plain(*args), 5)
+            dev_us, seen = device_us(run, 5, "conditional_fused_fwd")
     Pinv, Kuf, q_mu, Sq, _ = args
-    bound, by = fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward)
-    extra = ""
+    bound, by = fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward,
+                                     tensor_cores=True)
+    fp32_bound, _ = fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward)
     if backward:
         extra = (f"; device {phases_line(split)}; scratch "
                  f"{scratch_mb(cf, n, M, D, M * D, False):.1f} MB, scratch "
                  f"traffic {whitened_traffic_gb(cf, M, D, n, False):.2f} GB per "
                  f"call (reckoned)")
+    else:
+        extra = (f" (b_d in 3xTF32 on the tensor cores); device "
+                 f"{fmt_us(dev_us)} over {round(5 * seen)} of 5 launches; "
+                 f"fp32 bound {fp32_bound:.3f} ms, "
+                 f"{fp32_bound / ms:.1%}")
     log(f"[timing] fused whitened{' backward (#4)' if backward else ' (#3)'} "
         f"D={D} M={M} n={n}: {'both phases' if backward else 'kernel'} "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
         f"{bound / ms:.1%} of the bound{extra} ({gpu})")
-    return ms, plain_ms, bound, by
+    return ms, plain_ms, bound, by, fp32_bound
 
 
 def cholesky_bound_ms(G, Mi, inverse):
@@ -1721,7 +1822,9 @@ def cholesky_bound_ms(G, Mi, inverse):
 def device_us(fn, reps, name=None):
     """(device µs per call, kernels per call) of ``fn`` over ``reps`` warm
     calls, from torch.profiler: the kernels whose name holds ``name``, or
-    all of them. (None, 0) where the profiler saw no device time."""
+    all of them. (None, 0) where the profiler saw no device time. A named
+    kernel launches once per call; its time is the mean over the launches
+    the profiler kept, which can be fewer than ``reps``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1735,9 +1838,10 @@ def device_us(fn, reps, name=None):
                and e.self_device_time_total > 0
                and (name is None or name in e.key)]
     total = sum(e.self_device_time_total for e in kernels)
+    count = sum(e.count for e in kernels)
     if total <= 0:
         return None, 0
-    return total / reps, sum(e.count for e in kernels) / reps
+    return (total / count if name else total / reps), count / reps
 
 
 def fmt_us(us):
@@ -1900,14 +2004,26 @@ def main():
         f"CUDA {torch.version.cuda}")
     log(gpu)
     build()
+    log(f"[kernels] widest D of the whitened plans at M = {M}: {plan_widths()}")
 
     err = err_bwd = 0.0
     for kind in KINDS:
         for seed, (D, Mi, Din, n) in enumerate([
                 (HIDDEN, M, DIN, 262_144 + 37),   # layer 1 of the model
                 (1, M, HIDDEN, 262_144 + 37),     # layer 2
-                (3, 64, 5, 10_007)]):             # small odd shape
+                (3, 64, 5, 10_007),               # small odd shape
+                # either side of a tile's edge and of the padded M, and more
+                # tiles than resident blocks, at the layers' input width
+                *[(3, m, DIN, t) for m in EDGE_M for t in FORWARD_EDGE_N]]):
             err = max(err, check_kernel(kind, D, Mi, Din, n, 10 * kind + seed))
+        # Din = 5 at M = 100 and 128: Kuu ill-conditioned, the witness rule
+        for seed, (Mi, n) in enumerate(
+                [(m, t) for m in WITNESS_M for t in FORWARD_EDGE_N]):
+            err = max(err, check_kernel(kind, 3, Mi, 5, n, 50 + 100 * kind + seed,
+                                        witness=True))
+    # an RBF draw at M = 128, n = 1,025 where plain fp32 is itself beyond
+    # TOL of scale (1.06e-4 on the CPU): the witness rule
+    err = max(err, check_kernel(0, 3, M, 5, 1_025, 5, witness=True))
     for kind in KINDS:
         for seed, (D, Mi, Din, n) in enumerate([
                 (HIDDEN, M, DIN, S * N_TRAIN + 37),   # layer 1, training
@@ -1915,7 +2031,7 @@ def main():
                 (3, 64, 5, 10_007),
                 # either side of a tile's edge and of the padded M, at the
                 # layers' input width
-                *[(3, m, DIN, t) for m in BACKWARD_EDGE_M for t in BACKWARD_EDGE_N]]):
+                *[(3, m, DIN, t) for m in EDGE_M for t in BACKWARD_EDGE_N]]):
             err_bwd = max(err_bwd, check_backward(kind, D, Mi, Din, n,
                                                   100 + 100 * kind + seed))
         for seed, (D, Mi, Din, n) in enumerate([
@@ -1929,7 +2045,7 @@ def main():
     # Kuu ill-conditioned, held by the witness rule
     for kind in KINDS:
         for seed, (Mi, n) in enumerate(
-                [(m, t) for m in BACKWARD_WITNESS_M for t in BACKWARD_EDGE_N]):
+                [(m, t) for m in WITNESS_M for t in BACKWARD_EDGE_N]):
             err_bwd = max(err_bwd, check_backward(
                 kind, 3, Mi, 5, n, 170 + 100 * kind + seed, witness=True))
     err_bwd = max(err_bwd, check_backward(0, 3, M, 5, 63, 114, witness=True))
@@ -1966,6 +2082,9 @@ def main():
             (3, 64, 5, 10_007),               # small odd shapes; M = 100 is
             (2, 100, DIN, 1_037)]):           # padded to 128 in the kernels
         err_fw = max(err_fw, check_fused_white(D, Mi, Din, n, 400 + seed))
+    # the edge shapes, at the layers' input width
+    for seed, (Mi, n) in enumerate([(m, t) for m in EDGE_M for t in FORWARD_EDGE_N]):
+        err_fw = max(err_fw, check_fused_white(3, Mi, DIN, n, 410 + seed))
     # M = 100 points in 3 dimensions: max|Pinv| ~ 93, fp32 itself off by
     # more than TOL of scale
     err_fw = max(err_fw, check_fused_white(2, 100, 3, 1_037, 403, witness=True))
@@ -1984,7 +2103,7 @@ def main():
         err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
             D, Mi, Din, n, 550 + seed, clamp=True))
     for seed, (D, Mi, Din, n) in enumerate([
-            *[(3, m, DIN, t) for m in (*BACKWARD_EDGE_M, 50) for t in BACKWARD_EDGE_N],
+            *[(3, m, DIN, t) for m in (*EDGE_M, 50) for t in BACKWARD_EDGE_N],
             (HIDDEN, M, DIN, pass_edge())]):
         err_fw_bwd = max(err_fw_bwd, check_fused_white_backward(
             D, Mi, Din, n, 560 + seed))
@@ -2051,8 +2170,13 @@ def main():
     launches = [sum(c[k] for c in paths) for k in range(10)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
-    ms, plain_ms, bound, by = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
+    ms, plain_ms, bound, by, fp32_bound = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
     time_kernel(0, 1, HIDDEN, S * N_REQUEST, gpu)  # layer 2's shape
+    for kind in (1, 2):                             # the Matern forms
+        time_kernel(kind, HIDDEN, DIN, S * N_REQUEST, gpu)
+    for kind in KINDS:                              # the training shape
+        time_kernel(kind, HIDDEN, DIN, S * N_TRAIN, gpu)
+    time_kernel(0, 1, HIDDEN, S * N_TRAIN, gpu)
     bwd = time_backward(0, HIDDEN, DIN, S * N_TRAIN, gpu)
     time_backward(0, 1, HIDDEN, S * N_TRAIN, gpu)
     gram = {"rbf": time_gram(cfr, HIDDEN, S * N_TRAIN, gpu),
@@ -2065,6 +2189,8 @@ def main():
     time_quadform(1, S * N_TRAIN, gpu, backward=True)
     fw = time_fused_white(HIDDEN, S * N_REQUEST, gpu)
     time_fused_white(1, S * N_REQUEST, gpu)
+    time_fused_white(HIDDEN, S * N_TRAIN, gpu)  # the training shape
+    time_fused_white(1, S * N_TRAIN, gpu)
     time_fused_white(HIDDEN, 10_000, gpu)  # a small n: where would plain win?
     time_fused_white(1, 10_000, gpu)
     fw_bwd = time_fused_white(HIDDEN, S * N_TRAIN, gpu, backward=True)
@@ -2125,6 +2251,7 @@ def main():
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,
+        "fp32_bound_ms": fp32_bound,
     }, {
         "name": "conditional_fused_rbf_bwd",
         "route": "cuda",
@@ -2173,6 +2300,7 @@ def main():
         "bound_ms": fw[2],
         "bound_by": fw[3],
         "library_ms": None,
+        "fp32_bound_ms": fw[4],
     }, {
         "name": "conditional_fused_bwd",
         "route": "cuda",
@@ -2210,6 +2338,8 @@ def main():
         "bound_by": chol8[3],
         "library_ms": chol8[4],
     }, *phase_b]
+    for k in kernels:  # designed anew for the card, not carried over tile by tile
+        k["redesigned"] = k["name"] not in ("quadform", "quadform_bwd")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2217,7 +2347,7 @@ def main():
     return 0
 
 
-# -- steps: one checkout's Adam steps and backward host cost --------------------
+# -- steps: one checkout's Adam steps and #1-#4's host cost --------------------
 
 
 def host_us(fn, reps=50):
@@ -2235,14 +2365,28 @@ def host_us(fn, reps=50):
     return 1e6 * sorted(times)[reps // 2]
 
 
+def plan_widths():
+    """The widest D that each whitened kernel's plan takes at M = 128 (#1
+    and #2 at Din = 8): the forwards' and backwards' size gates."""
+    from dgp_tpu_torch.ops import conditional_fused as cf
+    from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+
+    widest = lambda ok: max(D for D in range(1, 257) if ok(D))
+    return (f"#1 {widest(lambda D: cfr.supported(M, DIN, D))}, "
+            f"#2 {widest(lambda D: cfr.backward_supported(M, DIN, D))}, "
+            f"#3 {widest(lambda D: cf.supported(M, D))}, "
+            f"#4 {widest(lambda D: cf.backward_supported(M, D))} (Din = {DIN})")
+
+
 def steps_main(tree):
     """``python3 chip_smoke.py --steps [TREE]``: drive the port of the
     checkout at TREE (by default the one beside this script), so that two
-    commits can be timed in turns in one call: the widest D that the
-    backward plans of #2 (Din = 8) and #4 take at M = 128; the host µs per
-    call of their backward wrappers at the layer-1 training shape; and the
+    commits can be timed in turns in one call: the widest D that the plans
+    of #1-#4 take at M = 128 (:func:`plan_widths`); the host µs per
+    call of their wrappers at the layer-1 training shape; and the
     wall ms per Adam step of bench.py's whitened RBF and RBF + Linear
-    models, with the device time of three steps of each. Prints no result
+    models (and per Adam + natural-gradient step of the whitened one), with
+    the device time of three Adam steps of each. Prints no result
     line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2254,26 +2398,24 @@ def steps_main(tree):
 
     gpu = gpu_line()
     log(f"[steps] the port at {os.path.dirname(cf.__file__)} ({gpu})")
-    widest = {
-        "#2": max(D for D in range(1, 257) if cfr.backward_supported(M, DIN, D)),
-        "#4": max(D for D in range(1, 257) if cf.backward_supported(M, D))}
-    log(f"[steps] widest D of the backward plans at M = {M}: #2 (Din = "
-        f"{DIN}) {widest['#2']}, #4 {widest['#4']}")
+    log(f"[steps] widest D at M = {M}: {plan_widths()}")
     n = S * N_TRAIN
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     g = [torch.randn((n, HIDDEN), generator=gen, device=DEVICE) for _ in range(2)]
     rbf = fused_inputs(0, HIDDEN, M, DIN, n, 12, DEVICE)
     white = composite_inputs(HIDDEN, M, DIN, n, 14)
     with torch.no_grad():
-        us = {"#2": host_us(lambda: cfr._launch_backward(0, *rbf, *g)),
+        us = {"#1": host_us(lambda: cfr._launch(0, *rbf)),
+              "#3": host_us(lambda: cf._launch(*white)),
+              "#2": host_us(lambda: cfr._launch_backward(0, *rbf, *g)),
               "#4": host_us(lambda: cf._launch_backward(*white, *g))}
-    log(f"[steps] host µs per backward call (D={HIDDEN} M={M} Din={DIN} "
-        f"n={n}, median of 50 with the card idle before each): "
-        f"#2 {us['#2']:.1f}, #4 {us['#4']:.1f} ({gpu})")
+    log(f"[steps] host µs per forward and backward call (D={HIDDEN} M={M} "
+        f"Din={DIN} n={n}, median of 50 with the card idle before each): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in us.items()) + f" ({gpu})")
     trained = training_model()
     trained_c = training_model(composite=True)
-    for model in (trained, trained_c):
-        time_steps(model, gpu, rounds=5, nat=False)
+    time_steps(trained, gpu, rounds=5)
+    time_steps(trained_c, gpu, rounds=5, nat=False)
     profile_run("three whitened Adam steps", lambda: trained.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
     profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(

@@ -5,6 +5,33 @@
 // prior variance of point j of the tile as kff(j): the constant v of a
 // stationary kernel, or the tile's slice of Kff.
 //
+// Pinv = Lu^{-1} is lower- and Sq = tril(q_sqrt)^T upper-triangular on the
+// whitened path. Both directions stage Pinv and tril(q_sqrt[d]) = Sq[d]^T
+// as packed lower triangles (row r padded to round4(r + 1) floats: 33 KB at
+// M = 128) through a ring of two buffers filled by cp.async, so the next
+// operand lands while the current one is used, and every product skips the
+// zero half: only the lower triangles of Pinv and of Sq[d]^T are read, so
+// garbage off those patterns never reaches a result. A persistent grid of
+// one block of 256 threads per SM walks tiles of BTN = 128 points; in the
+// FMA products each thread owns 2G rows (G from the top, G mirrored from
+// the bottom) by 8 points, so that every triangular product gives every
+// thread the same number of FMAs. Every sum runs in a fixed order with no
+// atomics: two runs on the same inputs give the same bits.
+//
+// The forward (#1 and #3, tile_forward), per tile and with a = Pinv kuf:
+//
+//   mean = a^T q_mu    t1 = ||a||^2    b_d = Sq[d] a
+//   var_d = max((kff - t1) + ||b_d||^2, 0)
+//
+// The ring hands out Pinv, Sq[0..D-1] per tile. a is IEEE fp32 FMA (t1
+// cancels against kff) and overwrites the kuf tile once every thread has
+// read it; t1 is reduced from the threads' registers. Each b_d runs on the
+// tensor cores in 3xTF32 (colsumsq_tc), its sums of squares reduced from
+// the accumulators, so b never leaves registers and each output d costs
+// one barrier. The tile's var, then its mean, is staged in shared memory
+// and leaves as one contiguous run of its [n][D] rows. The backward is all
+// IEEE fp32 FMA.
+//
 // The backward of both (#2 and #4) runs in two phases, whose device code is
 // here. With A = Pinv kuf per point and gv_d the clamp-masked g_var_d:
 //
@@ -14,27 +41,19 @@
 //   dPinv = tril(dA Kuf^T)    dSq[d] = triu(2 Sq[d] C_d),
 //   C_d = A diag(gv_d) A^T                             sums over points (phase B)
 //
-// Pinv = Lu^{-1} is lower- and Sq = tril(q_sqrt)^T upper-triangular on the
-// whitened path, and only tril(dPinv) and triu(dSq) reach a parameter (the
-// Cholesky adjoint reads the lower triangle of dPinv, and tril(q_sqrt) cuts
-// the rest of dSq), so both phases skip the zero halves and the outputs are
-// exact zeros off those patterns.
-//   * Phase A: a persistent grid of one block of 256 threads per SM walks
-//     tiles of BTN = 128 points. Pinv and tril(q_sqrt[d]) = Sq[d]^T are
-//     staged as packed lower triangles (row r padded to round4(r + 1)
-//     floats: 33 KB at M = 128) through a ring of two buffers filled by
-//     cp.async, so the next operand (Pinv, Sq[0..D-1], Pinv again per tile)
-//     lands while the current one is used. Each thread owns 2G rows (G from
-//     the top, G mirrored from the bottom) by 8 points, so that every
-//     triangular product gives every thread the same number of FMAs. A, dA
-//     (and, where the caller builds it, Kuf) and gv are written to scratch
-//     for phase B; no M x M sum is kept, so nothing is read back per tile.
+// Only tril(dPinv) and triu(dSq) reach a parameter (the Cholesky adjoint
+// reads the lower triangle of dPinv, and tril(q_sqrt) cuts the rest of
+// dSq), so both phases skip the zero halves and the outputs are exact zeros
+// off those patterns.
+//   * Phase A: the persistent grid above; the ring hands out Pinv,
+//     Sq[0..D-1], Pinv again per tile. A, dA (and, where the caller builds
+//     it, Kuf) and gv are written to scratch for phase B; no M x M sum is
+//     kept, so nothing is read back per tile.
 //   * Phase B (gram_bwd): the D weighted Grams C_d and dA Kuf^T as split-K
 //     SIMT products, one block per (matrix, slice of GKB points), ten warps
 //     at M = 128 each owning one 32 x 32 tile of the lower triangle; each
 //     slice's sums go to their own slot, which reduce_parts adds in slice
 //     order. gram_finish forms dSq[d] = triu(2 Sq[d] C_d) and tril(dPinv).
-//     No float atomics: two runs on the same inputs give the same bits.
 
 #pragma once
 
@@ -42,58 +61,13 @@
 
 namespace {
 
-// Forward, from the kuf tile T [MP][TN] with W holding Pinv^T and the block
-// synchronised: a = Pinv kuf over T in place, t1 = ||a||^2 into t1s,
-// mean = a^T q_mu into outm [TN][D], and per output d, b_d = Sq[d] a
-// reduced to var_d = max((kff(j) - t1) + ||b_d||^2, 0) into outv [TN][D].
-// red holds NWARP x TN floats. Ends with the block synchronised.
-template <int RM, typename Kff>
-__device__ __forceinline__ void conditional_tile(float* W, float* T, float* red,
-                                                 float* t1s, float* outm, float* outv,
-                                                 const float* qm,
-                                                 const float* __restrict__ sqT, int M,
-                                                 int D, int tid, Kff kff) {
-  constexpr int MP = 16 * RM;
-  const int ty = tid >> 4, tx = tid & 15;
-  const long long MM = static_cast<long long>(M) * M;
-
-  // a = Pinv @ kuf into registers, then over kuf in place; t1, mean
-  float acc[RM][4];
-  tile_product<RM>(W, T, ty, tx, acc);
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-    *reinterpret_cast<float4*>(T + (ty * RM + r) * TN + tx * 4) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  colsumsq_partials<RM>(acc, red, tid);
-  __syncthreads();
-  if (tid < TN) t1s[tid] = colsum(red, tid);
-  for (int o = tid; o < TN * D; o += NT) {
-    const int d = o / TN, j = o % TN;
-    float s = 0.0f;
-    for (int m = 0; m < M; ++m) s = fmaf(T[m * TN + j], qm[m * D + d], s);
-    outm[j * D + d] = s;
-  }
-
-  // b_d = Sq[d] @ a, reduced to t2_d without leaving registers
-  for (int d = 0; d < D; ++d) {
-    __syncthreads();
-    stage<MP>(W, sqT + d * MM, M, tid);
-    __syncthreads();
-    tile_product<RM>(W, T, ty, tx, acc);
-    colsumsq_partials<RM>(acc, red, tid);
-    __syncthreads();
-    if (tid < TN) outv[tid * D + d] = fmaxf((kff(tid) - t1s[tid]) + colsum(red, tid), 0.0f);
-  }
-  __syncthreads();
-}
-
-// -- backward ------------------------------------------------------------------
-
-constexpr int BTN = 128;           // points per phase-A tile
-constexpr int BTS = BTN + 4;       // row stride of phase A's tiles: 32 lanes reading
+constexpr int BTN = 128;           // points per tile of the forward and of phase A
+constexpr int BTS = BTN + 4;       // row stride of their tiles: 32 lanes reading
                                    // float4 from 32 rows then hit every bank once
-constexpr int BNT = 256;           // phase-A threads: 16 row groups x 16 column groups
+constexpr int FTS = BTN + 8;       // row stride of the forward's tile: the tensor-core
+                                   // fragments' reads of 4 rows x 8 points then hit
+                                   // every bank once
+constexpr int BNT = 256;           // their threads: 16 row groups x 16 column groups
 constexpr int BRED = BNT / 32;     // per-point column partials, one per warp
 constexpr int GK = 32;             // phase B: points per K-step
 constexpr int GS = GK + 4;         // phase B: row stride of a staged panel
@@ -199,10 +173,10 @@ __device__ __forceinline__ void sts8(float* p, int tx, const float (&v)[8]) {
 }
 
 // acc[r][c] += sum_{k <= row} L[row][k] T[k][col]: L packed lower (rows
-// past the diagonal read as the zero padding), T [MP][BTS]. The G rows of a
+// past the diagonal read as the zero padding), T [MP][S]. The G rows of a
 // group share one padded length (e0 low, e1 high), so row q of a group
 // starts q rows of that length after its first.
-template <int MP, int G>
+template <int MP, int G, int S = BTS>
 __device__ __forceinline__ void tri_rows(const float* L, const float* T, int ty, int tx,
                                          float (&acc)[2 * G][8]) {
   const int e0 = round4(G * ty + G), e1 = round4(MP - G * ty);
@@ -211,7 +185,7 @@ __device__ __forceinline__ void tri_rows(const float* L, const float* T, int ty,
   auto step = [&](int k, auto both) {
     float t[4][8];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) lds8(T + (k + q) * BTS, tx, t[q]);
+    for (int q = 0; q < 4; ++q) lds8(T + (k + q) * S, tx, t[q]);
 #pragma unroll
     for (int r = decltype(both)::value ? 0 : G; r < 2 * G; ++r) {
       float w[4];
@@ -270,7 +244,7 @@ __device__ __forceinline__ void tri_cols(const float* L, const float* T, int ty,
 
 // red[warp][col] = sum over the warp's two row groups of acc[.][c]^2
 template <int R>
-__device__ __forceinline__ void colsumsq_bwd(const float (&acc)[R][8], float* red, int tid,
+__device__ __forceinline__ void colsumsq_tile(const float (&acc)[R][8], float* red, int tid,
                                              int tx) {
   const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll
@@ -283,17 +257,18 @@ __device__ __forceinline__ void colsumsq_bwd(const float (&acc)[R][8], float* re
   }
 }
 
-// The ring of two packed operand buffers. Stage s holds, for s mod (D + 2):
-// 0 Pinv (for A), 1..D Sq[s - 1]^T, D + 1 Pinv (for dKuf).
+// The ring of two packed operand buffers. Stage s holds, for s mod period:
+// 0 Pinv (for A), 1..D Sq[s - 1]^T, and in the backward (period D + 2)
+// D + 1 Pinv (for dKuf); the forward's period is D + 1.
 struct Ring {
   float* buf[2];
   const float* pinv;
   const float* sqT;
   long long MM;
-  int M, D, s;
+  int M, D, period, s;
 
   __device__ const float* src(int t) const {
-    const int i = t % (D + 2);
+    const int i = t % period;
     return (i == 0 || i == D + 1) ? pinv : sqT + (i - 1) * MM;
   }
   template <int MP>
@@ -314,6 +289,195 @@ struct Ring {
     return buf[(s++) & 1];
   }
 };
+
+// The sum over the warps' partials (colsumsq_tile) of point j, in warp order.
+__device__ __forceinline__ float colsum_tile(const float* red, int j) {
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < BRED; ++w) s += red[w * BTN + j];
+  return s;
+}
+
+// -- forward -------------------------------------------------------------------
+
+// x = hi + lo, the operands of a 3xTF32 product, which keeps about fp32's
+// precision: hi is x rounded to TF32's 10 mantissa bits (half an ulp added,
+// then the low 13 bits cleared), lo = x - hi exactly (|lo| <= 2^-11 |x|),
+// and the tensor cores read lo's top 19 bits (an error below 2^-21 |x|).
+// Integer and FADD work: cvt.rna.tf32 runs at a fraction of their rate.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += A B on the tensor cores: A 16 x 8 (row), B 8 x 8 (col) in TF32, c fp32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Partial sums of squares of b = L^T A [MP][BTN], with L packed lower (rows
+// past M zero) and A [MP][FTS], on the tensor cores in 3xTF32 (lo hi +
+// hi lo + hi hi, the small terms first, fp32 accumulators). The product
+// runs transposed, b^T = A^T L, in m16n8k8 tiles: warp w owns the 32 points
+// 32 (w % 4) .. (two m16 tiles, so each fragment of L feeds two products)
+// and half H = w / 4 of the 8-row blocks ib of b, those with ib % 4 in
+// {0, 3} or in {1, 2}: each half holds the same number of the blocks (kb,
+// ib <= kb) that L's triangle leaves, so every warp does the same work.
+// Unrolled whole: the accumulators stay in registers, and the products go
+// out in rounds over up to four row blocks and both m tiles, so that no
+// product waits on the one issued just before. part[H][j] = the sum over
+// the half's rows of b[i][j]^2 (the row blocks in turn, then a butterfly
+// over the group's 4 lanes).
+template <int MP, int H>
+__device__ __forceinline__ void colsumsq_tc(const float* L, const float* A, int warp, int lane,
+                                            float* part) {
+  constexpr int NB = MP / 8, NS = NB / 2;  // row blocks of b; this half's
+  const int g = lane >> 2, t = lane & 3, p0 = 32 * (warp & 3);
+  auto block = [](int s) { return 2 * s + ((s & 1) ^ H); };
+  float c[2][NS][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[mt][s][e] = 0.0f;
+#pragma unroll
+  for (int kb = 0; kb < NB; ++kb) {
+    const int k0 = 8 * kb + t, k1 = k0 + 4;
+    unsigned ah[2][4], al[2][4];  // A^T [16 points][8 k] of each m tile
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* pts = A + p0 + 16 * mt + g;
+      split_tf32(pts[k0 * FTS], ah[mt][0], al[mt][0]);
+      split_tf32(pts[k0 * FTS + 8], ah[mt][1], al[mt][1]);
+      split_tf32(pts[k1 * FTS], ah[mt][2], al[mt][2]);
+      split_tf32(pts[k1 * FTS + 8], ah[mt][3], al[mt][3]);
+    }
+    const float* r0 = L + tri_off(k0);
+    const float* r1 = L + tri_off(k1);
+#pragma unroll
+    for (int s0 = 0; s0 < NS; s0 += 4) {
+      unsigned bh[4][2], bl[4][2];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ib = block(s0 + q), i = 8 * ib + g;
+        if (ib > kb) continue;  // L[k][i] is zero for i > k
+        split_tf32(ib < kb || i <= k0 ? r0[i] : 0.0f, bh[q][0], bl[q][0]);
+        split_tf32(ib < kb || i <= k1 ? r1[i] : 0.0f, bh[q][1], bl[q][1]);
+      }
+#pragma unroll
+      for (int round = 0; round < 3; ++round)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (block(s0 + q) > kb) continue;
+            if (round == 0) mma_tf32(c[mt][s0 + q], al[mt], bh[q]);
+            if (round == 1) mma_tf32(c[mt][s0 + q], ah[mt], bl[q]);
+            if (round == 2) mma_tf32(c[mt][s0 + q], ah[mt], bh[q]);
+          }
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        sum = fmaf(c[mt][s][2 * h + 1], c[mt][s][2 * h + 1],
+                   fmaf(c[mt][s][2 * h], c[mt][s][2 * h], sum));
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (t == h) part[H * BTN + p0 + 16 * mt + g + 8 * h] = sum;
+    }
+}
+
+// The forward's shared memory beside the ring: T (the kuf tile, then a,
+// [MP][FTS]), red (the warps' column partials), t1s (t1 per point), out (the
+// tile's var, then its mean, [BTN][D]), qm (q_mu [M][D]).
+struct ForwardTiles {
+  float *T, *red, *t1s, *out, *qm;
+};
+
+// One tile of the forward, with the kuf tile in t.T (zero past M) and the
+// ring about to hand out Pinv: a = Pinv kuf over kuf in place, t1,
+// var_d = max((kff(j) - t1) + ||Sq[d] a||^2, 0) and mean = a^T q_mu, each
+// written to the tile's rows of var and mean ([n][D], from the tile's first
+// point; nt points) as one contiguous run. a and t1 are IEEE fp32 FMA (t1
+// cancels against kff); b_d = Sq[d] a only adds, and runs on the tensor
+// cores in 3xTF32 (colsumsq_tc). The next tile may overwrite T and out on
+// return.
+template <int MP, typename Kff>
+__device__ __forceinline__ void tile_forward(const ForwardTiles& t, Ring& ring, int M,
+                                             int D, int tid, Kff kff, float* mean,
+                                             float* var, int nt) {
+  constexpr int G = MP / 32, R = 2 * G;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
+  float acc[R][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+  // a = Pinv kuf and t1; a goes over kuf once every read of kuf is done
+  const float* L = ring.next<MP>(tid);
+  tri_rows<MP, G, FTS>(L, t.T, ty, tx, acc);
+  colsumsq_tile<R>(acc, t.red, tid, tx);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R; ++r) sts8(t.T + row_of<MP, G>(ty, r) * FTS, tx, acc[r]);
+  if (tid < BTN) t.t1s[tid] = colsum_tile(t.red, tid);
+
+  // per output d: b_d = Sq[d] a in registers, reduced to var_d. Each half
+  // of the row blocks leaves its partial sums in red (two slots, by the
+  // parity of d), added behind the next barrier.
+  auto finish = [&](int d) {
+    const float* part = t.red + (d & 1) * 2 * BTN;
+    t.out[tid * D + d] =
+        fmaxf((kff(tid) - t.t1s[tid]) + (part[tid] + part[BTN + tid]), 0.0f);
+  };
+  for (int d = 0; d < D; ++d) {
+    L = ring.next<MP>(tid);  // Sq[d]^T; a and t1s visible, red free
+    if (d > 0 && tid < BTN) finish(d - 1);
+    float* part = t.red + (d & 1) * 2 * BTN;
+    if (warp < 4)
+      colsumsq_tc<MP, 0>(L, t.T, warp, lane, part);
+    else
+      colsumsq_tc<MP, 1>(L, t.T, warp, lane, part);
+  }
+  __syncthreads();
+  if (tid < BTN) finish(D - 1);
+  __syncthreads();
+  for (int e = tid; e < nt * D; e += BNT) var[e] = t.out[e];
+  __syncthreads();
+
+  // mean[j][e] = sum_m a[m][j] q_mu[m][e]: a thread per 4 points and output,
+  // float4 reads along a row of a
+  for (int item = tid; item < (BTN / 4) * D; item += BNT) {
+    const int j = 4 * (item % (BTN / 4)), e = item / (BTN / 4);
+    float s[4] = {};
+#pragma unroll 4
+    for (int m = 0; m < M; ++m) {
+      float a[4];
+      lds4(t.T + m * FTS + j, a);
+      const float q = t.qm[m * D + e];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[c] = fmaf(a[c], q, s[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) t.out[(j + c) * D + e] = s[c];
+  }
+  __syncthreads();
+  for (int e = tid; e < nt * D; e += BNT) mean[e] = t.out[e];
+}
+
+// -- backward ------------------------------------------------------------------
 
 // Phase A's shared memory beside the ring, each tile [MP][BTS]: T1 (kuf,
 // then gb_d, then da), T2 (a); per point of the tile t1s and sS
@@ -394,7 +558,7 @@ __device__ __forceinline__ void tile_backward(const BackwardTiles& t, Ring& ring
     sts8(t.T2 + row * BTS, tx, acc[r]);
     if (row < M) sts8(a_out + row * ld, tx, acc[r]);
   }
-  colsumsq_bwd<R>(acc, t.red, tid, tx);
+  colsumsq_tile<R>(acc, t.red, tid, tx);
   __syncthreads();
   if (ty == 0) {
     float t1[8];
@@ -419,7 +583,7 @@ __device__ __forceinline__ void tile_backward(const BackwardTiles& t, Ring& ring
     }
     L = ring.next<MP>(tid);  // also: red and T1 are free again, t1s and sS visible
     tri_cols<MP, G>(L, t.T2, ty, tx, acc);  // b_d = Sq[d] a
-    colsumsq_bwd<R>(acc, t.red, tid, tx);
+    colsumsq_tile<R>(acc, t.red, tid, tx);
     __syncthreads();
     float t2[8], t1[8], gv[8];
     colsums(t2);

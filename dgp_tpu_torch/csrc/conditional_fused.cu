@@ -11,28 +11,21 @@
 // This is the whitened conditional of any kernel that the stationary kernel
 // (conditional_fused_rbf.cu) does not take: Sum, Product, Linear, or
 // active_dims. Kuf and Kff are built outside (PyTorch) and read here once.
-// What bounds it: 2 M^2 (1 + D) FLOP per point on full squares against
-// 4 (M + 1 + 2 D) bytes per point (Kuf and Kff read, mean and var written):
-// fp32 arithmetic at every shape the model runs (reading Kuf at M = 128 is
-// 0.15 ms per 1e6 points, the products about 2.2 ms at the fp32 peak). On the
-// whitened path Pinv = Lu^{-1} is lower- and Sq = tril(q_sqrt)^T
-// upper-triangular, so the function needs only M (M + 1) FLOP per point for
-// each of the 1 + D products; this kernel spends the full squares. Plain IEEE
-// fp32 FMA, no TF32: ||a||^2 cancels against kff (up to ~9 for an RBF + Linear
-// kernel on [0, 1]^8), and TF32's 1e-3 error in a would swamp the variance.
-// What the design does about the bound: A and B never reach device memory, so
-// beyond one read of Kuf the FLOP are the only cost that grows with n.
-//   * It is the stationary kernel's pipeline with the Kuf tile read from
-//     device memory (load_tile) instead of built from the points (the tile
-//     steps, forward and backward, are shared in conditional.cuh): one block
-//     of 256 threads per tile of TN = 64 points, Pinv^T then each Sq[d]^T
-//     staged k-major in shared memory, a over kuf in place, b_d in registers,
-//     t1 and t2_d reduced by a warp shuffle and a fixed-order sum over the 8
-//     warps (deterministic).
-//   * M is padded with zero rows to MP = 64 or 128; the columns of the ragged
-//     last tile past n read as 0 and are never written.
-//   * 109,056 bytes of shared memory at M = 128, D = 8: two blocks share an
-//     SM, and one stages its next operand while the other computes.
+// What bounds it: (1 + D) M (M + 1) + 4 M D FLOP per point (Pinv and Sq
+// are triangular on the whitened path) against 4 (M + 1 + 2 D) bytes per
+// point (Kuf and Kff read, mean and var written): arithmetic at every
+// shape the model runs (reading Kuf at M = 128 is 0.15 ms per 1e6 points).
+// a and t1 stay IEEE fp32 FMA: ||a||^2 cancels against kff (up to ~9 for
+// an RBF + Linear kernel on [0, 1]^8), and TF32's 1e-3 error in a would
+// swamp the variance; the D products b_d = Sq[d] a only add, and run on the
+// tensor cores in 3xTF32. What the design does: it is the stationary
+// kernel's forward (conditional.cuh's tile_forward, see
+// conditional_fused_rbf.cu) with the kuf tile read from Kuf instead of
+// built from the points: a persistent grid of one 256-thread block per SM
+// over tiles of 128 points, each tile's Kuf copied by cp.async with every
+// copy in flight at once (zero past M and past n), Pinv and tril(q_sqrt)
+// staged as packed triangles through the cp.async ring. 147 KB of shared
+// memory at M = 128, D = 8 (D up to 88, wider than the backward's plan).
 //
 // BACKWARD. Replaces dgp_tpu/ops/conditional_fused.py:_bwd_kernel. Given the
 // cotangents g_mean, g_var [n][D] it recomputes a and b_d per tile in IEEE
@@ -75,18 +68,18 @@
 namespace {
 
 struct FwdLayout {  // offsets in floats; total floats
-  int t, red, t1, kff, om, ov, qm, total;
+  int ring1, t, red, t1s, kff, out, qm, total;
 };
 
 __host__ __device__ inline FwdLayout fwd_layout(int MP, int M, int D) {
   FwdLayout L;
-  int o = MP * MP;                   // W: the staged operand [MP][MP]
-  L.t = o;    o += MP * TN;          // T: kuf, then a [MP][TN]
-  L.red = o;  o += NWARP * TN;       // per-warp column partials
-  L.t1 = o;   o += TN;
-  L.kff = o;  o += TN;
-  L.om = o;   o += round4(TN * D);   // mean tile [TN][D]
-  L.ov = o;   o += round4(TN * D);   // var tile [TN][D]
+  int o = tri_off(MP);                    // ring buffer 0: a packed triangle
+  L.ring1 = o; o += tri_off(MP);          // ring buffer 1
+  L.t = o;    o += MP * FTS;              // kuf, then a
+  L.red = o;  o += BRED * BTN;            // per-point column partials
+  L.t1s = o;  o += BTN;
+  L.kff = o;  o += BTN;
+  L.out = o;  o += round4(BTN * D);       // the tile's var, then mean [BTN][D]
   L.qm = o;   o += round4(M * D);
   L.total = o;
   return L;
@@ -100,45 +93,57 @@ inline bool fits(int M, int D) {
   return M >= 1 && M <= 128 && D >= 1 && fwd_smem_bytes(M, D) <= MAX_SMEM;
 }
 
-template <int RM>
-__global__ void __launch_bounds__(NT, 2)
-conditional_fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ kuf,
+// The forward over n points: a persistent grid, each block walking tiles of
+// BTN points; per tile the kuf tile and kff read from Kuf [M][n] and Kff,
+// then tile_forward, then the tile's outputs.
+template <int MP>
+__global__ void __launch_bounds__(BNT, 1)
+conditional_fused_fwd(const float* __restrict__ pinv, const float* __restrict__ kuf,
                       const float* __restrict__ qmu, const float* __restrict__ sqT,
                       const float* __restrict__ kff, float* __restrict__ mean,
                       float* __restrict__ var, long long n, int M, int D) {
-  constexpr int MP = 16 * RM;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const FwdLayout L = fwd_layout(MP, M, D);
-  float* W = smem;
-  float* T = smem + L.t;
-  float* red = smem + L.red;
-  float* t1s = smem + L.t1;
+  const ForwardTiles t{smem + L.t, smem + L.red, smem + L.t1s, smem + L.out, smem + L.qm};
   float* kffS = smem + L.kff;
-  float* outm = smem + L.om;  // [TN][D]
-  float* outv = smem + L.ov;  // [TN][D]
-  float* qm = smem + L.qm;    // [M][D]
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, static_cast<long long>(M) * M, M, D, D + 1,
+            0};
 
   const int tid = threadIdx.x;
-  const long long p0 = static_cast<long long>(blockIdx.x) * TN;
-  const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
 
-  // stage q_mu, this tile's kff and kuf, and Pinv^T
-  for (int e = tid; e < M * D; e += NT) qm[e] = __ldg(qmu + e);
-  if (tid < TN) kffS[tid] = tid < nt ? __ldg(kff + p0 + tid) : 0.0f;
-  load_tile<MP, TN>(T, kuf, n, p0, nt, M, tid);
-  stage<MP>(W, pinvT, M, tid);
-  __syncthreads();
+  // once per block: q_mu and the ring's first operand
+  ring.start<MP>(tid);
+  for (int e = tid; e < M * D; e += BNT) t.qm[e] = __ldg(qmu + e);
+  const bool aligned = n % 4 == 0 && (reinterpret_cast<unsigned long long>(kuf) & 15) == 0;
 
-  conditional_tile<RM>(W, T, red, t1s, outm, outv, qm, sqT, M, D, tid,
-                       [kffS](int j) { return kffS[j]; });
+  const long long ntiles = (n + BTN - 1) / BTN;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * BTN;
+    const int nt = static_cast<int>(n - p0 < BTN ? n - p0 : BTN);
 
-  // outputs are [n][D] row-major: this tile is one contiguous run
-  const long long base = p0 * D;
-  for (int e = tid; e < nt * D; e += NT) {
-    mean[base + e] = outm[e];
-    var[base + e] = outv[e];
+    // this tile's kuf, zero past M and past n, by cp.async: every copy is in
+    // flight at once, and the ring's next wait covers it; and kff
+    if (aligned) {
+      for (int e = tid; e < MP * (BTN / 4); e += BNT) {
+        const int m = e / (BTN / 4), j = 4 * (e % (BTN / 4));
+        const int valid = m < M ? max(0, min(nt - j, 4)) : 0;
+        cp_async16(t.T + m * FTS + j, valid > 0 ? kuf + m * n + p0 + j : kuf, 4 * valid);
+      }
+    } else {
+      for (int e = tid; e < MP * BTN; e += BNT) {
+        const int m = e / BTN, j = e % BTN;
+        const bool ok = m < M && j < nt;
+        cp_async4(t.T + m * FTS + j, ok ? kuf + m * n + p0 + j : kuf, ok ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+    if (tid < BTN) kffS[tid] = tid < nt ? __ldg(kff + p0 + tid) : 0.0f;
+
+    tile_forward<MP>(t, ring, M, D, tid, [kffS](int j) { return kffS[j]; },
+                     mean + p0 * D, var + p0 * D, nt);
   }
+  cp_async_wait_all();
 }
 
 // -- backward -------------------------------------------------------------------
@@ -191,7 +196,8 @@ conditional_fused_bwd_a(const float* __restrict__ pinv, const float* __restrict_
   const BackwardTiles t{smem + L.t1, smem + L.t2, smem + L.red, smem + L.t1s,
                         smem + L.ss, smem + L.gm, smem + L.qm};
   float* kffS = smem + L.kff;
-  Ring ring{{smem, smem + L.ring1}, pinv, sqT, static_cast<long long>(M) * M, M, D, 0};
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, static_cast<long long>(M) * M, M, D, D + 2,
+            0};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
@@ -199,6 +205,7 @@ conditional_fused_bwd_a(const float* __restrict__ pinv, const float* __restrict_
   // once per block: q_mu and the ring's first operand
   ring.start<MP>(tid);
   for (int e = tid; e < M * D; e += BNT) t.qm[e] = __ldg(qmu + e);
+  const bool aligned = n % 4 == 0 && (reinterpret_cast<unsigned long long>(kuf) & 15) == 0;
 
   const long long ntiles = (n + BTN - 1) / BTN;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -236,23 +243,10 @@ conditional_fused_bwd_a(const float* __restrict__ pinv, const float* __restrict_
 
 // -- host side ------------------------------------------------------------------
 
-// f(Int<RM>) for the padded M
+// f(Int<MP>) for the padded M
 template <typename F>
 auto dispatch(int M, F f) {
-  return padded_m(M) == 64 ? f(Int<4>{}) : f(Int<8>{});
-}
-
-template <int RM>
-cudaError_t launch_fwd(const float* pinvT, const float* kuf, const float* qmu,
-                       const float* sqT, const float* kff, float* mean, float* var,
-                       long long n, int M, int D, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(fwd_smem_bytes(M, D));
-  auto kern = conditional_fused_fwd<RM>;
-  const cudaError_t err = allow_shared_memory(kern, bytes);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((n + TN - 1) / TN);
-  kern<<<grid, NT, bytes, stream>>>(pinvT, kuf, qmu, sqT, kff, mean, var, n, M, D);
-  return cudaGetLastError();
+  return padded_m(M) == 64 ? f(Int<64>{}) : f(Int<128>{});
 }
 
 }  // namespace
@@ -261,24 +255,46 @@ extern "C" {
 
 // 1 if the forward's shared-memory plan covers (M, D), else 0: the wrapper's
 // dispatch gate. The plan takes M <= 128 (padded to 64 or 128) and, at
-// M = 128, D up to 128. The forward returns cudaErrorInvalidValue where this
+// M = 128, D up to 88. The forward returns cudaErrorInvalidValue where this
 // is 0.
 int dgp_conditional_fused_supported(int M, int D) { return fits(M, D) ? 1 : 0; }
 
 // The same for the backward's plan, which is larger (D up to 23 at M = 128).
 int dgp_conditional_fused_bwd_supported(int M, int D) { return bwd_fits(M, D) ? 1 : 0; }
 
-// Launches the forward on `stream`. pinvT = Pinv^T [M][M], kuf [M][n],
-// qmu [M][D], sqT[d] = Sq[d]^T [D][M][M], kff [n]; mean and var [n][D]. All
-// float32, contiguous, on one device. Returns cudaGetLastError().
-int dgp_conditional_fused_fwd(const float* pinvT, const float* kuf, const float* qmu,
+// The forward's persistent grid: the blocks of its plan for (M, D) that the
+// card holds at once (the wrapper asks once per device and sizes). 0 if the
+// sizes are outside the plan or CUDA reports an error.
+int dgp_conditional_fused_fwd_blocks(int M, int D) {
+  if (!fits(M, D)) return 0;
+  return dispatch(M, [&](auto P) {
+    return resident_count<BNT>(conditional_fused_fwd<decltype(P)::value>,
+                               static_cast<size_t>(fwd_smem_bytes(M, D)));
+  });
+}
+
+// Launches the forward on `stream` as min(blocks, tiles of n) blocks, blocks
+// from dgp_conditional_fused_fwd_blocks. pinv = Pinv [M][M] (lower-triangular:
+// only its lower triangle is read), kuf [M][n], qmu [M][D], sqT[d] =
+// tril(q_sqrt[d]) = Sq[d]^T [D][M][M] (only its lower triangle is read),
+// kff [n]; mean and var [n][D]. All float32, contiguous, on one device.
+// Returns cudaGetLastError().
+int dgp_conditional_fused_fwd(const float* pinv, const float* kuf, const float* qmu,
                               const float* sqT, const float* kff, float* mean,
-                              float* var, long long n, int M, int D, void* stream) {
-  if (n < 1 || !fits(M, D)) return static_cast<int>(cudaErrorInvalidValue);
+                              float* var, long long n, int M, int D, int blocks,
+                              void* stream) {
+  if (n < 1 || !fits(M, D) || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long ntiles = (n + BTN - 1) / BTN;
+  const int grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(M, [&](auto R) {
-    return launch_fwd<decltype(R)::value>(pinvT, kuf, qmu, sqT, kff, mean, var, n, M,
-                                          D, s);
+  const size_t bytes = static_cast<size_t>(fwd_smem_bytes(M, D));
+  return static_cast<int>(dispatch(M, [&](auto P) {
+    static std::atomic<unsigned long long> allowed{0};
+    auto kern = conditional_fused_fwd<decltype(P)::value>;
+    const cudaError_t e = allow_shared_memory_once(kern, allowed);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, BNT, bytes, s>>>(pinv, kuf, qmu, sqT, kff, mean, var, n, M, D);
+    return cudaGetLastError();
   }));
 }
 
@@ -287,8 +303,8 @@ int dgp_conditional_fused_fwd(const float* pinvT, const float* kuf, const float*
 // the plan or CUDA reports an error.
 int dgp_conditional_fused_bwd_blocks(long long n, int M, int D) {
   if (n < 1 || !bwd_fits(M, D)) return 0;
-  return dispatch(M, [&](auto R) {
-    return resident_blocks<BNT, BTN>(conditional_fused_bwd_a<16 * decltype(R)::value>,
+  return dispatch(M, [&](auto P) {
+    return resident_blocks<BNT, BTN>(conditional_fused_bwd_a<decltype(P)::value>,
                                      static_cast<size_t>(bwd_smem_bytes(M, D)), n);
   });
 }
@@ -318,9 +334,9 @@ int dgp_conditional_fused_bwd_a(const float* pinv, const float* kuf, long long l
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, D));
-  const cudaError_t err = dispatch(M, [&](auto R) {
+  const cudaError_t err = dispatch(M, [&](auto P) {
     static std::atomic<unsigned long long> allowed{0};
-    auto kern = conditional_fused_bwd_a<16 * decltype(R)::value>;
+    auto kern = conditional_fused_bwd_a<decltype(P)::value>;
     const cudaError_t e = allow_shared_memory_once(kern, allowed);
     if (e != cudaSuccess) return e;
     kern<<<blocks, BNT, bytes, s>>>(pinv, kuf, ldk, qmu, sqT, kff, gmean, gvar, dkuf, dkff,

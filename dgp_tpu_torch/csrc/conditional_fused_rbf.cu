@@ -12,34 +12,33 @@
 //   b_d   = Sq[d] @ a             t2_d = ||b_d||^2
 //   var_d = max((v - t1) + t2_d, 0)                    (stationary: Kff == v)
 //
-// What bounds it: this kernel does 2*M*(Din + M + D*M + D) FLOP per point
-// (full squares) against about 4*(Din + 2*D) bytes, so at every shape the
-// model serves it is bound by fp32 arithmetic, not by memory. On the
-// whitened path Pinv = Lu^{-1} is lower- and Sq upper-triangular, so the
-// function needs only M*(M+1) FLOP per point for each of the 1 + D M x M
-// products: about half of what the full squares spend. The arithmetic is plain IEEE fp32 FMA (no
-// TF32): ||a||^2 cancels against v, and TF32's 1e-3 error in a would swamp
-// the variance. What the design does about that bound: it spends no bytes
-// of device memory on intermediates, so the FLOP are the only cost that
-// grows with n.
-//   * One block of 256 threads owns a tile of TN = 64 points.
-//   * The M x M operand of the current product (Pinv, then Sq[0..D-1]) is
-//     staged in shared memory one at a time, k-major (the wrapper passes
-//     Pinv^T and Sq^T), so the copy is a straight, coalesced one.
-//   * The kuf tile is built in shared memory and, once the product a is in
-//     registers, overwritten in place by a. Neither kuf, a nor b reaches
-//     device memory.
-//   * Each thread keeps an RM x 4 register tile of the product
-//     (RM = MP / 16); t1 and t2 are reduced per point from those registers
-//     (a warp shuffle, then a fixed-order sum over the 8 warps: deterministic).
-//   * M is padded with zeros to MP = 64 or 128 in shared memory; the ragged
-//     last tile of points is masked here (rows past n read as 0 and are
-//     never written).
-//   * At M = 128, Din = D = 8 a block holds 113,664 bytes of shared memory,
-//     so two blocks share an SM and one stages its next panel while the
-//     other computes.
-// Later work for speed: skipping the zero halves of the triangular Pinv and
-// Sq, wgmma/TMA, 3xTF32 for the cancellation-free b product.
+// What bounds it: the function needs 2 M Din + (1 + D) M (M + 1) + 4 M D
+// FLOP per point (Pinv and Sq are triangular on the whitened path) against
+// about 4 (Din + 2 D) bytes, so at every shape the model serves it is bound
+// by arithmetic, not by memory. a and t1 stay IEEE fp32 FMA (no TF32):
+// ||a||^2 cancels against v, and TF32's 1e-3 error in a would swamp the
+// variance. The D products b_d = Sq[d] a only add to the variance; they are
+// D/(D + 1) of the work and run on the tensor cores in 3xTF32 (each operand
+// split into a TF32 hi and lo part, lo hi + hi lo + hi hi in fp32), which
+// keeps about fp32's precision. What the design does (conditional.cuh's
+// tile_forward, shared with conditional_fused.cu):
+//   * A persistent grid of one block of 256 threads per SM walks tiles of
+//     128 points; neither kuf, a nor b reaches device memory.
+//   * Pinv and tril(q_sqrt[d]) = Sq[d]^T (the wrapper passes both as they
+//     are) are staged as packed lower triangles through a two-buffer
+//     cp.async ring, the next operand landing while the current one is
+//     used; only those triangles are read.
+//   * Per tile: the kuf tile (16 points by MP / 32 rows a thread), a = Pinv kuf
+//     by triangular FMA products over kuf in place, t1 from registers; per
+//     output d one barrier, and b_d in m16n8k8 mma.sync tiles that skip the
+//     blocks above Sq's diagonal, its sums of squares reduced from the
+//     accumulators; then the tile's var and mean, each as one contiguous
+//     run. Every sum in a fixed order, no atomics: repeats are bit-equal.
+//   * At M = 128, Din = D = 8 a block holds 158 KB of shared memory (the
+//     ring 66 KB, the [128][136] tile, q_mu, Zs and the points): one block
+//     per SM, D up to 80 at Din = 8, wider than the backward's plan.
+// The tensor-core products use mma.sync; wgmma and TMA, the route to the
+// tensor cores' full rate, are later work.
 //
 // BACKWARD. Replaces the TPU kernel
 // dgp_tpu/ops/conditional_fused_rbf.py:_bwd_kernel. Given the cotangents
@@ -92,27 +91,29 @@
 
 namespace {
 
-struct Layout {
-  int t, u, t1, om, ov, qm, total;  // offsets in floats; total floats
+struct FwdLayout {  // offsets in floats; total floats
+  int ring1, t, red, t1s, out, qm, zs, xs, zz, total;
 };
 
-__host__ __device__ inline Layout layout(int MP, int M, int Din, int D) {
-  Layout L;
-  L.t = MP * MP;                                  // W: the staged operand [MP][MP]
-  L.u = L.t + MP * TN;                            // T: kuf, then a [MP][TN]
-  int phase1 = MP * Din + Din * TN + TN + MP;     // zs, xs^T, ||x||^2, ||z||^2
-  int reduce = NWARP * TN;                        // per-warp column partials
-  L.t1 = L.u + round4(phase1 > reduce ? phase1 : reduce);
-  L.om = L.t1 + TN;
-  L.ov = L.om + round4(TN * D);
-  L.qm = L.ov + round4(TN * D);
-  L.total = L.qm + round4(M * D);
+__host__ __device__ inline FwdLayout fwd_layout(int MP, int M, int Din, int D) {
+  FwdLayout L;
+  int o = tri_off(MP);                    // ring buffer 0: a packed triangle
+  L.ring1 = o; o += tri_off(MP);          // ring buffer 1
+  L.t = o;    o += MP * FTS;              // kuf, then a
+  L.red = o;  o += BRED * BTN;            // per-point column partials
+  L.t1s = o;  o += BTN;
+  L.out = o;  o += round4(BTN * D);       // the tile's var, then mean [BTN][D]
+  L.qm = o;   o += round4(M * D);
+  L.zs = o;   o += round4(MP * Din);
+  L.xs = o;   o += round4(Din * BTN);     // xs^T [Din][BTN]
+  L.zz = o;   o += MP;
+  L.total = o;
   return L;
 }
 
-// Shared memory one block needs, in bytes.
+// Shared memory one block of the forward needs, in bytes.
 inline long long smem_bytes(int M, int Din, int D) {
-  return static_cast<long long>(sizeof(float)) * layout(padded_m(M), M, Din, D).total;
+  return static_cast<long long>(sizeof(float)) * fwd_layout(padded_m(M), M, Din, D).total;
 }
 
 inline bool fits(int M, int Din, int D) {
@@ -131,78 +132,100 @@ __device__ __forceinline__ float kuf_of(float v, float sq) {
   return v * (1.0f + a * r + (5.0f / 3.0f) * sq) * expf(-a * r);
 }
 
-template <int KIND, int RM>
-__global__ void __launch_bounds__(NT, 2)
-fused_fwd(const float* __restrict__ pinvT, const float* __restrict__ xs,
+// The forward over n points: a persistent grid, each block walking tiles of
+// BTN points; per tile the kuf tile from the points, then tile_forward, then
+// the tile's outputs.
+template <int KIND, int MP>
+__global__ void __launch_bounds__(BNT, 1)
+fused_fwd(const float* __restrict__ pinv, const float* __restrict__ xs,
           const float* __restrict__ zs, const float* __restrict__ vptr,
           const float* __restrict__ qmu, const float* __restrict__ sqT,
-          float* __restrict__ mean, float* __restrict__ var,
-          long long n, int M, int Din, int D) {
-  constexpr int MP = 16 * RM;
+          float* __restrict__ mean, float* __restrict__ var, long long n, int M,
+          int Din, int D) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout L = layout(MP, M, Din, D);
-  float* W = smem;
-  float* T = smem + L.t;
-  float* zsS = smem + L.u;          // phase 1 only
-  float* xsS = zsS + MP * Din;      //   [Din][TN]
-  float* xx = xsS + Din * TN;
-  float* zz = xx + TN;
-  float* red = smem + L.u;          // after phase 1
-  float* t1s = smem + L.t1;
-  float* outm = smem + L.om;        // [TN][D]
-  float* outv = smem + L.ov;        // [TN][D]
-  float* qm = smem + L.qm;          // [M][D]
+  const FwdLayout L = fwd_layout(MP, M, Din, D);
+  const ForwardTiles t{smem + L.t, smem + L.red, smem + L.t1s, smem + L.out, smem + L.qm};
+  float* zsS = smem + L.zs;
+  float* xsS = smem + L.xs;
+  float* zz = smem + L.zz;
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, static_cast<long long>(M) * M, M, D, D + 1, 0};
 
   const int tid = threadIdx.x;
-  const long long p0 = static_cast<long long>(blockIdx.x) * TN;
-  const int nt = static_cast<int>(n - p0 < TN ? n - p0 : TN);
   const float v = __ldg(vptr);
 
-  // phase 0: stage q_mu, Zs, this tile's points and Pinv^T
-  for (int e = tid; e < M * D; e += NT) qm[e] = __ldg(qmu + e);
-  for (int e = tid; e < MP * Din; e += NT) zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
-  for (int e = tid; e < TN * Din; e += NT) {
-    const int j = e / Din, c = e % Din;
-    xsS[c * TN + j] = j < nt ? __ldg(xs + (p0 + j) * Din + c) : 0.0f;
-  }
-  stage<MP>(W, pinvT, M, tid);
+  // once per block: q_mu, Zs, ||z||^2, and the ring's first operand
+  ring.start<MP>(tid);
+  for (int e = tid; e < M * D; e += BNT) t.qm[e] = __ldg(qmu + e);
+  for (int e = tid; e < MP * Din; e += BNT) zsS[e] = e < M * Din ? __ldg(zs + e) : 0.0f;
   __syncthreads();
-  if (tid < TN) {
+  if (tid < MP) {
     float s = 0.0f;
-    for (int c = 0; c < Din; ++c) s = fmaf(xsS[c * TN + tid], xsS[c * TN + tid], s);
-    xx[tid] = s;
-  } else if (tid < TN + MP) {
-    const int m = tid - TN;
-    float s = 0.0f;
-    for (int c = 0; c < Din; ++c) s = fmaf(zsS[m * Din + c], zsS[m * Din + c], s);
-    zz[m] = s;
+    for (int c = 0; c < Din; ++c) s = fmaf(zsS[tid * Din + c], zsS[tid * Din + c], s);
+    zz[tid] = s;
   }
-  __syncthreads();
 
-  // phase 1: the kuf tile [MP][TN]; padded rows are 0
-  for (int e = tid; e < MP * TN; e += NT) {
-    const int m = e / TN, j = e % TN;
-    float k = 0.0f;
-    if (m < M) {
-      float cross = 0.0f;
-      for (int c = 0; c < Din; ++c) cross = fmaf(zsS[m * Din + c], xsS[c * TN + j], cross);
-      k = kuf_of<KIND>(v, fmaxf((xx[j] - 2.0f * cross) + zz[m], 0.0f));
+  const long long ntiles = (n + BTN - 1) / BTN;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long p0 = tile * BTN;
+    const int nt = static_cast<int>(n - p0 < BTN ? n - p0 : BTN);
+
+    // this tile's points; rows past n read as 0
+    for (int e = tid; e < BTN * Din; e += BNT) {
+      const int j = e / Din, c = e % Din;
+      xsS[c * BTN + j] = j < nt ? __ldg(xs + (p0 + j) * Din + c) : 0.0f;
     }
-    T[e] = k;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // phases 2-3: a, t1, mean, b_d and var (Kff == v)
-  conditional_tile<RM>(W, T, red, t1s, outm, outv, qm, sqT, M, D, tid,
-                       [v](int) { return v; });
+    // the kuf tile, zero past M and past n: a thread owns 16 points
+    // (columns 32 u + 4 q + w, u and w < 4) of MP / 32 rows (32 r + m0), so
+    // each point's x is read once and feeds every row; every k(sq) is
+    // computed and then selected, so the exponentials interleave
+    {
+      constexpr int ROWS = MP / 32;
+      const int m0 = tid / (BTN / 16), q = tid % (BTN / 16);
+      float cross[ROWS][16] = {}, xx[16] = {};
+#pragma unroll 4
+      for (int c = 0; c < Din; ++c) {
+        float x[16];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float x4[4];
+          lds4(xsS + c * BTN + 32 * u + 4 * q, x4);
+#pragma unroll
+          for (int w = 0; w < 4; ++w) x[4 * u + w] = x4[w];
+        }
+#pragma unroll
+        for (int p = 0; p < 16; ++p) xx[p] = fmaf(x[p], x[p], xx[p]);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float z = zsS[(32 * r + m0) * Din + c];
+#pragma unroll
+          for (int p = 0; p < 16; ++p) cross[r][p] = fmaf(z, x[p], cross[r][p]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const int m = 32 * r + m0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float k[4];
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            const int p = 4 * u + w;
+            const float kv = kuf_of<KIND>(v, fmaxf((xx[p] - 2.0f * cross[r][p]) + zz[m], 0.0f));
+            k[w] = m < M && 32 * u + 4 * q + w < nt ? kv : 0.0f;
+          }
+          *reinterpret_cast<float4*>(t.T + m * FTS + 32 * u + 4 * q) =
+              make_float4(k[0], k[1], k[2], k[3]);
+        }
+      }
+    }
 
-  // outputs are [n][D] row-major: this tile is one contiguous run
-  const long long base = p0 * D;
-  for (int e = tid; e < nt * D; e += NT) {
-    mean[base + e] = outm[e];
-    var[base + e] = outv[e];
+    tile_forward<MP>(t, ring, M, D, tid, [v](int) { return v; }, mean + p0 * D,
+                     var + p0 * D, nt);
   }
+  cp_async_wait_all();
 }
 
 // -- backward -------------------------------------------------------------------
@@ -278,7 +301,7 @@ fused_bwd_a(const float* __restrict__ pinv, const float* __restrict__ xs,
   float* zz = smem + L.zz;
   float* wsum = smem + L.wsum;
   const long long MM = static_cast<long long>(M) * M;
-  Ring ring{{smem, smem + L.ring1}, pinv, sqT, MM, M, D, 0};
+  Ring ring{{smem, smem + L.ring1}, pinv, sqT, MM, M, D, D + 2, 0};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
@@ -413,34 +436,9 @@ fused_bwd_a(const float* __restrict__ pinv, const float* __restrict__ xs,
 
 // -- host side ------------------------------------------------------------------
 
-// f(Int<KIND>, Int<RM>) for the kernel kind and the padded M
-template <typename F>
-auto dispatch(int kind, int M, F f) {
-  const bool small = padded_m(M) == 64;
-  switch (kind) {
-    case 0: return small ? f(Int<0>{}, Int<4>{}) : f(Int<0>{}, Int<8>{});
-    case 1: return small ? f(Int<1>{}, Int<4>{}) : f(Int<1>{}, Int<8>{});
-    default: return small ? f(Int<2>{}, Int<4>{}) : f(Int<2>{}, Int<8>{});
-  }
-}
-
-template <int KIND, int RM>
-cudaError_t launch_fwd(const float* pinvT, const float* xs, const float* zs,
-                       const float* v, const float* qmu, const float* sqT,
-                       float* mean, float* var, long long n, int M, int Din, int D,
-                       cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(smem_bytes(M, Din, D));
-  auto kern = fused_fwd<KIND, RM>;
-  const cudaError_t err = allow_shared_memory(kern, bytes);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>((n + TN - 1) / TN);
-  kern<<<grid, NT, bytes, stream>>>(pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D);
-  return cudaGetLastError();
-}
-
 // f(Int<KIND>, Int<MP>) for the kernel kind and the padded M
 template <typename F>
-auto dispatch_bwd(int kind, int M, F f) {
+auto dispatch(int kind, int M, F f) {
   const bool small = padded_m(M) == 64;
   switch (kind) {
     case 0: return small ? f(Int<0>{}, Int<64>{}) : f(Int<0>{}, Int<128>{});
@@ -453,19 +451,40 @@ auto dispatch_bwd(int kind, int M, F f) {
 
 extern "C" {
 
-// Launches the forward on `stream`. pinvT = Pinv^T [M][M], xs [n][Din],
-// zs [M][Din], v [1], qmu [M][D], sqT[d] = Sq[d]^T [D][M][M]; mean and var
-// [n][D]. All float32, contiguous, on one device. Returns cudaGetLastError().
-int dgp_fused_rbf_fwd(int kind, const float* pinvT, const float* xs,
+// The forward's persistent grid: the blocks of its plan for (kind, M, Din,
+// D) that the card holds at once (the wrapper asks once per device and
+// sizes). 0 if the sizes are outside the plan or CUDA reports an error.
+int dgp_fused_rbf_fwd_blocks(int kind, int M, int Din, int D) {
+  if (kind < 0 || kind > 2 || !fits(M, Din, D)) return 0;
+  return dispatch(kind, M, [&](auto K, auto P) {
+    return resident_count<BNT>(fused_fwd<decltype(K)::value, decltype(P)::value>,
+                               static_cast<size_t>(smem_bytes(M, Din, D)));
+  });
+}
+
+// Launches the forward on `stream` as min(blocks, tiles of n) blocks, blocks
+// from dgp_fused_rbf_fwd_blocks. pinv = Pinv [M][M] (lower-triangular: only
+// its lower triangle is read), xs [n][Din], zs [M][Din], v [1], qmu [M][D],
+// sqT[d] = tril(q_sqrt[d]) = Sq[d]^T [D][M][M] (only its lower triangle is
+// read); mean and var [n][D]. All float32, contiguous, on one device.
+// Returns cudaGetLastError().
+int dgp_fused_rbf_fwd(int kind, const float* pinv, const float* xs,
                       const float* zs, const float* v, const float* qmu,
                       const float* sqT, float* mean, float* var, long long n,
-                      int M, int Din, int D, void* stream) {
-  if (kind < 0 || kind > 2 || n < 1 || !fits(M, Din, D))
+                      int M, int Din, int D, int blocks, void* stream) {
+  if (kind < 0 || kind > 2 || n < 1 || !fits(M, Din, D) || blocks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long ntiles = (n + BTN - 1) / BTN;
+  const int grid = static_cast<int>(ntiles < blocks ? ntiles : blocks);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(kind, M, [&](auto K, auto R) {
-    return launch_fwd<decltype(K)::value, decltype(R)::value>(
-        pinvT, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D, s);
+  const size_t bytes = static_cast<size_t>(smem_bytes(M, Din, D));
+  return static_cast<int>(dispatch(kind, M, [&](auto K, auto P) {
+    static std::atomic<unsigned long long> allowed{0};
+    auto kern = fused_fwd<decltype(K)::value, decltype(P)::value>;
+    const cudaError_t e = allow_shared_memory_once(kern, allowed);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, BNT, bytes, s>>>(pinv, xs, zs, v, qmu, sqT, mean, var, n, M, Din, D);
+    return cudaGetLastError();
   }));
 }
 
@@ -482,7 +501,7 @@ int dgp_fused_rbf_bwd_supported(int M, int Din, int D) { return bwd_fits(M, Din,
 // the plan or CUDA reports an error.
 int dgp_fused_rbf_bwd_blocks(int kind, long long n, int M, int Din, int D) {
   if (kind < 0 || kind > 2 || n < 1 || !bwd_fits(M, Din, D)) return 0;
-  return dispatch_bwd(kind, M, [&](auto K, auto P) {
+  return dispatch(kind, M, [&](auto K, auto P) {
     return resident_blocks<BNT, BTN>(fused_bwd_a<decltype(K)::value, decltype(P)::value>,
                                      static_cast<size_t>(bwd_smem_bytes(M, Din, D)), n);
   });
@@ -513,7 +532,7 @@ int dgp_fused_rbf_bwd_a(int kind, const float* pinv, const float* xs, const floa
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t bytes = static_cast<size_t>(bwd_smem_bytes(M, Din, D));
-  const cudaError_t err = dispatch_bwd(kind, M, [&](auto K, auto P) {
+  const cudaError_t err = dispatch(kind, M, [&](auto K, auto P) {
     static std::atomic<unsigned long long> allowed{0};
     auto kern = fused_bwd_a<decltype(K)::value, decltype(P)::value>;
     const cudaError_t e = allow_shared_memory_once(kern, allowed);

@@ -220,21 +220,26 @@ cudaError_t allow_shared_memory_once(K kern, std::atomic<unsigned long long>& do
   return err;
 }
 
-// Blocks of `kern` (THREADS threads and `bytes` of shared memory a block,
-// TILE points a tile) the card holds at once (a persistent grid), capped at
-// the number of tiles of n points; 0 on a CUDA error. It opts the kernel
-// into the most shared memory a block may take, never less: a launch that
-// set the attribute once must not find it lowered by this query.
-template <int THREADS = NT, int TILE = TN, typename K>
-int resident_blocks(K kern, size_t bytes, long long n) {
+// Blocks of `kern` (THREADS threads and `bytes` of shared memory a block)
+// the card holds at once: a persistent grid; 0 on a CUDA error. It opts the
+// kernel into the most shared memory a block may take, never less: a launch
+// that set the attribute once must not find it lowered by this query.
+template <int THREADS, typename K>
+int resident_count(K kern, size_t bytes) {
   int dev = 0, sms = 0, per_sm = 0;
   if (allow_shared_memory(kern, MAX_SMEM) != cudaSuccess ||
       cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, bytes) != cudaSuccess)
     return 0;
+  return sms * per_sm;
+}
+
+// resident_count, capped at the number of tiles of n points (TILE a tile).
+template <int THREADS = NT, int TILE = TN, typename K>
+int resident_blocks(K kern, size_t bytes, long long n) {
   const long long tiles = (n + TILE - 1) / TILE;
-  const long long resident = static_cast<long long>(sms) * per_sm;
+  const long long resident = resident_count<THREADS>(kern, bytes);
   return static_cast<int>(tiles < resident ? tiles : resident);
 }
 

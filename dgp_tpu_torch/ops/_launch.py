@@ -66,10 +66,10 @@ def plan_sizes(lib, prefix):
 
 
 @functools.lru_cache(maxsize=None)
-def phase_a_blocks(lib, prefix, device, *sizes):
-    """Phase A's persistent grid on ``device`` for the sizes that the
-    library's ``{prefix}_blocks`` entry takes (0 where its plan refuses
-    them), asked once per device and sizes."""
+def grid_blocks(lib, prefix, device, *sizes):
+    """A persistent grid's blocks on ``device`` (a forward's, or a backward's
+    phase A) for the sizes that the library's ``{prefix}_blocks`` entry takes
+    (0 where its plan refuses them), asked once per device and sizes."""
     with torch.cuda.device(device):
         return getattr(lib, f"{prefix}_blocks")(*sizes)
 

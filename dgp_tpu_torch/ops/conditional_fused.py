@@ -41,13 +41,15 @@ import torch
 from .. import _build
 from ..config import ieee_fp32
 from ._launch import (backward_passes, backward_scratch, finish_gram,
-                      phase_a_blocks, pointer, run_gram, run_kernel)
+                      grid_blocks, pointer, run_gram, run_kernel)
 from ._launch import gram_backward as _gram_backward
 
 _LIB = "conditional_fused"
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "dgp_conditional_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _P],
+    "dgp_conditional_fused_fwd": [_P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I,
+                                  _P],
+    "dgp_conditional_fused_fwd_blocks": [_I, _I],
     "dgp_conditional_fused_supported": [_I, _I],
     "dgp_conditional_fused_bwd_supported": [_I, _I],
     "dgp_conditional_fused_bwd_blocks": [_N, _I, _I],
@@ -102,8 +104,9 @@ def _a_b(Pinv, Kuf, Sq):
 @ieee_fp32()
 def fused_conditional_white_plain(Pinv, Kuf, q_mu, Sq, Kff):
     """The kernel's function in plain PyTorch, on any device and dtype:
-    (mean [n, D], var [n, D])."""
-    A, _, t1, t2 = _a_b(Pinv, Kuf, Sq)
+    (mean [n, D], var [n, D]). It reads what the kernel reads, Pinv's lower
+    and Sq's upper triangle, which are all there is on the whitened path."""
+    A, _, t1, t2 = _a_b(torch.tril(Pinv), Kuf, torch.triu(Sq))
     mean = A.T @ q_mu
     var = torch.clamp_min((Kff - t1) + t2, 0.0).T
     return mean, var
@@ -170,9 +173,10 @@ def _checked(Pinv, Kuf, q_mu, Sq, Kff, **cotangents):
 
 
 def _kernel_operands(Pinv, Kuf, q_mu, Sq, Kff):
-    """Contiguous operands in the kernels' layouts: they stage k-major
-    panels, Pinv^T and Sq^T = tril(q_sqrt)."""
-    return (Pinv.T.contiguous(), Kuf.contiguous(), q_mu.contiguous(),
+    """Contiguous operands in the kernels' layouts: Pinv itself and
+    Sq^T = tril(q_sqrt), which both directions stage as packed lower
+    triangles (nothing above their diagonals is read)."""
+    return (Pinv.contiguous(), Kuf.contiguous(), q_mu.contiguous(),
             Sq.transpose(1, 2).contiguous(), Kff.contiguous())
 
 
@@ -185,19 +189,13 @@ def _launch(Pinv, Kuf, q_mu, Sq, Kff):
         return mean, var
     operands = _kernel_operands(Pinv, Kuf, q_mu, Sq, Kff)
     lib = _library()
+    blocks = grid_blocks(lib, "dgp_conditional_fused_fwd", Kuf.device, M, D)
     run_kernel(lib, lib.dgp_conditional_fused_fwd, Kuf.device,
                "fused whitened conditional kernel launch",
                *[t.data_ptr() for t in operands], mean.data_ptr(),
-               var.data_ptr(), n, M, D)
+               var.data_ptr(), n, M, D, blocks)
     FusedConditionalWhite.launches += 1
     return mean, var
-
-
-def _backward_operands(Pinv, Kuf, q_mu, Sq, Kff):
-    """Contiguous operands in the backward's layouts: Pinv itself and
-    Sq^T = tril(q_sqrt), which it stages as packed lower triangles."""
-    return (Pinv.contiguous(), Kuf.contiguous(), q_mu.contiguous(),
-            Sq.transpose(1, 2).contiguous(), Kff.contiguous())
 
 
 def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
@@ -206,7 +204,7 @@ def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
         return tuple(torch.zeros_like(t) for t in (Pinv, Kuf, q_mu, Sq, Kff))
     dev = Kuf.device
     f32 = dict(dtype=torch.float32, device=dev)
-    pinv, kuf, qm, sqT, kff = _backward_operands(Pinv, Kuf, q_mu, Sq, Kff)
+    pinv, kuf, qm, sqT, kff = _kernel_operands(Pinv, Kuf, q_mu, Sq, Kff)
     gm, gv = g_mean.contiguous(), g_var.contiguous()
     lib = _library()
     if not backward_supported(M, D):
@@ -216,7 +214,7 @@ def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
     dKuf = torch.empty((M, n), **f32)
     dKff = torch.empty((n,), **f32)
     for start, count in backward_passes(n):
-        blocks = phase_a_blocks(lib, _PREFIX, dev, count, M, D)
+        blocks = grid_blocks(lib, _PREFIX, dev, count, M, D)
         run_kernel(lib, lib.dgp_conditional_fused_bwd_a, dev,
                    "fused whitened conditional backward phase A launch",
                    pinv.data_ptr(), pointer(kuf, start), n, qm.data_ptr(),

@@ -43,7 +43,7 @@ import torch
 from .. import _build
 from ..config import ieee_fp32
 from ._launch import (backward_passes, backward_scratch, finish_gram,
-                      phase_a_blocks, pointer, run_gram, run_kernel)
+                      grid_blocks, pointer, run_gram, run_kernel)
 from ._launch import gram_backward as _gram_backward
 # phase B's plain version, shared with the Kuf-consuming kernels
 from .conditional_fused import gram_backward_plain  # noqa: F401
@@ -51,7 +51,9 @@ from .conditional_fused import gram_backward_plain  # noqa: F401
 _LIB = "conditional_fused_rbf"
 _P, _I, _N = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "dgp_fused_rbf_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I, _P],
+    "dgp_fused_rbf_fwd": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _N, _I, _I, _I, _I,
+                          _P],
+    "dgp_fused_rbf_fwd_blocks": [_I, _I, _I, _I],
     "dgp_fused_rbf_supported": [_I, _I, _I],
     "dgp_fused_rbf_bwd_supported": [_I, _I, _I],
     "dgp_fused_rbf_bwd_blocks": [_I, _N, _I, _I, _I],
@@ -141,11 +143,12 @@ def _sq_kuf_a(kind, Pinv, Xs, Zs, variance):
 @ieee_fp32()
 def fused_conditional_plain(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
     """The kernel's function in plain PyTorch, on any device and dtype:
-    (mean [n, D], var [n, D])."""
-    _, _, A = _sq_kuf_a(kind, Pinv, Xs, Zs, variance)
+    (mean [n, D], var [n, D]). It reads what the kernel reads, Pinv's lower
+    and Sq's upper triangle, which are all there is on the whitened path."""
+    _, _, A = _sq_kuf_a(kind, torch.tril(Pinv), Xs, Zs, variance)
     mean = A.T @ q_mu                                  # [n, D]
     t1 = torch.sum(A * A, dim=0)                       # [n]
-    B = Sq @ A                                         # [D, M, n]
+    B = torch.triu(Sq) @ A                             # [D, M, n]
     t2 = torch.sum(B * B, dim=1)                       # [D, n]
     var = torch.clamp_min((variance - t1) + t2, 0.0).T
     return mean, var
@@ -218,9 +221,10 @@ def _checked(Pinv, Xs, Zs, variance, q_mu, Sq, **cotangents):
 
 
 def _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq):
-    """Contiguous operands in the kernels' layouts: they stage k-major
-    panels, Pinv^T and Sq^T = tril(q_sqrt)."""
-    return (Pinv.T.contiguous(), Xs.contiguous(), Zs.contiguous(),
+    """Contiguous operands in the kernels' layouts: Pinv itself and
+    Sq^T = tril(q_sqrt), which both directions stage as packed lower
+    triangles (nothing above their diagonals is read)."""
+    return (Pinv.contiguous(), Xs.contiguous(), Zs.contiguous(),
             variance.reshape(1).contiguous(), q_mu.contiguous(),
             Sq.transpose(1, 2).contiguous())
 
@@ -234,19 +238,12 @@ def _launch(kind, Pinv, Xs, Zs, variance, q_mu, Sq):
         return mean, var
     operands = _kernel_operands(Pinv, Xs, Zs, variance, q_mu, Sq)
     lib = _library()
+    blocks = grid_blocks(lib, "dgp_fused_rbf_fwd", dev, kind, M, Din, D)
     run_kernel(lib, lib.dgp_fused_rbf_fwd, dev, "fused conditional kernel launch",
                kind, *[t.data_ptr() for t in operands], mean.data_ptr(),
-               var.data_ptr(), n, M, Din, D)
+               var.data_ptr(), n, M, Din, D, blocks)
     FusedConditional.launches += 1
     return mean, var
-
-
-def _backward_operands(Pinv, Xs, Zs, variance, q_mu, Sq):
-    """Contiguous operands in the backward's layouts: Pinv itself and
-    Sq^T = tril(q_sqrt), which it stages as packed lower triangles."""
-    return (Pinv.contiguous(), Xs.contiguous(), Zs.contiguous(),
-            variance.reshape(1).contiguous(), q_mu.contiguous(),
-            Sq.transpose(1, 2).contiguous())
 
 
 def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
@@ -257,8 +254,8 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
         return (torch.zeros_like(Pinv), torch.zeros_like(Xs),
                 torch.zeros_like(Zs), torch.zeros_like(variance),
                 torch.zeros_like(q_mu), torch.zeros_like(Sq))
-    pinv, xs, zs, v, qm, sqT = _backward_operands(Pinv, Xs, Zs, variance, q_mu,
-                                                  Sq)
+    pinv, xs, zs, v, qm, sqT = _kernel_operands(Pinv, Xs, Zs, variance, q_mu,
+                                                Sq)
     gm, gv = g_mean.contiguous(), g_var.contiguous()
     lib = _library()
     if not backward_supported(M, Din, D):
@@ -268,7 +265,7 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
                           dev)
     dXs = torch.empty((n, Din), dtype=torch.float32, device=dev)
     for start, count in backward_passes(n):
-        blocks = phase_a_blocks(lib, _PREFIX, dev, kind, count, M, Din, D)
+        blocks = grid_blocks(lib, _PREFIX, dev, kind, count, M, Din, D)
         run_kernel(lib, lib.dgp_fused_rbf_bwd_a, dev,
                    "fused conditional backward phase A launch", kind,
                    pinv.data_ptr(), pointer(xs, start * Din), zs.data_ptr(),

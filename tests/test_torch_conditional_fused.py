@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from dgp_tpu.ops import conditional_fused as jcf
 from dgp_tpu_torch.ops import conditional_fused as tcf
+from dgp_tpu_torch.ops import conditional_fused_rbf as tcfr
 
 # the jnp math of the JAX package's own tests of these kernels
 from test_conditional_fused import _reference
@@ -182,3 +183,25 @@ def test_gate_keeps_cpu_and_f64_away_without_building(monkeypatch):
                               on_card(Sq, F64), on_card(q_mu, F64))
     assert not tcf.applicable(on_card(Pinv, f32), on_card(Kuf, f32),
                               on_card(Sq, f32), on_card(q_mu, F64))
+
+
+@pytest.mark.parametrize("stationary", [False, True])
+def test_plain_forwards_read_only_the_triangles(stationary):
+    """Both plain forwards read what the CUDA forwards read, Pinv's lower
+    and Sq's upper triangle: NaN above Pinv's diagonal and below Sq's gives
+    the same bits as the clean triangles."""
+    Pinv, Kuf, q_mu, Sq, Kff = (t(a) for a in data(2, 6, 9, seed=5)[:5])
+    above = torch.ones((6, 6), dtype=torch.bool).triu(1)
+    dirty = (Pinv.masked_fill(above, float("nan")),
+             Sq.masked_fill(above.T, float("nan")))
+    assert dirty[0].isnan().sum() == 15 and dirty[1].isnan().sum() == 2 * 15
+    if stationary:
+        rng = np.random.default_rng(6)
+        Xs, Zs = t(rng.uniform(size=(9, 3))), t(rng.uniform(size=(6, 3)))
+        run = lambda P, S: tcfr.fused_conditional_plain(0, P, Xs, Zs, t(1.3),
+                                                        q_mu, S)
+    else:
+        run = lambda P, S: tcf.fused_conditional_white_plain(P, Kuf, q_mu, S,
+                                                             Kff)
+    for clean, got in zip(run(Pinv, Sq), run(*dirty)):
+        assert torch.isfinite(got).all() and torch.equal(got, clean)

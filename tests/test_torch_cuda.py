@@ -60,7 +60,8 @@ def inputs(kind, D, M, Din, n, device, seed=0):
                 torch.tril(q_sqrt).transpose(-1, -2))
 
 
-# M = 64 and 128 stage with float4 copies; 50 and 100 take the padded path
+# M = 64, 100 and 128 stage their triangles with 16-byte copies, 50 with
+# 4-byte ones; 50 and 100 are padded to 64 and 128
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", sorted(KINDS))
 @pytest.mark.parametrize("D,M,Din,n", [(3, 64, 5, 1037), (8, 128, 8, 4101),
@@ -100,6 +101,65 @@ def test_kernel_refuses_float64(cuda):
     args = [a.double() for a in inputs(0, 2, 64, 3, 100, cuda)]
     with pytest.raises(TypeError, match="float32"):
         cfr.fused_conditional_white_stationary(0, *args)
+
+
+# the forwards' edges: the plans pad M to 64 or 128 and take tiles of 128
+# points; 262,181 points make more tiles than resident blocks, the last one
+# ragged
+FORWARD_EDGES = [(m, n) for m in (8, 64, 100, 128)
+                 for n in (1, 63, 64, 65, 127, 128, 129, 1_025, 262_181)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["RBF", "Matern32", "Matern52", "#3"])
+@pytest.mark.parametrize("M,n", FORWARD_EDGES)
+def test_forward_edges_match_plain(cuda, kernel, M, n):
+    """Kernels #1 (each kind) and #3 at the edges of their tiles and of the
+    padded M against their plain versions in f64 on the same f32 inputs,
+    within 1e-4 of each output's scale, with a repeat and a run with NaN
+    above Pinv's diagonal and below Sq's giving the same bits
+    (chip_smoke.check_kernel and check_fused_white raise otherwise)."""
+    seed = M + n % 1000
+    if kernel == "#3":
+        chip_smoke.check_fused_white(3, M, 8, n, seed)
+    else:
+        kind = next(k for k, name in KINDS.items() if name == kernel)
+        chip_smoke.check_kernel(kind, 3, M, 8, n, seed)
+
+
+@pytest.mark.cuda
+def test_forward_grid_asked_once(cuda):
+    """The forwards' persistent grid (the blocks the card holds at once) is
+    asked of the library once per device and sizes, not at every launch,
+    and a launch on fewer tiles than that still covers every point."""
+    args = inputs(0, 3, 64, 5, 300, cuda)
+    wargs = composite_inputs(3, 64, 5, 300, cuda)
+    with torch.no_grad():
+        full = (cfr._launch(0, *args), cf._launch(*wargs))
+        before = _launch.grid_blocks.cache_info()
+        for n in (1, 129, 300):
+            m1, v1 = cfr._launch(0, args[0], args[1][:n], *args[2:])
+            Pinv, Kuf, q_mu, Sq, Kff = wargs
+            m3, v3 = cf._launch(Pinv, Kuf[:, :n].contiguous(), q_mu, Sq, Kff[:n])
+            for (m, v), (mf, vf) in zip(((m1, v1), (m3, v3)), full):
+                assert torch.equal(m, mf[:n]) and torch.equal(v, vf[:n])
+        after = _launch.grid_blocks.cache_info()
+    assert (after.misses, after.hits) == (before.misses, before.hits + 6)
+
+
+@pytest.mark.cuda
+def test_forward_gates_cover_the_backward_gates(cuda):
+    """Wherever a whitened backward's plan takes a width, its forward's
+    takes it too, and at M = 128 both forwards take every width the repo's
+    configurations use (D <= 8, Din <= 8)."""
+    for M in (8, 64, 100, 128):
+        for D in range(1, 41):
+            assert cf.supported(M, D) or not cf.backward_supported(M, D)
+            for Din in (1, 5, 8, 16):
+                assert (cfr.supported(M, Din, D)
+                        or not cfr.backward_supported(M, Din, D))
+    assert all(cfr.supported(128, Din, D) and cf.supported(128, D)
+               for D in range(1, 9) for Din in range(1, 9))
 
 
 # the whitened backwards' points per pass

@@ -33,11 +33,17 @@ Phases, each of which raises (exit code 1) on any fault:
              dPinv and dSq exactly 0 off the patterns of Pinv and Sq, one
              launch of each phase per pass, and a second run bit for bit
              equal to the first; phase B alone (the split-K Grams) at the
-             layers' shapes. Then the quadform kernel and its backward,
-             with and without t1, at the same layer shapes, at two small
-             ones (D=3, M=64 and D=2, M=100, which the plan pads to 128) and
-             at the BO constraint surrogate's (D=1, M=8; n=80 in training,
-             n=30,000 in the acquisition).
+             layers' shapes. Then the quadform kernel (#5) and its
+             backward (#6, phase A and phase B), with and without t1, at
+             the same layer shapes, at two small ones (D=3, M=64 and D=2,
+             M=100, which the plans pad to 128), at the BO constraint
+             surrogate's (D=1, M=8; n=80 in training, n=30,000 in the
+             acquisition), at M = 8, 64, 100, 128 by n = 1, 127, 128, 129
+             and 131,109 (a pass of phase B and 37 points more), and on a
+             non-whitened layer's own operands at the prior: each with a
+             repeat and a run with NaN below Sq's diagonal bit for bit
+             equal, dSq exactly 0 below the diagonal, one phase-A and one
+             phase-B launch per pass.
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
              varies per point), at the same four shapes (#3 also at #1's
@@ -110,12 +116,13 @@ Phases, each of which raises (exit code 1) on any fault:
 6. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
-             need at the rates of the kernel's route (#2/#4 also phase A,
-             phase B and the reductions apart, from torch.profiler, and
-             phase B alone); #1 (all three kinds) and #3 also at
-             n = 100,000, with the profiler's device time, and beside the
-             fp32 bound too (their products b_d run on the tensor cores);
-             #3 against its plain version at n = 10,000;
+             need at the rates of the kernel's route (#2/#4/#6 also phase
+             A, phase B and the reductions apart, from torch.profiler; #2/#4
+             also phase B alone); #1 (all three kinds) and #3 also at
+             n = 100,000; #1, #3 and #5 with the profiler's device time, and
+             beside the fp32 bound too (their products b_d run on the
+             tensor cores); #3 and #5 against their plain versions at
+             n = 10,000;
              #7 and #8 at the models' and the BO's stacks beside the
              library calls for the same function (cholesky_ex, and
              solve_triangular for #8), event-timed and, from torch.profiler,
@@ -129,7 +136,8 @@ Phases, each of which raises (exit code 1) on any fault:
              steps of each of the three models (torch.profiler).
 
 The line before the last is one JSON object listing every ported kernel
-(and, as entries of their own, the phase B of #2 and of #4);
+(and, as entries of their own, the phase B of #2 and of #4; #6's phase B
+launches stand in its entry);
 the last line is {"ok": true, "device": {...}}. Without a card, or without
 the rest of the repository beside it, the script fails before printing
 either.
@@ -185,6 +193,9 @@ WITNESS_CAP = 1e-2
 EDGE_M = (8, 64, 100, 128)
 BACKWARD_EDGE_N = (1, 63, 64, 65, 129, 1_025)
 FORWARD_EDGE_N = (1, 63, 64, 65, 127, 128, 129, 1_025, 262_144 + 37)
+# the quadform's (#5/#6) edge points: its tiles of 128 points, and one pass
+# of #6's phase B (2^17 points) and 37 more
+QUADFORM_EDGE_N = (1, 127, 128, 129, 131_072 + 37)
 # 100 or 128 inducing inputs drawn in 5 dimensions make Kuu so
 # ill-conditioned (RBF: max|Pinv| 65-83) that plain fp32 is itself near
 # TOL_BWD of scale off float64 in dXs: #1 and #2 are held there to TOL (or
@@ -221,7 +232,7 @@ def build():
         kernel = ""
         for line in (text or "").splitlines():
             entry = re.search(r"Compiling entry function .*?("
-                              r"[a-z][a-z_]*_(?:fwd|bwd)(?:_a)?|reduce_slabs|"
+                              r"[a-z][a-z_]*_(?:fwd|bwd)(?:_a)?|"
                               r"reduce_parts|gram_finish|cholesky_kernel)"
                               r"(I(?:L[ib]\d+E)+E)?", line)
             if entry:
@@ -257,13 +268,20 @@ def fused_inputs(kind, D, Mi, Din, n, seed, device):
                 torch.tril(q_sqrt).transpose(-1, -2))
 
 
+def with_nan_below(Sq):
+    """Sq with NaN below its diagonal, where tril(q_sqrt)^T holds zeros: the
+    kernels read only Sq's upper triangle, so their results must keep their
+    bits."""
+    below = torch.ones(Sq.shape[-2:], dtype=torch.bool, device=Sq.device).tril(-1)
+    return Sq.masked_fill(below, float("nan"))
+
+
 def with_garbage(Pinv, Sq):
     """Pinv with NaN above its diagonal and Sq with NaN below its own: the
     whitened kernels read only the lower triangle of Pinv and the upper one
     of Sq, so their results must keep their bits."""
-    above = torch.ones(Pinv.shape, dtype=torch.bool, device=Pinv.device).triu(1)
-    return (Pinv.masked_fill(above, float("nan")),
-            Sq.masked_fill(above.T, float("nan")))
+    return Pinv.masked_fill(torch.ones_like(Pinv, dtype=torch.bool).triu(1),
+                            float("nan")), with_nan_below(Sq)
 
 
 def check_repeats(what, run, args, pinv_at, sq_at, outputs):
@@ -525,78 +543,126 @@ def quadform_inputs(D, Mi, n, seed, device):
     return Sq, A, g2, g1
 
 
-def check_quadform(D, Mi, n, with_t1, seed):
+def prior_quadform_inputs(D, Mi, n, seed, device):
+    """A non-whitened layer's quadform operands at the prior, where its
+    training starts, in float32: A = Kuu^-1 Kuf of an RBF kernel
+    (lengthscale 1) on Mi inducing and n points drawn in 3 input
+    dimensions, Kuu with the float32 jitter 1e-4 (reckoned in float64), and
+    Sq = tril(q_sqrt)^T with q_sqrt = chol(Kuu) in every output, so that
+    b_d = Sq[d] a = Lu^-1 kuf; g2, g1 ~ N(0, 1). (On the CPU at M = 100,
+    n = 1,037: max|a| 1.29, max t2 1.00, plain float32 1.0e-6 of it off
+    float64: no witness rule is needed.)"""
+    rng = np.random.default_rng(seed)
+    Z, X = rng.uniform(size=(Mi, 3)), rng.uniform(size=(n, 3))
+    rbf = lambda P, Q: np.exp(-0.5 * ((P[:, None] - Q[None]) ** 2).sum(-1))
+    Kuu = rbf(Z, Z) + 1e-4 * np.eye(Mi)
+    A = np.linalg.solve(Kuu, rbf(Z, X))
+    Sq = np.broadcast_to(np.linalg.cholesky(Kuu).T, (D, Mi, Mi))
+    f32 = dict(dtype=torch.float32, device=device)
+    return tuple(torch.tensor(np.ascontiguousarray(x), **f32) for x in (
+        Sq, A, rng.normal(size=(D, n)), rng.normal(size=(n,))))
+
+
+def held(what, name, got, want, tol):
+    """(err, report) of one output against its float64 plain version: a
+    finite float32 tensor of its shape with err <= tol * max|want|; raises
+    otherwise."""
+    if got.dtype != torch.float32:
+        raise AssertionError(f"{what} {name}: dtype {got.dtype}, not float32")
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{what} {name}: bad shape or non-finite")
+    err, scale = float((got.double() - want).abs().max()), float(want.abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: {name} off by {err:.3e}, {err / scale:.2e} "
+                             f"of its scale {scale:.3e}")
+    return err, f"{name} {err / scale:.2e}"
+
+
+def check_quadform(D, Mi, n, with_t1, seed, prior=False, inputs=None):
     """Kernel #5 against its plain version in float64 on the same float32
-    inputs: t2 within TOL of max|t2|, and t1 within TOL of max|t1|."""
+    inputs: t2 within TOL of max|t2|, and t1 within TOL of max|t1|; a repeat
+    and a run with NaN below Sq's diagonal bit for bit equal to the first.
+    With ``prior`` the inputs are a non-whitened layer's at the prior
+    (:func:`prior_quadform_inputs`), else :func:`quadform_inputs`, unless
+    ``inputs`` gives (Sq, A, g2, g1) on the card."""
     from dgp_tpu_torch.ops import quadform as qf
 
-    Sq, A, _, _ = quadform_inputs(D, Mi, n, seed, DEVICE)
+    make = prior_quadform_inputs if prior else quadform_inputs
+    Sq, A, _, _ = inputs or make(D, Mi, n, seed, DEVICE)
+    run = lambda s: qf.QuadForm.apply(s, A, with_t1)
     before = qf.QuadForm.launches
     with torch.no_grad():
-        got = qf.QuadForm.apply(Sq, A, with_t1)
+        runs = [run(Sq), run(Sq), run(with_nan_below(Sq))]
         sync()
-        d = lambda x: x.double()
-        want = (qf.quadform_t2_t1_reference(d(Sq), d(A)) if with_t1
-                else qf.quadform_t2_reference(d(Sq), d(A)))
-    if qf.QuadForm.launches != before + 1:
+        want = (qf.quadform_t2_t1_reference(Sq.double(), A.double()) if with_t1
+                else (qf.quadform_t2_reference(Sq.double(), A.double()),))
+    if qf.QuadForm.launches != before + 3:
         raise AssertionError("the quadform did not launch its kernel")
-    got, want = (got, want) if with_t1 else ((got,), (want,))
+    got, again, dirty = (r if with_t1 else (r,) for r in runs)
+    what = f"quadform D={D} M={Mi} n={n}"
     worst, report = 0.0, []
-    for name, g, w in zip(("t2", "t1"), got, want):
-        if g.shape != w.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"quadform {name}: bad shape or non-finite")
-        err = float((g.double() - w).abs().max())
-        scale = float(w.abs().max())
-        report.append(f"{name} {err / scale:.2e}")
+    for name, g, a, b, w in zip(("t2", "t1"), got, again, dirty, want):
+        if not (torch.equal(g, a) and torch.equal(g, b)):
+            raise AssertionError(f"{what}: a repeat or NaN below Sq's diagonal "
+                                 f"changed {name}'s bits")
+        err, line = held(what, name, g, w, TOL)
         worst = max(worst, err)
-        if not err <= TOL * scale:
-            raise AssertionError(f"quadform D={D} M={Mi} n={n}: {name} off by "
-                                 f"{err:.3e}, {err / scale:.2e} of its scale")
-    log(f"[kernels] quadform{' +t1' if with_t1 else ''} D={D} M={Mi} n={n}: "
-        f"err / max|plain f64| (tol {TOL}): {', '.join(report)} ok")
+        report.append(line)
+    log(f"[kernels] quadform{' +t1' if with_t1 else ''} D={D} M={Mi} n={n}"
+        f"{' at the prior' if prior else ''}: err / max|plain f64| (tol {TOL}): "
+        f"{', '.join(report)}; repeat and NaN below Sq's diagonal bit-equal ok")
     return worst
 
 
-def check_quadform_backward(D, Mi, n, with_t1, seed):
-    """Kernel #6 through autograd of the wrapper, against the plain backward
-    in float64 on the same float32 inputs: dSq and dA each within TOL_BWD of
-    its largest magnitude; a second run bit for bit equal to the first."""
+def check_quadform_backward(D, Mi, n, with_t1, seed, prior=False,
+                            inputs=None):
+    """Kernel #6 (phase A and phase B) through autograd of the wrapper,
+    against the plain backward in float64 on the same float32 inputs
+    (those of :func:`check_quadform`): dSq and dA each within TOL_BWD of its
+    largest magnitude, dSq exactly 0 below the diagonal, one phase-A launch
+    and one phase-B launch per pass of points, and a repeat and a run with
+    NaN below Sq's diagonal bit for bit equal to the first."""
+    from dgp_tpu_torch.ops import _launch
     from dgp_tpu_torch.ops import quadform as qf
 
-    Sq, A, g2, g1 = quadform_inputs(D, Mi, n, seed, DEVICE)
+    make = prior_quadform_inputs if prior else quadform_inputs
+    Sq, A, g2, g1 = inputs or make(D, Mi, n, seed, DEVICE)
     cotangents = (g2, g1) if with_t1 else (g2,)
+    QF = qf.QuadForm
+    what = f"quadform backward D={D} M={Mi} n={n}"
 
-    def kernel_grads():
-        leaves = [Sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
-        before = qf.QuadForm.backward_launches
-        out = qf.QuadForm.apply(*leaves, with_t1)
+    def kernel_grads(sq):
+        leaves = [sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
+        before = (QF.backward_launches, QF.gram_launches)
+        out = QF.apply(*leaves, with_t1)
         grads = torch.autograd.grad(out, leaves, grad_outputs=cotangents)
         sync()
-        if qf.QuadForm.backward_launches != before + 1:
-            raise AssertionError("the quadform's backward did not launch its kernel")
+        launched = (QF.backward_launches - before[0], QF.gram_launches - before[1])
+        if launched != (1, -(-n // _launch.BACKWARD_PASS)):
+            raise AssertionError(f"{what}: phase A / phase B launches {launched}")
         return grads
 
-    got, again = kernel_grads(), kernel_grads()
+    got, again, dirty = (kernel_grads(Sq), kernel_grads(Sq),
+                         kernel_grads(with_nan_below(Sq)))
     d = lambda x: x.double()
     with torch.no_grad():
         want = qf.quadform_backward_plain(d(Sq), d(A), d(g2),
                                           d(g1) if with_t1 else None)
     worst, report = 0.0, []
-    for name, a, b, w in zip(("dSq", "dA"), got, again, want):
-        if a.shape != w.shape or not torch.isfinite(a).all():
-            raise AssertionError(f"quadform {name}: bad shape or non-finite")
-        if not torch.equal(a, b):
-            raise AssertionError(f"quadform {name}: two runs differ")
-        err = float((a.double() - w).abs().max())
-        scale = float(w.abs().max())
-        report.append(f"{name} {err / scale:.2e}")
+    for name, g, a, b, w in zip(("dSq", "dA"), got, again, dirty, want):
+        if not (torch.equal(g, a) and torch.equal(g, b)):
+            raise AssertionError(f"{what}: a repeat or NaN below Sq's diagonal "
+                                 f"changed {name}'s bits")
+        if off_pattern(name, g):
+            raise AssertionError(f"{what}: {off_pattern(name, g)} nonzero "
+                                 f"entries of {name} below the diagonal")
+        err, line = held(what, name, g, w, TOL_BWD)
         worst = max(worst, err)
-        if not err <= TOL_BWD * scale:
-            raise AssertionError(f"quadform backward D={D} M={Mi} n={n}: {name} "
-                                 f"off by {err:.3e}, {err / scale:.2e} of its scale")
+        report.append(line)
     log(f"[kernels] quadform backward{' +t1' if with_t1 else ''} D={D} M={Mi} "
-        f"n={n}: err / max|plain f64| (tol {TOL_BWD}): {', '.join(report)}; "
-        f"repeat bit-equal ok")
+        f"n={n}{' at the prior' if prior else ''}: err / max|plain f64| (tol "
+        f"{TOL_BWD}): {', '.join(report)}; dSq zero below the diagonal, repeat "
+        f"and NaN below Sq's diagonal bit-equal ok")
     return worst
 
 
@@ -967,9 +1033,9 @@ def timed(fn):
 def counts():
     """Launch counts of kernels #1, #2 (the stationary fused conditional and
     its backward's phase A), #3, #4 (the Kuf-consuming fused conditional and
-    its backward's phase A), #5, #6 (the quadform and its backward), #7 (the
-    Cholesky factor), #8 (the factor with its inverse), and the phase B of
-    #2 and of #4 (the split-K Grams)."""
+    its backward's phase A), #5, #6 (the quadform and its backward's phase
+    A), #7 (the Cholesky factor), #8 (the factor with its inverse), and the
+    phase B of #2, of #4 and of #6 (the split-K Grams)."""
     from dgp_tpu_torch.ops.cholesky import Cholesky, CholeskyInverse
     from dgp_tpu_torch.ops.conditional_fused import FusedConditionalWhite as FW
     from dgp_tpu_torch.ops.conditional_fused_rbf import FusedConditional as FC
@@ -978,7 +1044,7 @@ def counts():
     return (FC.launches, FC.backward_launches, FW.launches,
             FW.backward_launches, QF.launches, QF.backward_launches,
             Cholesky.launches, CholeskyInverse.launches, FC.gram_launches,
-            FW.gram_launches)
+            FW.gram_launches, QF.gram_launches)
 
 
 def zero_counts():
@@ -989,11 +1055,11 @@ def zero_counts():
 
     FC.launches = FC.backward_launches = FC.gram_launches = 0
     FW.launches = FW.backward_launches = FW.gram_launches = 0
-    QF.launches = QF.backward_launches = 0
+    QF.launches = QF.backward_launches = QF.gram_launches = 0
     Cholesky.launches = CholeskyInverse.launches = 0
 
 
-COUNTED = "(#1, #2, #3, #4, #5, #6, #7, #8, #2B, #4B)"
+COUNTED = "(#1, #2, #3, #4, #5, #6, #7, #8, #2B, #4B, #6B)"
 
 
 def path_of(model):
@@ -1012,16 +1078,16 @@ def expected_counts(path, evaluations, n_layers, loss=False):
     n_layers layers share one (M, white) group: each path runs its own pair
     of conditional kernels once per layer, and neither of the others';
     every evaluation factors its Kuu stack once through #8 (a non-whitened
-    loss's KL takes that factor too), and none runs #7. A whitened
-    backward's phase B (#2B, #4B) runs once per phase A: every layer's
-    points fit one pass."""
+    loss's KL takes that factor too), and none runs #7. A backward's phase
+    B (#2B, #4B, #6B) runs once per phase A: every layer's points fit one
+    pass."""
     pair = (evaluations * n_layers, evaluations * n_layers if loss else 0)
     zero = (0, 0)
     conditional = {"stationary": pair + zero + zero,
                    "composite": zero + pair + zero,
                    "nonwhite": zero + zero + pair}[path]
-    grams = {"stationary": (pair[1], 0), "composite": (0, pair[1]),
-             "nonwhite": zero}[path]
+    grams = {"stationary": (pair[1], 0, 0), "composite": (0, pair[1], 0),
+             "nonwhite": (0, 0, pair[1])}[path]
     return conditional + (0, evaluations) + grams
 
 
@@ -1326,7 +1392,7 @@ def compare_gradients(model):
             loss_off, off = evaluate()
     expect = expected_counts(path, 1, n_layers, loss=True)
     # the off arm launches #7 and #8 only
-    off_arm = (0,) * 6 + expect[6:8] + (0, 0)
+    off_arm = (0,) * 6 + expect[6:8] + (0, 0, 0)
     if launched != expect or counts() != tuple(
             b + e + o for b, e, o in zip(before, expect, off_arm)):
         raise AssertionError(f"gradient evaluation launched {launched}")
@@ -1387,7 +1453,8 @@ def bo_expected_counts():
     BO_DGP_ADAM Adam steps and T Adam + natural-gradient steps (two loss
     evaluations each) factor its one (M, white) Kuu group once per
     evaluation (#8, whose factor the KL takes too) and run each layer's
-    quadform and its backward (#5, #6). The acquisition evaluates EV (the
+    quadform and its backward (#5, #6, whose phase B (#6B) runs once per
+    backward: every n here fits one pass). The acquisition evaluates EV (the
     DGP, 500 samples: #8 once, #5 per layer) and EI (the GPR's Gram: #7)
     once for DE's first population, once per generation, once per Adam step
     (with the quadform's backward, #6) and once more at Adam's final
@@ -1403,7 +1470,7 @@ def bo_expected_counts():
         c6 += layers * (loss_evals + BO_ADAM)
         c7 += T + acq_evals
         c8 += loss_evals + acq_evals
-    return (0, 0, 0, 0, c5, c6, c7, c8, 0, 0)
+    return (0, 0, 0, 0, c5, c6, c7, c8, 0, 0, c6)
 
 
 def run_bo(gpu):
@@ -1453,7 +1520,7 @@ def run_bo(gpu):
     if not (ymin.shape == (BO_INFILLS + 1,) and np.all(np.isfinite(ymin))
             and np.all(np.diff(ymin) <= 0) and ymin[-1] >= 0.0625 - 1e-9):
         raise AssertionError(f"BO: bad Ymin trace {ymin}")
-    if launched != expect or min(launched[4:8]) < 1:
+    if launched != expect or min(*launched[4:8], launched[10]) < 1:
         raise AssertionError(f"BO: launches {launched}, reckoned {expect}")
 
     x = torch.linspace(bo.lw_n[0], bo.up_n[0], 101, device=DEVICE)[:, None]
@@ -1586,7 +1653,7 @@ def whitened_traffic_gb(module, Mi, D, n, with_kuf):
     the reduction."""
     from dgp_tpu_torch.ops import _launch
 
-    slices = -(-n // _launch.plan_sizes(module._library(), module._PREFIX)[1])
+    slices = -(-n // _launch.plan_size(module._library(), module._PREFIX, "slice"))
     writes = n * ((3 if with_kuf else 2) * Mi + D)
     reads = n * (2 * Mi * (D + 1) + D)
     partials = 2 * slices * (D + 1) * Mi * Mi
@@ -1684,13 +1751,14 @@ def time_gram(module, D, n, gpu):
     return ms, plain_ms, bound, by
 
 
-def quadform_bound_ms(Sq, n, backward=False):
+def quadform_bound_ms(Sq, n, backward=False, tensor_cores=False):
     """Least time for the quadform (t2 without t1) or its backward on these
     inputs, as :func:`fused_bound_ms` reckons it: each M x M product counts
     the nonzeros of Sq (upper-triangular on the conditional's path, M(M+1)/2
-    per output), where the kernels spend 2M^2 on the full square. Forward:
-    b_d = Sq[d] a and ||b_d||^2; backward: b_d, gb_d = 2 b_d g_d,
-    Sq[d]^T gb_d and gb_d a^T (only Sq's pattern of dSq reaches q_sqrt)."""
+    per output). Forward: b_d = Sq[d] a (with ``tensor_cores``, at the rate
+    of #5's route, :func:`ops_ms`) and ||b_d||^2; backward (all fp32):
+    b_d, gb_d = 2 b_d g_d, Sq[d]^T gb_d and gb_d a^T (only Sq's pattern of
+    dSq reaches q_sqrt)."""
     D, Mi = Sq.shape[0], Sq.shape[1]
     nnz = int(torch.count_nonzero(Sq))
     if backward:
@@ -1700,37 +1768,47 @@ def quadform_bound_ms(Sq, n, backward=False):
     else:
         per_point = 2 * nnz + 2 * D * Mi
         nbytes = 4.0 * (Mi * n + D * n + D * Mi * Mi)  # A, Sq read; t2 written
-    t_ops, t_bytes = float(n) * per_point / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    t_ops = ops_ms(float(n) * per_point, float(n) * 2 * nnz,
+                   tensor_cores and not backward)
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def time_quadform(D, n, gpu, backward=False):
-    """Kernel #5 (or #6 with its slab reduction, through the wrapper's
-    launch, scratch allocation included) beside its plain version."""
+    """Kernel #5, or #6 (both phases through the wrapper's launch, phase
+    B's buffers included, with the device time of each phase apart), beside
+    its plain version and its bound: #5's route's (b_d on the tensor cores)
+    with the fp32 bound beside it; #6's all fp32."""
     from dgp_tpu_torch.ops import quadform as qf
 
     Sq, A, g2, _ = quadform_inputs(D, M, n, 13, "cuda")
     with torch.no_grad():
         if backward:
-            ms = event_ms(lambda: qf._launch_backward(Sq, A, g2, None), 10)
+            run = lambda: qf._launch_backward(Sq, A, g2, None)
+            ms = event_ms(run, 10)
             plain_ms = event_ms(lambda: qf.quadform_backward_plain(Sq, A, g2), 5)
+            split = device_split(run, 5, {
+                "phase A": ("quadform_bwd_a",),
+                "phase B": ("gram_bwd", "gram_finish"),
+                "reductions": ("reduce_parts",)})
         else:
-            ms = event_ms(lambda: qf._launch(Sq, A, False), 10)
+            run = lambda: qf._launch(Sq, A, False)
+            ms = event_ms(run, 10)
             plain_ms = event_ms(lambda: qf.quadform_t2_reference(Sq, A), 5)
-    bound, by = quadform_bound_ms(Sq, n, backward)
-    extra = ""
+            dev_us, seen = device_us(run, 5, "quadform_fwd")
+    bound, by = quadform_bound_ms(Sq, n, backward, tensor_cores=True)
+    fp32_bound, _ = quadform_bound_ms(Sq, n, backward)
     if backward:
-        blocks = qf._library().dgp_quadform_bwd_blocks(n, M, D)
-        # each 64-point tile reads and writes its block's D M x M slab once
-        # (reckoned from the shapes, not measured)
-        rmw_gb = 8e-9 * -(-n // 64) * D * M * M
-        extra = (f"; {blocks} blocks, scratch {4e-6 * blocks * D * M * M:.1f} "
-                 f"MB, slab read-modify-write {rmw_gb:.2f} GB per call")
-    log(f"[timing] quadform{' backward' if backward else ''} D={D} M={M} "
-        f"n={n}: kernel{'+reduce' if backward else ''} {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), {bound / ms:.1%} of "
-        f"the bound{extra} ({gpu})")
-    return ms, plain_ms, bound, by
+        extra = f"; device {phases_line(split)}"
+    else:
+        extra = (f" (b_d in 3xTF32 on the tensor cores); device "
+                 f"{fmt_us(dev_us)} over {round(5 * seen)} of 5 launches; fp32 "
+                 f"bound {fp32_bound:.3f} ms, {fp32_bound / ms:.1%}")
+    log(f"[timing] quadform{' backward (#6)' if backward else ' (#5)'} D={D} "
+        f"M={M} n={n}: {'both phases' if backward else 'kernel'} {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, bound {bound:.3f} ms ({by}), "
+        f"{bound / ms:.1%} of the bound{extra} ({gpu})")
+    return ms, plain_ms, bound, by, fp32_bound
 
 
 def fused_white_bound_ms(Pinv, Kuf, q_mu, Sq, backward=False, tensor_cores=False):
@@ -2057,12 +2135,15 @@ def main():
             cf, D, M, S * N_TRAIN, 710 + seed))
 
     err_qf = err_qf_bwd = 0.0
+    # either side of a tile's edge and of the padded M, and one pass of
+    # phase B and 37 points more
+    quadform_edges = [(3, m, t) for m in EDGE_M for t in QUADFORM_EDGE_N]
     for seed, (D, Mi, n) in enumerate([
             (HIDDEN, M, 262_144 + 37),    # layer 1 of the model
             (1, M, 262_144 + 37),         # layer 2
             (3, 64, 10_007),              # small odd shapes; M = 100 is
             (2, 100, 1_037),              # padded to 128 in the kernels
-            *BO_QUADFORM]):
+            *BO_QUADFORM, *quadform_edges]):
         for with_t1 in (False, True):
             err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 200 + seed))
     for seed, (D, Mi, n) in enumerate([
@@ -2070,10 +2151,15 @@ def main():
             (1, M, S * N_TRAIN + 37),         # layer 2
             (3, 64, 10_007),
             (2, 100, 1_037),
-            *BO_QUADFORM]):
+            *BO_QUADFORM, *quadform_edges]):
         for with_t1 in (False, True):
             err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
                 D, Mi, n, with_t1, 300 + seed))
+    # a non-whitened layer's own operands at the prior, where training starts
+    for with_t1 in (False, True):
+        err_qf = max(err_qf, check_quadform(2, 100, 1_037, with_t1, 290, prior=True))
+        err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
+            2, 100, 1_037, with_t1, 390, prior=True))
 
     err_fw = err_fw_bwd = 0.0
     for seed, (D, Mi, Din, n) in enumerate([
@@ -2167,7 +2253,7 @@ def main():
                        COMPOSITE_NAT_STEPS))
 
     paths.append(run_bo(gpu))
-    launches = [sum(c[k] for c in paths) for k in range(10)]
+    launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
     ms, plain_ms, bound, by, fp32_bound = time_kernel(0, HIDDEN, DIN, S * N_REQUEST, gpu)
@@ -2276,6 +2362,7 @@ def main():
         "bound_ms": qf[2],
         "bound_by": qf[3],
         "library_ms": None,
+        "fp32_bound_ms": qf[4],
     }, {
         "name": "quadform_bwd",
         "route": "cuda",
@@ -2288,6 +2375,7 @@ def main():
         "bound_ms": qf_bwd[2],
         "bound_by": qf_bwd[3],
         "library_ms": None,
+        "phase_b_launches": launches[10],
     }, {
         "name": "conditional_fused",
         "route": "cuda",
@@ -2338,8 +2426,6 @@ def main():
         "bound_by": chol8[3],
         "library_ms": chol8[4],
     }, *phase_b]
-    for k in kernels:  # designed anew for the card, not carried over tile by tile
-        k["redesigned"] = k["name"] not in ("quadform", "quadform_bwd")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2382,12 +2468,13 @@ def steps_main(tree):
     """``python3 chip_smoke.py --steps [TREE]``: drive the port of the
     checkout at TREE (by default the one beside this script), so that two
     commits can be timed in turns in one call: the widest D that the plans
-    of #1-#4 take at M = 128 (:func:`plan_widths`); the host µs per
-    call of their wrappers at the layer-1 training shape; and the
-    wall ms per Adam step of bench.py's whitened RBF and RBF + Linear
+    of #1-#4 take at M = 128 (:func:`plan_widths`); the host µs per call of
+    the wrappers of #1-#6 at the layer-1 training shape; the wall ms per
+    Adam step of bench.py's whitened RBF, RBF + Linear and non-whitened
     models (and per Adam + natural-gradient step of the whitened one), with
-    the device time of three Adam steps of each. Prints no result
-    line."""
+    the device time of three Adam steps of each; and the wall ms of
+    100,000-row requests of the non-whitened serving model, with the device
+    time of one. Prints no result line."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2395,6 +2482,7 @@ def steps_main(tree):
         sys.path.insert(0, os.path.abspath(tree))
     from dgp_tpu_torch.ops import conditional_fused as cf
     from dgp_tpu_torch.ops import conditional_fused_rbf as cfr
+    from dgp_tpu_torch.ops import quadform as qf
 
     gpu = gpu_line()
     log(f"[steps] the port at {os.path.dirname(cf.__file__)} ({gpu})")
@@ -2404,22 +2492,37 @@ def steps_main(tree):
     g = [torch.randn((n, HIDDEN), generator=gen, device=DEVICE) for _ in range(2)]
     rbf = fused_inputs(0, HIDDEN, M, DIN, n, 12, DEVICE)
     white = composite_inputs(HIDDEN, M, DIN, n, 14)
+    Sq, A, g2, _ = quadform_inputs(HIDDEN, M, n, 13, DEVICE)
     with torch.no_grad():
         us = {"#1": host_us(lambda: cfr._launch(0, *rbf)),
               "#3": host_us(lambda: cf._launch(*white)),
+              "#5": host_us(lambda: qf._launch(Sq, A, False)),
               "#2": host_us(lambda: cfr._launch_backward(0, *rbf, *g)),
-              "#4": host_us(lambda: cf._launch_backward(*white, *g))}
+              "#4": host_us(lambda: cf._launch_backward(*white, *g)),
+              "#6": host_us(lambda: qf._launch_backward(Sq, A, g2, None))}
     log(f"[steps] host µs per forward and backward call (D={HIDDEN} M={M} "
         f"Din={DIN} n={n}, median of 50 with the card idle before each): "
         + ", ".join(f"{k} {v:.1f}" for k, v in us.items()) + f" ({gpu})")
     trained = training_model()
     trained_c = training_model(composite=True)
+    trained_nw = training_model(white=False)
     time_steps(trained, gpu, rounds=5)
     time_steps(trained_c, gpu, rounds=5, nat=False)
+    time_steps(trained_nw, gpu, rounds=5, nat=False)
     profile_run("three whitened Adam steps", lambda: trained.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
     profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
+    profile_run("three non-whitened Adam steps", lambda: trained_nw.optimize_adam(
+        iterations=3, messages=0, shrink_inner=False), gpu)
+    model_nw = serving_model(white=False)
+    Xr = np.random.default_rng(2).uniform(0, 1, size=(N_REQUEST, DIN))
+    request = lambda: model_nw.predict_y(Xr, S)
+    request()
+    ms = sorted(1e3 * timed(request)[1] for _ in range(5))
+    log(f"[steps] non-whitened request (N={N_REQUEST}, S={S}), wall ms over 5: "
+        f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
+    profile_run("one non-whitened request", request, gpu)
     return 0
 
 

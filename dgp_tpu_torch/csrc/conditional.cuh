@@ -54,6 +54,12 @@
 //     at M = 128 each owning one 32 x 32 tile of the lower triangle; each
 //     slice's sums go to their own slot, which reduce_parts adds in slice
 //     order. gram_finish forms dSq[d] = triu(2 Sq[d] C_d) and tril(dPinv).
+//
+// The quadform's kernels (#5 and #6, quadform.cu) take the same steps
+// without Pinv: the ring hands out Sq[0..D-1]^T (period D); the forward
+// runs colsumsq_tc per output over an A tile read by load_tile_async;
+// phase A runs chain_output per output with the cotangent g2_d as the
+// weight; phase B computes the D Grams alone (no dPinv matrix).
 
 #pragma once
 
@@ -119,6 +125,30 @@ __device__ __forceinline__ void stage_tri(float* P, const float* __restrict__ G,
     for (int c = t; c < len; c += TPR) {
       const bool ok = r < M && c <= r;
       cp_async4(row + c, ok ? G + r * M + c : G, ok ? 4 : 0);
+    }
+  }
+}
+
+// T[m][j] (row stride S) = X[m][p0 + j] for m < M and j < nt, else 0: the
+// tile of BTN points from p0 of an operand X [M][ld], by cp.async with every
+// copy in flight at once; 16-byte copies where X's rows are 16-byte aligned
+// (``aligned``: ld % 4 == 0 and X aligned), else 4-byte ones. The caller
+// commits the group and waits for it.
+template <int MP, int S>
+__device__ __forceinline__ void load_tile_async(float* T, const float* __restrict__ X,
+                                                long long ld, long long p0, int nt, int M,
+                                                bool aligned, int tid) {
+  if (aligned) {
+    for (int e = tid; e < MP * (BTN / 4); e += BNT) {
+      const int m = e / (BTN / 4), j = 4 * (e % (BTN / 4));
+      const int valid = m < M ? max(0, min(nt - j, 4)) : 0;
+      cp_async16(T + m * S + j, valid > 0 ? X + m * ld + p0 + j : X, 4 * valid);
+    }
+  } else {
+    for (int e = tid; e < MP * BTN; e += BNT) {
+      const int m = e / BTN, j = e % BTN;
+      const bool ok = m < M && j < nt;
+      cp_async4(T + m * S + j, ok ? X + m * ld + p0 + j : X, ok ? 4 : 0);
     }
   }
 }
@@ -259,7 +289,8 @@ __device__ __forceinline__ void colsumsq_tile(const float (&acc)[R][8], float* r
 
 // The ring of two packed operand buffers. Stage s holds, for s mod period:
 // 0 Pinv (for A), 1..D Sq[s - 1]^T, and in the backward (period D + 2)
-// D + 1 Pinv (for dKuf); the forward's period is D + 1.
+// D + 1 Pinv (for dKuf); the forward's period is D + 1. Without Pinv (null:
+// the quadform, period D) stage s holds Sq[s mod D]^T.
 struct Ring {
   float* buf[2];
   const float* pinv;
@@ -268,8 +299,8 @@ struct Ring {
   int M, D, period, s;
 
   __device__ const float* src(int t) const {
-    const int i = t % period;
-    return (i == 0 || i == D + 1) ? pinv : sqT + (i - 1) * MM;
+    const int i = t % period - (pinv != nullptr ? 1 : 0);
+    return (i < 0 || i >= D) ? pinv : sqT + i * MM;
   }
   template <int MP>
   __device__ void start(int tid) {
@@ -509,6 +540,33 @@ __device__ __forceinline__ void row_dots(const float* T, const float* X, int C, 
   }
 }
 
+// One output d of a backward tile, with the ring about to hand out Sq[d]^T
+// and a in T [MP][BTS]: b_d = Sq[d] a into acc; weight(w) then gives the
+// weights w of this thread's 8 points (a weight that reads the whole tile's
+// b_d synchronises the block inside); gb_d = 2 b_d w goes to GB [MP][BTS],
+// and da += Sq[d]^T gb_d. Two barriers (the ring's and one before the
+// second product); GB is still being read on return.
+template <int MP, int G, typename Weight>
+__device__ __forceinline__ void chain_output(Ring& ring, const float* T, float* GB, int tid,
+                                             Weight weight, float (&acc)[2 * G][8],
+                                             float (&da)[2 * G][8]) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ty = 2 * warp + (lane >> 4), tx = lane & 15;
+  const float* L = ring.next<MP>(tid);  // also: GB is free again
+  tri_cols<MP, G>(L, T, ty, tx, acc);   // b_d = Sq[d] a
+  float w[8];
+  weight(w);
+#pragma unroll
+  for (int r = 0; r < 2 * G; ++r) {
+    float gb[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) gb[c] = 2.0f * acc[r][c] * w[c];
+    sts8(GB + row_of<MP, G>(ty, r) * BTS, tx, gb);
+  }
+  __syncthreads();
+  tri_rows<MP, G>(L, GB, ty, tx, da);  // += Sq[d]^T gb_d
+}
+
 // One tile of phase A, with the kuf tile in T1 (zero past M and past the
 // tile's nt points), its g_mean in gmS and the ring about to hand out Pinv.
 // Recomputes a (into T2), t1 and b_d, and chains
@@ -581,33 +639,25 @@ __device__ __forceinline__ void tile_backward(const BackwardTiles& t, Ring& ring
       const int col = col_of(tx, c);
       gvar8[c] = col < nt ? __ldg(gvar + col * D + d) : 0.0f;
     }
-    L = ring.next<MP>(tid);  // also: red and T1 are free again, t1s and sS visible
-    tri_cols<MP, G>(L, t.T2, ty, tx, acc);  // b_d = Sq[d] a
-    colsumsq_tile<R>(acc, t.red, tid, tx);
-    __syncthreads();
-    float t2[8], t1[8], gv[8];
-    colsums(t2);
-    lds8(t.t1s, tx, t1);
+    // the ring's barrier also frees red and makes t1s and sS visible
+    chain_output<MP, G>(ring, t.T2, t.T1, tid, [&](float (&gv)[8]) {
+      colsumsq_tile<R>(acc, t.red, tid, tx);
+      __syncthreads();
+      float t2[8], t1[8];
+      colsums(t2);
+      lds8(t.t1s, tx, t1);
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      gv[c] = (kff(col_of(tx, c)) - t1[c]) + t2[c] > 0.0f ? gvar8[c] : 0.0f;
-    if (ty == 0) {
-      float s[8];
-      lds8(t.sS, tx, s);
+      for (int c = 0; c < 8; ++c)
+        gv[c] = (kff(col_of(tx, c)) - t1[c]) + t2[c] > 0.0f ? gvar8[c] : 0.0f;
+      if (ty == 0) {
+        float s[8];
+        lds8(t.sS, tx, s);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[c] += gv[c];
-      sts8(t.sS, tx, s);
-      sts8(gv_out + d * ld, tx, gv);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float gb[8];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) gb[c] = 2.0f * acc[r][c] * gv[c];
-      sts8(t.T1 + row_of<MP, G>(ty, r) * BTS, tx, gb);
-    }
-    __syncthreads();
-    tri_rows<MP, G>(L, t.T1, ty, tx, da);  // += Sq[d]^T gb_d
+        for (int c = 0; c < 8; ++c) s[c] += gv[c];
+        sts8(t.sS, tx, s);
+        sts8(gv_out + d * ld, tx, gv);
+      }
+    }, acc, da);
   }
 
   // da complete (in registers), then into T1 once every read of gb is done
@@ -646,11 +696,13 @@ __device__ __forceinline__ void tile_backward(const BackwardTiles& t, Ring& ring
 // sum over slice's points p of
 //   mat < D:  gv[mat][p] A[:, p] A[:, p]^T      (C_mat)
 //   mat == D: dA[:, p] Kuf[:, p]^T               (dPinv before its projection)
-// Block (mat, slice); warp w owns the w-th 32 x 32 tile of the lower
-// triangle, each lane an 8 x 4 register tile (rows 4 r + lane / 8, columns
-// 8 c + lane % 8 of the tile). Panels of GK points arrive by cp.async in
-// two buffers, the next while the current is multiplied; for a Gram only
-// A (into Q) and gv come in, and P = A gv is formed in shared memory.
+// with gridDim.x matrices per slice: D + 1, or D for the Grams alone (the
+// quadform's backward, which has no dPinv). Block (mat, slice); warp w
+// owns the w-th 32 x 32 tile of the lower triangle, each lane an 8 x 4
+// register tile (rows 4 r + lane / 8, columns 8 c + lane % 8 of the tile).
+// Panels of GK points arrive by cp.async in two buffers, the next while the
+// current is multiplied; for a Gram only A (into Q) and gv come in, and
+// P = A gv is formed in shared memory.
 // Points are summed in order: deterministic.
 template <int NB>
 __global__ void __launch_bounds__(16 * NB * (NB + 1), 2)
@@ -751,7 +803,7 @@ gram_bwd(const float* __restrict__ A, const float* __restrict__ dA, long long ld
     }
   }
 
-  float* out = parts + (static_cast<long long>(blockIdx.y) * (D + 1) + mat) * M * M;
+  float* out = parts + (static_cast<long long>(blockIdx.y) * gridDim.x + mat) * M * M;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int i = i0 + 4 * r;
@@ -793,14 +845,16 @@ inline cudaError_t launch_reduce_parts(const float* parts, float* out, int count
   return cudaGetLastError();
 }
 
-// From the summed lower triangles G [(D + 1)][M][M]: dSq[d] = triu(2 Sq[d] C_d)
-// with Sq[d] = sqT[d]^T (upper-triangular) and C_d the symmetric Gram whose
-// lower triangle is G[d]; dPinv = tril(G[D]). Exact zeros off the patterns.
+// From the summed lower triangles G [(D + 1)][M][M] (D without dpinv):
+// dSq[d] = triu(2 Sq[d] C_d) with Sq[d] = sqT[d]^T (upper-triangular: only
+// sqT's lower triangle is read) and C_d the symmetric Gram whose lower
+// triangle is G[d]; dPinv = tril(G[D]) where dpinv is not null. Exact zeros
+// off the patterns.
 __global__ void gram_finish(const float* __restrict__ G, const float* __restrict__ sqT,
                             float* __restrict__ dpinv, float* __restrict__ dsq, int M, int D) {
   const long long MM = static_cast<long long>(M) * M;
   const long long e = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= (D + 1) * MM) return;
+  if (e >= (D + (dpinv != nullptr ? 1 : 0)) * MM) return;
   const int mat = static_cast<int>(e / MM), i = static_cast<int>((e / M) % M),
             j = static_cast<int>(e % M);
   const float* Gm = G + mat * MM;
@@ -819,14 +873,19 @@ __global__ void gram_finish(const float* __restrict__ G, const float* __restrict
 }
 
 // Phase B on n points (one chunk) and its reduction: gram (+)= the slices'
-// sums. parts holds ceil(n / GKB) (D + 1) M^2 floats. A, dA and gv have row
-// stride lda, Kuf ldk.
+// sums, D + 1 matrices, or the D Grams alone where dA is null. parts holds
+// ceil(n / GKB) such stacks of M^2 floats. A, dA and gv have row stride
+// lda, Kuf ldk. Where one slice covers the chunk and nothing is added to,
+// the Grams go to gram directly and the reduction is not launched.
 inline cudaError_t launch_gram(const float* A, const float* dA, long long lda,
                                const float* Kuf, long long ldk, const float* gv,
                                float* parts, float* gram, long long n, int M, int D,
                                bool accumulate, cudaStream_t stream) {
   const int slices = static_cast<int>((n + GKB - 1) / GKB);
-  const dim3 grid(static_cast<unsigned>(D + 1), static_cast<unsigned>(slices));
+  const int mats = D + (dA != nullptr ? 1 : 0);
+  const bool direct = slices == 1 && !accumulate;
+  if (direct) parts = gram;
+  const dim3 grid(static_cast<unsigned>(mats), static_cast<unsigned>(slices));
   cudaError_t err;
   if (M <= 64) {
     constexpr int NB = 2;
@@ -846,14 +905,14 @@ inline cudaError_t launch_gram(const float* A, const float* dA, long long lda,
                                                               parts, static_cast<int>(n), M, D);
   }
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_reduce_parts(parts, gram, slices,
-                             static_cast<long long>(D + 1) * M * M, M, accumulate, stream);
+  if (err != cudaSuccess || direct) return err;
+  return launch_reduce_parts(parts, gram, slices, static_cast<long long>(mats) * M * M, M,
+                             accumulate, stream);
 }
 
 inline cudaError_t launch_gram_finish(const float* gram, const float* sqT, float* dpinv,
                                       float* dsq, int M, int D, cudaStream_t stream) {
-  const long long len = static_cast<long long>(D + 1) * M * M;
+  const long long len = static_cast<long long>(D + (dpinv != nullptr ? 1 : 0)) * M * M;
   gram_finish<<<static_cast<unsigned>((len + 255) / 256), 256, 0, stream>>>(
       gram, sqT, dpinv, dsq, M, D);
   return cudaGetLastError();

@@ -124,19 +124,7 @@ conditional_fused_fwd(const float* __restrict__ pinv, const float* __restrict__ 
 
     // this tile's kuf, zero past M and past n, by cp.async: every copy is in
     // flight at once, and the ring's next wait covers it; and kff
-    if (aligned) {
-      for (int e = tid; e < MP * (BTN / 4); e += BNT) {
-        const int m = e / (BTN / 4), j = 4 * (e % (BTN / 4));
-        const int valid = m < M ? max(0, min(nt - j, 4)) : 0;
-        cp_async16(t.T + m * FTS + j, valid > 0 ? kuf + m * n + p0 + j : kuf, 4 * valid);
-      }
-    } else {
-      for (int e = tid; e < MP * BTN; e += BNT) {
-        const int m = e / BTN, j = e % BTN;
-        const bool ok = m < M && j < nt;
-        cp_async4(t.T + m * FTS + j, ok ? kuf + m * n + p0 + j : kuf, ok ? 4 : 0);
-      }
-    }
+    load_tile_async<MP, FTS>(t.T, kuf, n, p0, nt, M, aligned, tid);
     cp_async_commit();
     if (tid < BTN) kffS[tid] = tid < nt ? __ldg(kff + p0 + tid) : 0.0f;
 

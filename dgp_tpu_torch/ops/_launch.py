@@ -1,13 +1,11 @@
 """Launch steps that the kernels' wrappers share: the call of a C entry
-point on a tensor's card and current stream; the buffers of a backward
-kernel's persistent grid (one slab of partial sums per block, added in a
-fixed order by ``reduce_slabs``); and the passes, scratch and phase B of the
-whitened conditional's two-phase backward (kernels #2 and #4)."""
+point on a tensor's card and current stream; the size of a persistent
+grid; and the passes, scratch and phase B of the two-phase backwards (the
+whitened conditional's, kernels #2 and #4, and the quadform's, #6)."""
 
 from __future__ import annotations
 
 import functools
-import math
 import types
 
 import torch
@@ -23,46 +21,25 @@ def run_kernel(lib, entry, device, what, *args):
     _build.check(lib, err, what)
 
 
-def persistent_grid(blocks_of, device, shapes, refusal):
-    """(blocks, scratch, out) of a backward kernel: ``blocks_of()`` (asked
-    with ``device`` current) sizes the persistent grid, or is 0 where the
-    kernel's plan refuses the sizes (then this raises ``refusal``); scratch
-    holds one float32 slab of partial sums per block ([blocks, slab],
-    bounded by the card's block count whatever n is) and out the summed
-    slab, whose parts have ``shapes`` (see :func:`split_slab`)."""
-    with torch.cuda.device(device):
-        blocks = blocks_of()
-    if blocks < 1:
-        raise RuntimeError(refusal)
-    slab = sum(math.prod(s) for s in shapes)
-    f32 = dict(dtype=torch.float32, device=device)
-    return blocks, torch.empty((blocks, slab), **f32), torch.empty((slab,), **f32)
-
-
-def split_slab(out, shapes):
-    """The parts of a summed slab, each viewed at its shape."""
-    parts = torch.split(out, [math.prod(s) for s in shapes])
-    return [p.view(s) for p, s in zip(parts, shapes)]
-
-
-# Points per pass of the whitened conditional's two-phase backward (kernels
-# #2 and #4): phase A writes A, dA (and Kuf) [M, pass] and gv [D, pass] for
-# phase B, so one pass bounds the scratch (about 201 MB at M = 128 with Kuf);
-# the passes' sums are added in pass order.
+# Points per pass of the two-phase backwards: the whitened conditional's
+# (#2, #4) phase A writes A, dA (and Kuf) [M, pass] and gv [D, pass] for
+# phase B, so one pass bounds the scratch (about 201 MB at M = 128 with
+# Kuf); phase B keeps one partial sum per slice of a pass (the quadform's,
+# #6, 67 MB at M = 128, D = 8). The passes' sums are added in pass order.
 BACKWARD_PASS = 1 << 17
 
 
 def backward_passes(n):
-    """(start, count) of each pass of the whitened backward over n points."""
+    """(start, count) of each pass of a two-phase backward over n points."""
     return [(start, min(BACKWARD_PASS, n - start))
             for start in range(0, n, BACKWARD_PASS)]
 
 
 @functools.lru_cache(maxsize=None)
-def plan_sizes(lib, prefix):
-    """(points per phase-A tile, points per phase-B slice) of a whitened
-    backward: constants of its source, asked of the library once."""
-    return getattr(lib, f"{prefix}_tile")(), getattr(lib, f"{prefix}_slice")()
+def plan_size(lib, prefix, what):
+    """Points per phase-A ``tile`` or per phase-B ``slice`` of a two-phase
+    backward: a constant of its source, asked of the library once."""
+    return getattr(lib, f"{prefix}_{what}")()
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,12 +65,13 @@ def carve(device, **sizes):
     return buffer, types.SimpleNamespace(**pointers)
 
 
-def gram_sizes(lib, prefix, n, M, D):
+def gram_sizes(lib, prefix, n, M, mats):
     """Floats of phase B's buffers over n points: ``gram_parts``, one
-    [D + 1, M, M] slot per slice of the largest pass, and ``gram``, their
-    sum (the lower triangles of C_0 .. C_{D-1} and of dA Kuf^T)."""
-    slices = -(-min(n, BACKWARD_PASS) // plan_sizes(lib, prefix)[1])
-    return dict(gram_parts=slices * (D + 1) * M * M, gram=(D + 1) * M * M)
+    [mats, M, M] slot per slice of the largest pass, and ``gram``, their
+    sum (the lower triangles of C_0 .. C_{D-1}, and of dA Kuf^T where
+    mats = D + 1)."""
+    slices = -(-min(n, BACKWARD_PASS) // plan_size(lib, prefix, "slice"))
+    return dict(gram_parts=slices * mats * M * M, gram=mats * M * M)
 
 
 def backward_scratch(lib, prefix, n, M, D, small, with_kuf, device):
@@ -104,58 +82,68 @@ def backward_scratch(lib, prefix, n, M, D, small, with_kuf, device):
     one slot of ``small`` floats per tile; phase B's ``gram_parts`` and
     ``gram`` (:func:`gram_sizes`); and the tensor ``small``, the tiles'
     slots summed."""
-    tile = plan_sizes(lib, prefix)[0]
+    tile = plan_size(lib, prefix, "tile")
     tiles = -(-min(n, BACKWARD_PASS) // tile)
     ld = tiles * tile
     buffer, sc = carve(device, a=M * ld, da=M * ld,
                        kuf=M * ld if with_kuf else 0, gv=D * ld,
                        tile_parts=tiles * small,
-                       **gram_sizes(lib, prefix, n, M, D))
+                       **gram_sizes(lib, prefix, n, M, D + 1))
     sc.buffer, sc.ld = buffer, ld
     sc.small = torch.empty((small,), dtype=torch.float32, device=device)
     return sc
 
 
-def run_gram(lib, prefix, device, a, da, ld, kuf, ldk, gv, parts, gram, count,
-             M, D, accumulate):
-    """Phase B of the whitened backward on one pass of ``count`` points:
-    ``gram`` (+)= the lower triangles of A diag(gv_d) A^T and dA Kuf^T. All
-    operands are data pointers; a, da and gv have row stride ld, kuf ldk."""
+def run_gram(lib, prefix, device, operands, parts, gram, count, M, D,
+             accumulate):
+    """Phase B of a two-phase backward on one pass of ``count`` points:
+    ``gram`` (+)= the lower triangles of A diag(gv_d) A^T and, for the
+    whitened backwards, dA Kuf^T. ``operands`` are the arguments the
+    library's ``{prefix}_gram`` entry takes before ``parts``: data pointers
+    and row strides, (a, da, ld, kuf, ldk, gv) for the whitened backwards
+    and (a, ld, gv) for the quadform's."""
     run_kernel(lib, getattr(lib, f"{prefix}_gram"), device,
-               "whitened backward phase B launch", a, da, ld, kuf, ldk, gv,
-               parts, gram, count, M, D, int(accumulate))
+               "backward phase B launch", *operands, parts, gram, count, M, D,
+               int(accumulate))
 
 
-def finish_gram(lib, prefix, device, gram, sqT, M, D):
+def finish_gram(lib, prefix, device, gram, sqT, M, D, with_pinv=True):
     """(dPinv, dSq) from the summed Grams (``gram``, a data pointer):
-    tril(dA Kuf^T), and triu(2 Sq[d] C_d) with Sq[d] = sqT[d]^T, exact
+    tril(dA Kuf^T) (None without ``with_pinv``, whose ``{prefix}_finish``
+    takes no dPinv), and triu(2 Sq[d] C_d) with Sq[d] = sqT[d]^T, exact
     zeros elsewhere."""
     f32 = dict(dtype=torch.float32, device=device)
-    dPinv = torch.empty((M, M), **f32)
+    dPinv = torch.empty((M, M), **f32) if with_pinv else None
     dSq = torch.empty((D, M, M), **f32)
+    outputs = (dPinv.data_ptr(), dSq.data_ptr()) if with_pinv else (dSq.data_ptr(),)
     run_kernel(lib, getattr(lib, f"{prefix}_finish"), device,
-               "whitened backward phase B finish launch", gram,
-               sqT.data_ptr(), dPinv.data_ptr(), dSq.data_ptr(), M, D)
+               "backward phase B finish launch", gram, sqT.data_ptr(),
+               *outputs, M, D)
     return dPinv, dSq
 
 
-def gram_backward(lib, prefix, counter, A, dA, Kuf, gv, Sq):
-    """Phase B alone on float32 CUDA tensors A, dA, Kuf [M, n], gv [D, n] and
-    Sq [D, M, M], in passes as the backward runs it: (tril(dA Kuf^T),
-    triu(2 Sq[d] A diag(gv_d) A^T)). ``counter`` (the autograd Function)
-    counts the launches in ``gram_launches``."""
+def gram_backward(lib, prefix, counter, A, gv, sqT, dA=None, Kuf=None):
+    """Phase B on float32 CUDA tensors A [M, n], gv [D, n] and
+    sqT [D, M, M] (Sq[d]^T, contiguous), and dA, Kuf [M, n] or None, in
+    passes of :data:`BACKWARD_PASS` points: (tril(dA Kuf^T), or None
+    without dA and Kuf; triu(2 Sq[d] A diag(gv_d) A^T)). ``counter`` (the
+    autograd Function) counts the passes in ``gram_launches``."""
     M, n = A.shape
     D = gv.shape[0]
     dev = A.device
-    A, dA, Kuf, gv = (t.contiguous() for t in (A, dA, Kuf, gv))
-    _buffer, sc = carve(dev, **gram_sizes(lib, prefix, n, M, D))
+    with_pinv = dA is not None
+    A, gv = A.contiguous(), gv.contiguous()
+    if with_pinv:
+        dA, Kuf = dA.contiguous(), Kuf.contiguous()
+    _buffer, sc = carve(dev, **gram_sizes(lib, prefix, n, M, D + with_pinv))
     for start, count in backward_passes(n):
-        run_gram(lib, prefix, dev, pointer(A, start), pointer(dA, start), n,
-                 pointer(Kuf, start), n, pointer(gv, start), sc.gram_parts,
-                 sc.gram, count, M, D, start > 0)
+        a, g = pointer(A, start), pointer(gv, start)
+        operands = ((a, pointer(dA, start), n, pointer(Kuf, start), n, g)
+                    if with_pinv else (a, n, g))
+        run_gram(lib, prefix, dev, operands, sc.gram_parts, sc.gram, count,
+                 M, D, start > 0)
         counter.gram_launches += 1
-    return finish_gram(lib, prefix, dev, sc.gram,
-                       Sq.transpose(1, 2).contiguous(), M, D)
+    return finish_gram(lib, prefix, dev, sc.gram, sqT, M, D, with_pinv)
 
 
 def pointer(t, offset=0):

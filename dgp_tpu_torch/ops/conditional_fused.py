@@ -224,8 +224,9 @@ def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
                    sc.tile_parts, sc.small.data_ptr(), count, M, D, blocks,
                    int(start > 0))
         FusedConditionalWhite.backward_launches += 1
-        run_gram(lib, _PREFIX, dev, sc.a, sc.da, sc.ld, pointer(kuf, start), n,
-                 sc.gv, sc.gram_parts, sc.gram, count, M, D, start > 0)
+        run_gram(lib, _PREFIX, dev,
+                 (sc.a, sc.da, sc.ld, pointer(kuf, start), n, sc.gv),
+                 sc.gram_parts, sc.gram, count, M, D, start > 0)
         FusedConditionalWhite.gram_launches += 1
     dPinv, dSq = finish_gram(lib, _PREFIX, dev, sc.gram, sqT, M, D)
     return dPinv, dKuf, sc.small.view(M, D), dSq, dKff
@@ -234,8 +235,8 @@ def _launch_backward(Pinv, Kuf, q_mu, Sq, Kff, g_mean, g_var):
 def gram_backward(A, dA, Kuf, gv, Sq):
     """Phase B alone on float32 CUDA tensors, in passes as the backward runs
     it: (dPinv, dSq) as :func:`gram_backward_plain` computes them."""
-    return _gram_backward(_library(), _PREFIX, FusedConditionalWhite, A, dA, Kuf,
-                          gv, Sq)
+    return _gram_backward(_library(), _PREFIX, FusedConditionalWhite, A, gv,
+                          Sq.transpose(1, 2).contiguous(), dA, Kuf)
 
 
 class FusedConditionalWhite(torch.autograd.Function):

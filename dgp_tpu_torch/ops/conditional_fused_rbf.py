@@ -275,8 +275,9 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
                    sc.ld, sc.tile_parts, sc.small.data_ptr(), count, M, Din,
                    D, blocks, int(start > 0))
         FusedConditional.backward_launches += 1
-        run_gram(lib, _PREFIX, dev, sc.a, sc.da, sc.ld, sc.kuf, sc.ld, sc.gv,
-                 sc.gram_parts, sc.gram, count, M, D, start > 0)
+        run_gram(lib, _PREFIX, dev,
+                 (sc.a, sc.da, sc.ld, sc.kuf, sc.ld, sc.gv), sc.gram_parts,
+                 sc.gram, count, M, D, start > 0)
         FusedConditional.gram_launches += 1
     dPinv, dSq = finish_gram(lib, _PREFIX, dev, sc.gram, sqT, M, D)
     dZs, dq_mu, dv = torch.split(sc.small, [M * Din, M * D, 1])
@@ -287,8 +288,8 @@ def _launch_backward(kind, Pinv, Xs, Zs, variance, q_mu, Sq, g_mean, g_var):
 def gram_backward(A, dA, Kuf, gv, Sq):
     """Phase B alone on float32 CUDA tensors, in passes as the backward runs
     it: (dPinv, dSq) as :func:`gram_backward_plain` computes them."""
-    return _gram_backward(_library(), _PREFIX, FusedConditional, A, dA, Kuf,
-                          gv, Sq)
+    return _gram_backward(_library(), _PREFIX, FusedConditional, A, gv,
+                          Sq.transpose(1, 2).contiguous(), dA, Kuf)
 
 
 class FusedConditional(torch.autograd.Function):

@@ -370,50 +370,48 @@ def quadform_inputs(D, M, n, device, seed=0):
     return Sq, A, g2, g1
 
 
-# M = 64 and 128 stage with float4 copies; 50 and 100 take the padded path
+# M = 64 and 128 stage with float4 copies, 50 and 100 the padded path; the
+# BO surrogate's shapes; and the edges of the tiles of 128 points, of the
+# padded M and of #6's passes of points
+QUADFORM_SHAPES = list(dict.fromkeys([
+    (3, 64, 1037), (8, 128, 4101), (2, 50, 65), (1, 100, 64),
+    *chip_smoke.BO_QUADFORM,
+    *[(3, m, n) for m in chip_smoke.EDGE_M for n in chip_smoke.QUADFORM_EDGE_N]]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_t1", [False, True])
-@pytest.mark.parametrize("D,M,n", [(3, 64, 1037), (8, 128, 4101), (2, 50, 65),
-                                   (1, 100, 64), (1, 8, 80)])
+@pytest.mark.parametrize("D,M,n", QUADFORM_SHAPES)
 def test_quadform_kernels_match_plain(cuda, with_t1, D, M, n):
-    """Kernels #5 and #6 against their plain versions in f64 on the same
-    f32 inputs: t2 (and t1) within 1e-4 of their largest value, dSq and dA
-    within 1e-4 of their largest magnitude, and a second backward bit for
-    bit equal to the first (the slabs are summed in a fixed order)."""
-    Sq, A, g2, g1 = quadform_inputs(D, M, n, cuda, seed=D + M)
-    cotangents = (g2, g1) if with_t1 else (g2,)
-    before = (qf.QuadForm.launches, qf.QuadForm.backward_launches)
+    """Kernels #5 and #6 (both phases) against their plain versions in f64
+    on the same f32 inputs: t2 (and t1), dSq and dA float32 of their
+    shapes, t2 (and t1) within 1e-4 of their largest value, dSq and dA
+    within 1e-4 of their largest magnitude, dSq exactly 0 below the
+    diagonal, one phase-A and one phase-B launch per pass of points, and a
+    repeat and a run with NaN below Sq's diagonal bit for bit equal to the
+    first (chip_smoke.check_quadform and check_quadform_backward raise
+    otherwise)."""
+    inputs = quadform_inputs(D, M, n, cuda, seed=D + M)
+    chip_smoke.check_quadform(D, M, n, with_t1, D + M, inputs=inputs)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, D + M, inputs=inputs)
 
-    def kernel_grads():
-        leaves = [Sq.clone().requires_grad_(True), A.clone().requires_grad_(True)]
-        out = qf.QuadForm.apply(*leaves, with_t1)
-        grads = torch.autograd.grad(out, leaves, grad_outputs=cotangents)
-        torch.cuda.synchronize()
-        return (out if with_t1 else (out,)), grads
 
-    out, grads = kernel_grads()
-    _, again = kernel_grads()
-    assert (qf.QuadForm.launches, qf.QuadForm.backward_launches) == (
-        before[0] + 2, before[1] + 2)
-    d = lambda x: x.double()
-    want = (qf.quadform_t2_t1_reference(d(Sq), d(A)) if with_t1
-            else (qf.quadform_t2_reference(d(Sq), d(A)),))
-    for got, w in zip(out, want):
-        assert got.shape == w.shape and got.dtype == torch.float32
-        assert float((got.double() - w).abs().max()) <= 1e-4 * float(w.max())
-    want = qf.quadform_backward_plain(d(Sq), d(A), d(g2),
-                                      d(g1) if with_t1 else None)
-    for name, g, g_again, w in zip(("dSq", "dA"), grads, again, want):
-        assert g.shape == w.shape and torch.equal(g, g_again), name
-        assert float((g.double() - w).abs().max()) <= 1e-4 * float(w.abs().max()), name
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+def test_quadform_kernels_at_the_prior(cuda, with_t1):
+    """The same holds on a non-whitened layer's own operands at the prior
+    (A = Kuu^-1 Kuf, q_sqrt = chol(Kuu)), where its training starts."""
+    chip_smoke.check_quadform(2, 100, 1_037, with_t1, 7, prior=True)
+    chip_smoke.check_quadform_backward(2, 100, 1_037, with_t1, 7, prior=True)
 
 
 @pytest.mark.cuda
 def test_quadform_size_gate(cuda):
-    """The plans take M <= 128 and any D; a CUDA tensor outside them raises
-    at launch rather than falling back, float64 included."""
-    assert qf.supported(128, 8) and qf.backward_supported(128, 8)
-    assert qf.supported(1, 1) and qf.backward_supported(64, 40)
+    """The plans take every M <= 128 and every D (the quadform is the route
+    of whitened layers wider than the fused plans); a CUDA tensor outside
+    them raises at launch rather than falling back, float64 included."""
+    assert all(qf.supported(m, D) and qf.backward_supported(m, D)
+               for m in (1, 8, 64, 65, 100, 128) for D in (1, 8, 23, 89, 256))
     assert not qf.supported(129, 1) and not qf.backward_supported(256, 8)
     Sq, A, g2, _ = quadform_inputs(2, 129, 100, cuda)
     assert not qf.applicable(Sq, A)
@@ -441,7 +439,8 @@ def test_quadform_of_no_points(cuda):
 def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     """A 2-layer non-whitened model (the constructor's default): one request
     launches the quadform kernel once per layer and kernel #1 never; one
-    Adam step launches it and its backward once per layer; the request and
+    Adam step launches it and its backward (phase A and phase B) once per
+    layer; the request and
     the first step's gradients equal the kernels-off path's to 1e-3 of each
     one's scale, both arms factoring Kuu through kernels #7/#8 (two float32
     factorizations of this Kuu differ by more than that once a non-whitened
@@ -467,12 +466,13 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     gen = torch.Generator(device=cuda).manual_seed(1)
     zs = [torch.randn((5, 300, l.num_outputs), generator=gen, **f32)
           for l in model.params.layers]
-    counts = lambda: (qf.QuadForm.launches, qf.QuadForm.backward_launches,
+    QF = qf.QuadForm
+    counts = lambda: (QF.launches, QF.backward_launches, QF.gram_launches,
                       cfr.FusedConditional.launches)
     before = counts()
     with torch.no_grad(), chip_smoke.cholesky_route("kernels"):
         on = tdgp.predict_y(model.params, X, 5, zs=zs)
-        assert counts() == (before[0] + 2, before[1], before[2])
+        assert counts() == (before[0] + 2, *before[1:])
         with kernels_scope(False):
             off = tdgp.predict_y(model.params, X, 5, zs=zs)
     for got, want in zip(on, off):
@@ -487,14 +487,16 @@ def test_nonwhite_dgp_goes_through_the_quadform_kernels(cuda):
     before = counts()
     with chip_smoke.cholesky_route("kernels"):
         on = grads()
-        assert counts() == (before[0] + 2, before[1] + 2, before[2])
+        assert counts() == (before[0] + 2, before[1] + 2, before[2] + 2,
+                            before[3])
         with kernels_scope(False):
             off = grads()
     for (name, _), a, b in zip(model.params.named_parameters(), on, off):
         assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max()), name
     before = counts()
     losses = model.optimize_adam(iterations=1, messages=0)
-    assert counts() == (before[0] + 2, before[1] + 2, before[2])
+    assert counts() == (before[0] + 2, before[1] + 2, before[2] + 2,
+                        before[3])
     assert bool(torch.isfinite(losses).all())
 
 

@@ -1,6 +1,9 @@
 """Port parity: the variational quadform of dgp_tpu_torch (ops/quadform.py)
 against dgp_tpu's ops/quadform_pallas.py, in float64 on CPU, and in float32
-against the Pallas kernels run by their interpreter."""
+against the Pallas kernels run by their interpreter. Sq is upper-triangular,
+as tril(q_sqrt)^T is on the conditional's path: the port reads only that
+triangle and returns dSq on it, so jax.grad's dSq is projected with triu
+before the comparison."""
 
 import types
 
@@ -21,10 +24,17 @@ F64 = torch.float64
 
 
 def data(D, M, n, dtype=np.float64, seed=0):
-    """Sq [D, M, M], A [M, n] and the cotangents g2 [D, n], g1 [n]."""
+    """Sq [D, M, M] (upper-triangular), A [M, n] and the cotangents
+    g2 [D, n], g1 [n]."""
     rng = np.random.default_rng(seed)
-    return [rng.normal(size=s).astype(dtype)
-            for s in ((D, M, M), (M, n), (D, n), (n,))]
+    Sq, A, g2, g1 = (rng.normal(size=s).astype(dtype)
+                     for s in ((D, M, M), (M, n), (D, n), (n,)))
+    return [np.triu(Sq), A, g2, g1]
+
+
+def on_pattern(grads):
+    """jax.grad's (dSq, dA), dSq projected on Sq's upper triangle."""
+    return np.triu(np.asarray(grads[0])), np.asarray(grads[1])
 
 
 def t(a):
@@ -60,8 +70,8 @@ def test_backward_plain_matches_jax_grad(with_t1):
         jnp.asarray(Sq), jnp.asarray(A))
     got = tq.quadform_backward_plain(t(Sq), t(A), t(g2),
                                      t(g1) if with_t1 else None)
-    for name, g, w in zip(("dSq", "dA"), got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-10,
+    for name, g, w in zip(("dSq", "dA"), got, on_pattern(want)):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-10,
                                    atol=1e-12 * np.abs(w).max(), err_msg=name)
 
 
@@ -93,8 +103,7 @@ def test_plain_f32_matches_pallas_interpreter(monkeypatch, with_t1):
     want = jax.grad(pallas_loss, argnums=(0, 1))(Sqj, Aj)
     got = tq.quadform_backward_plain(t(Sq), t(A), t(g2),
                                      t(g1) if with_t1 else None)
-    for name, g, w in zip(("dSq", "dA"), got, want):
-        w = np.asarray(w)
+    for name, g, w in zip(("dSq", "dA"), got, on_pattern(want)):
         np.testing.assert_allclose(g.numpy(), w, rtol=1e-3,
                                    atol=1e-4 * np.abs(w).max(), err_msg=name)
 
@@ -142,3 +151,34 @@ def test_gate_keeps_cpu_and_f64_on_plain_path(monkeypatch):
                          tq.quadform_t2_t1_reference(Sq, A)):
         assert torch.equal(got, want)
     assert tq.QuadForm.launches == before
+
+
+@pytest.mark.parametrize("with_t1", [False, True])
+def test_plain_quadform_reads_only_the_triangle(with_t1):
+    """NaN below Sq's diagonal (where tril(q_sqrt)^T holds zeros) leaves
+    t2, t1, dA and dSq finite and equal to the clean run's, and dSq is
+    exactly 0 below the diagonal: the plain versions read what the kernels
+    read, and return dSq on the same pattern."""
+    Sq, A, g2, g1 = (t(a) for a in data(3, 7, 13, seed=4))
+    dirty = Sq.masked_fill(torch.ones(7, 7, dtype=torch.bool).tril(-1),
+                           float("nan"))
+    assert torch.isnan(dirty).sum() == 3 * 21
+    g1 = g1 if with_t1 else None
+    clean = (*tq.quadform_t2_t1_reference(Sq, A),
+             *tq.quadform_backward_plain(Sq, A, g2, g1))
+    got = (*tq.quadform_t2_t1_reference(dirty, A),
+           *tq.quadform_backward_plain(dirty, A, g2, g1))
+    for name, g, c in zip(("t2", "t1", "dSq", "dA"), got, clean):
+        assert torch.isfinite(g).all() and torch.equal(g, c), name
+    assert not torch.tril(got[2], -1).any()
+
+
+def test_plain_backward_dsq_is_the_phase_b_form():
+    """quadform_backward_plain's dSq (triu of sum_n gb_d a^T) equals
+    triu(2 Sq[d] A diag(g2_d) A^T), the form the kernels' phase B computes
+    from the weighted Grams, in float64."""
+    Sq, A, g2, _ = (t(a) for a in data(4, 9, 31, seed=5))
+    dSq, _ = tq.quadform_backward_plain(Sq, A, g2)
+    C = (A[None] * g2[:, None, :]) @ A.T                  # [D, M, M]
+    want = torch.triu(2.0 * (Sq @ C))
+    torch.testing.assert_close(dSq, want, rtol=1e-12, atol=1e-12)

@@ -43,7 +43,9 @@ Phases, each of which raises (exit code 1) on any fault:
              non-whitened layer's own operands at the prior: each with a
              repeat and a run with NaN below Sq's diagonal bit for bit
              equal, dSq exactly 0 below the diagonal, one phase-A and one
-             phase-B launch per pass.
+             phase-B launch per pass; and at the MF model's shapes (D = 1,
+             M = 30 by n = 50, 250, 300, 500 and 250,000; M = 5 by n = 50,
+             250 and 250,000).
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
              varies per point), at the same four shapes (#3 also at #1's
@@ -66,7 +68,10 @@ Phases, each of which raises (exit code 1) on any fault:
              a repeat and a stack with NaN above the diagonal bit for bit
              equal, an indefinite matrix and one whose pivot fails past the
              first panel NaN in place, the Function's gradient against
-             autograd in float64.
+             autograd in float64; and on the MF Park model's own Kuu stacks
+             ([1, 30, 30] at Z, [1, 5, 5] at the recomputed augmented Z,
+             White 1e-6 and the float32 jitter 1e-4), held to their float64
+             twins under the same jitter.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -113,7 +118,22 @@ Phases, each of which raises (exit code 1) on any fault:
              final surrogates' predictions with the kernels on and off, each
              against the same prediction in float64;
              seconds per infill, split into training and acquisition.
-6. timing  — CUDA-event times of every kernel and of its plain version at
+6. mf      — compat/validate_mf_dgp.py through the port's
+             MultiFidelityDeepGP on the card (the nb_mfdgp_improved Park
+             pair: Din = 4, N = 30 / 5, Z = X, S = 10, float32; layers of
+             M = 30 and 5 through #5-#8): build it,
+             optimize_nat_adam(lr_adam=0.005) for 20 + 20 + 40 steps (cut
+             from --fast's 300 / 400 / 800), a fresh model's optimize_adam
+             for 10 + 10 + 10, one predict of 1,000 rows at 250 samples.
+             Losses finite and falling; each phase's frozen tensors bit for
+             bit unchanged (z_left moving from phase 2, the likelihood and
+             q in phase 3); the launches of #5-#8 equal to those reckoned
+             from the loops; a request and a loss gradient on fixed unit
+             normals with the quadform kernels on and off within 1e-3 of
+             scale (z_left's gradient nonzero); the request also with every
+             kernel on and off (use_kernels) within 1e-3, and each of the
+             two against the same request in float64.
+7. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -133,7 +153,9 @@ Phases, each of which raises (exit code 1) on any fault:
              wall time per Adam step and per Adam+natural-gradient step
              (whitened RBF) and per Adam step (non-whitened, RBF + Linear);
              the device time by kernel over one request and over three Adam
-             steps of each of the three models (torch.profiler).
+             steps of each of the three models (torch.profiler); the MF
+             model's ms per loss-and-gradient evaluation and per 1,000-row
+             predict, and its device idle share over three Adam steps.
 
 The line before the last is one JSON object listing every ported kernel
 (and, as entries of their own, the phase B of #2 and of #4; #6's phase B
@@ -204,6 +226,20 @@ QUADFORM_EDGE_N = (1, 127, 128, 129, 131_072 + 37)
 WITNESS_M = (100, 128)
 # #7/#8 checks either side of each edge of their 16-column panels
 CHOLESKY_EDGES = (31, 32, 33, 64, 95, 127, 129)
+# the multi-fidelity configuration (compat/validate_mf_dgp.py, the notebook
+# nb_mfdgp_improved): Park, Din = 4, N = 30 / 5 from lhs seeds 123 / 124,
+# Z = X, S = 10, float32; requests of 1,000 rows (lhs seed 125) at 250
+# samples; training cut from --fast's 300 / 400 / 800 steps
+MF_DIN, MF_N, MF_S = 4, (30, 5), 10
+MF_REQUEST, MF_PREDICT_S = 1_000, 250
+MF_NAT, MF_ADAM = (20, 20, 40), (10, 10, 10)
+# its quadform shapes (D, M, n), D = 1: layer 0 (M = 30) at 50 x 5 (Z_right
+# in a loss or request), 100 x 5 (at init), 10 x 30 (the fidelity-0 term),
+# 10 x 5 (the fidelity-1 term) and 250 x 1,000 points (a request); layer 1
+# (M = 5) at 10 x 5, 250 and 250 x 1,000 points: M off every multiple of 8
+# that the other checks take
+MF_QUADFORM = [(1, 30, 250), (1, 30, 300), (1, 30, 250_000), (1, 30, 50),
+               (1, 30, 500), (1, 5, 50), (1, 5, 250), (1, 5, 250_000)]
 DEVICE = "cuda"
 
 
@@ -867,7 +903,7 @@ def spd_stack(G, Mi, seed, kuu=None):
     return torch.tensor(A, dtype=torch.float32, device=DEVICE)
 
 
-def check_cholesky(G, Mi, seed, inverse, kuu=None):
+def check_cholesky(G, Mi, seed, inverse, kuu=None, stack=None):
     """Kernel #7 (or #8) against its plain version in float64 on the same
     float32 stack: L within TOL of max|L|; W within TOL of max|W| plus twice
     the error of the float32 library pair (cholesky_ex + solve_triangular)
@@ -881,10 +917,13 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
     of W) and leave the others' bits unchanged; and, on the
     well-conditioned stacks,
     the Function's gradient within TOL_BWD of autograd through
-    torch.linalg.cholesky and solve_triangular in float64."""
+    torch.linalg.cholesky and solve_triangular in float64. With ``stack``
+    = (A, A64), a model's own float32 Kuu stack and its float64 twin (the
+    same kernel in float64 under the float32 jitter, :func:`park_kuu`), the
+    reference is the plain version on the twin."""
     from dgp_tpu_torch.ops import cholesky as tch
 
-    A = spd_stack(G, Mi, seed, kuu)
+    A = spd_stack(G, Mi, seed, kuu) if stack is None else stack[0]
     what = f"{'#8 chol+inverse' if inverse else '#7 chol'} G={G} M={Mi}" + (
         f" ({kuu} Kuu)" if kuu else "")
     fn = tch.CholeskyInverse if inverse else tch.Cholesky
@@ -893,7 +932,8 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None):
         got = tch._launch(A, inverse)
         again = tch._launch(A, inverse)
         sync()
-        want = tch.cholesky_inverse_plain(A.double())
+        want = tch.cholesky_inverse_plain(A.double() if stack is None
+                                          else stack[1])
         lib32 = tch.cholesky_inverse_plain(A)
     if fn.launches != before + 2:
         raise AssertionError(f"{what}: the kernel did not launch")
@@ -1548,7 +1588,313 @@ def run_bo(gpu):
     return launched
 
 
-# -- phase 6 --------------------------------------------------------------------
+# -- phase 6: the multi-fidelity deep GP ----------------------------------------
+
+
+def mf_model(seed=0):
+    """The Park configuration (MF_*) as a MultiFidelityDeepGP on the card
+    in float32, its data from the port's own lhs and test functions."""
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
+    from dgp_tpu_torch.utils.test_functions import park_high, park_low
+
+    X = [lhs(MF_DIN, MF_N[0], seed=123), lhs(MF_DIN, MF_N[1], seed=124)]
+    Y = [park_low(X[0]), park_high(X[1])]
+    return MultiFidelityDeepGP(X, Y, num_samples=MF_S, seed=seed,
+                               device=DEVICE, dtype=torch.float32)
+
+
+def mf_request_rows():
+    from dgp_tpu_torch.bo.doe import lhs
+
+    return lhs(MF_DIN, MF_REQUEST, seed=125)
+
+
+def park_kuu():
+    """[(name, (A, A64))]: the Park model's own Kuu stacks, [1, 30, 30]
+    (layer 0 at Z) and [1, 5, 5] (layer 1 at its augmented Z, recomputed),
+    each kernel's White 1e-6 inside, with the float32 jitter 1e-4; A64 the
+    float64 twin: the same kernels in float64 at the same inducing inputs,
+    under the same jitter (f64_twin)."""
+    import copy
+
+    from dgp_tpu_torch.models.mf_dgp import compute_full_zs
+    from dgp_tpu_torch.ops.conditionals import _jittered_kuu
+
+    model = mf_model()
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    double = copy.deepcopy(model.params).double()
+    out = []
+    with torch.no_grad():
+        zs = compute_full_zs(model.params.layers, gen)
+        for i, (layer, twin, z) in enumerate(zip(model.params.layers,
+                                                 double.layers, zs)):
+            A = _jittered_kuu(layer.kernel, z, None)[None]
+            with f64_twin():
+                A64 = _jittered_kuu(twin.kernel, z.double(), None)[None]
+            out.append((f"Park layer {i}", (A, A64)))
+    return out
+
+
+def mf_expected_counts(built=0, losses=0, requests=0):
+    """counts() reckoned for the two-fidelity Park model (layer 0 of M = 30,
+    layer 1 of M = 5, both non-whitened). Building it: #7 per layer (the
+    initial q_sqrt), and init_layers_mf's Z_right (layer 0 at 100 x 5
+    points: #8 for its projection, #5). A loss evaluation with its
+    gradient: compute_full_zs's Z_right (layer 0 at 50 x 5 points: #8, #5),
+    the layers' projections (#8 per (M, white) group: two, whose Lu the
+    KLs take too), the fidelity-0 term (layer 0: #5) and the fidelity-1
+    term (layers 0 and 1: #5 each); the backward runs #6 and its phase B
+    once per #5 (every n fits one pass). A request: the same Z_right, the
+    two #8 and one #5 per layer."""
+    c5 = built + 4 * losses + 3 * requests
+    c6 = 4 * losses
+    c8 = built + 3 * losses + 3 * requests
+    return (0, 0, 0, 0, c5, c6, 2 * built, c8, 0, 0, c6)
+
+
+@contextlib.contextmanager
+def phase_snapshots():
+    """Record (loop, mask, parameters before, after) of every training
+    phase run inside the scope (adam_run and nat_adam_run wrapped)."""
+    from dgp_tpu_torch.models import training
+
+    seen = []
+    saved = training.adam_run, training.nat_adam_run
+
+    def wrap(loop, run):
+        def wrapped(loss_fn, params, mask, *args, **kwargs):
+            state = lambda: {k: v.clone()
+                             for k, v in params.state_dict().items()}
+            before = state()
+            out = run(loss_fn, params, mask, *args, **kwargs)
+            seen.append((loop, mask, before, state()))
+            return out
+        return wrapped
+
+    training.adam_run = wrap("Adam", saved[0])
+    training.nat_adam_run = wrap("Adam + natural gradients", saved[1])
+    try:
+        yield seen
+    finally:
+        training.adam_run, training.nat_adam_run = saved
+
+
+def check_mf_training(what, seen, losses, nat, window=10):
+    """The three phases ran as the reference stages them: phase 1 trains
+    the kernels alone (z, z_left, the likelihood and every q frozen), phase
+    2 also the inducing inputs, phase 3 everything but q (which the natural
+    gradient moves) or, with Adam, everything. Each frozen tensor is
+    unchanged bit for bit; z_left moves from phase 2, the likelihood and q
+    in phase 3. The losses are finite and the last ``window`` below the
+    first ``window`` (means)."""
+    losses = losses.cpu().numpy()
+    first, last = losses[:window].mean(), losses[-window:].mean()
+    if not (np.all(np.isfinite(losses)) and last < first):
+        raise AssertionError(f"[mf] {what}: losses {losses}")
+    loops = [loop for loop, *_ in seen]
+    if loops != ["Adam", "Adam", "Adam + natural gradients" if nat else "Adam"]:
+        raise AssertionError(f"[mf] {what}: phases {loops}")
+    moved_from = {"z_left": 2, "z": 2, "likelihood": 3, "q_mu": 3,
+                  "q_sqrt": 3}
+    report = []
+    for phase, (loop, mask, before, after) in enumerate(seen, 1):
+        frozen = sorted(k for k, trained in mask.items() if not trained)
+        for name in mask:
+            field = next((f for f in moved_from if f in name.split(".")),
+                         None)
+            unchanged = torch.equal(before[name], after[name])
+            if name in frozen and not unchanged and not (
+                    loop != "Adam" and field in ("q_mu", "q_sqrt")):
+                raise AssertionError(f"[mf] {what}: frozen {name} moved in "
+                                     f"phase {phase}")
+            if field is not None and unchanged != (phase < moved_from[field]):
+                raise AssertionError(f"[mf] {what}: {name} "
+                                     f"{'did not move' if unchanged else 'moved'}"
+                                     f" in phase {phase}")
+        report.append(f"phase {phase} ({loop}) {len(frozen)} frozen")
+    log(f"[mf] {what}: losses finite, {first:.1f} -> {last:.1f} (means of "
+        f"the first and last {window}); "
+        f"{', '.join(report)}: frozen tensors bit for bit unchanged, z_left "
+        f"moved from phase 2, the likelihood and q in phase 3")
+
+
+def run_mf(gpu):
+    """The multi-fidelity path through the entry points a user calls: build
+    the Park model, optimize_nat_adam(lr_adam=0.005) for MF_NAT steps, a
+    fresh model's optimize_adam for MF_ADAM steps, then one predict of
+    MF_REQUEST rows at 250 samples (moment-matched). Checks each phase's
+    frozen tensors and the losses (check_mf_training), the prediction's
+    shapes and finiteness, and the launches of #5-#8 against
+    mf_expected_counts(). Returns (counts(), the trained model)."""
+    zero_counts()
+    model, dt_build = timed(mf_model)
+    n1, n2, n3 = MF_NAT
+    with phase_snapshots() as seen:
+        losses, dt_nat = timed(lambda: model.optimize_nat_adam(
+            lr_adam=0.005, iterations1=n1, iterations2=n2, iterations3=n3,
+            messages=0))
+    check_mf_training(f"optimize_nat_adam {n1} + {n2} + {n3} steps", seen,
+                      losses, nat=True)
+    fresh = mf_model(seed=1)
+    a1, a2, a3 = MF_ADAM
+    with phase_snapshots() as seen:
+        losses, dt_adam = timed(lambda: fresh.optimize_adam(
+            iterations1=a1, iterations2=a2, iterations3=a3, messages=0))
+    check_mf_training(f"optimize_adam {a1} + {a2} + {a3} steps", seen,
+                      losses, nat=False)
+    Xr = mf_request_rows()
+    (mean, var), dt_predict = timed(lambda: model.predict(Xr))
+    if not (mean.shape == var.shape == (MF_REQUEST, 1)
+            and np.all(np.isfinite(mean)) and np.all(var > 0)):
+        raise AssertionError("[mf] predict: bad output")
+    launched = counts()
+    expect = mf_expected_counts(built=2, losses=n1 + n2 + 2 * n3 + a1 + a2 + a3,
+                                requests=1)
+    log(f"[mf] Park (Din {MF_DIN}, N {MF_N}, M = N, S {MF_S}, float32): built "
+        f"in {dt_build:.2f} s; optimize_nat_adam {dt_nat:.2f} s; "
+        f"optimize_adam {dt_adam:.2f} s; predict of {MF_REQUEST} rows at "
+        f"{MF_PREDICT_S} samples {1e3 * dt_predict:.1f} ms (first use); "
+        f"launches {COUNTED} {launched}, reckoned {expect} ({gpu})")
+    if launched != expect:
+        raise AssertionError(f"[mf] launches {launched}, reckoned {expect}")
+    return launched, model
+
+
+def mf_normals(model, gen, rows=None, S=MF_S):
+    """Fixed unit normals in the order the MF functions draw them: each
+    augmented layer's Z_right (one [50, M_i, D] draw per earlier layer),
+    then one [S, rows, D] per layer for a request of ``rows`` rows or, with
+    ``rows`` None, one [S, N_f, D] per layer up to f for each fidelity f of
+    a loss."""
+    layers = model.params.layers
+    shapes = [(50, layers[i].z_left.shape[0], layers[j].num_outputs)
+              for i in range(1, len(layers)) for j in range(i)]
+    if rows is None:
+        shapes += [(S, x.shape[0], layers[i].num_outputs)
+                   for f, x in enumerate(model._X) for i in range(f + 1)]
+    else:
+        shapes += [(S, rows, layer.num_outputs) for layer in layers]
+    return [torch.randn(shape, generator=gen, device=DEVICE)
+            for shape in shapes]
+
+
+def compare_mf(model):
+    """One 1,000-row request (moment-matched) and one loss with its
+    gradients, on fixed unit normals: the quadform kernels on against off
+    (both arms factor Kuu through #7/#8, as compare_paths) within
+    TOL_REQUEST / TOL_GRAD of scale, z_left's gradient nonzero and finite;
+    then the request with every kernel on against the plain versions
+    (use_kernels off, #7/#8 too) within TOL_REQUEST of scale, and each of
+    the two against the same request in float64 (f64_twin, hold_to_f64). (The
+    float32 loss gradient is itself off its float64 twin by more than
+    WITNESS_CAP at this Kuu, in layer 0's z: a CPU rehearsal with the
+    plain versions in both arms.)"""
+    import copy
+
+    from dgp_tpu_torch.config import ieee_fp32, kernels_scope
+    from dgp_tpu_torch.models import mf_dgp as tmf
+    from dgp_tpu_torch.models.dgp import moment_matched
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    X = torch.tensor(mf_request_rows(), dtype=torch.float32, device=DEVICE)
+    zr = mf_normals(model, gen, rows=MF_REQUEST, S=MF_PREDICT_S)
+    zl = mf_normals(model, gen)
+    names = [n for n, _ in model.params.named_parameters()]
+
+    @torch.no_grad()
+    def request(params, dtype):
+        m, v = tmf.predict_y(params, X.to(dtype), MF_PREDICT_S,
+                             noise=[z.to(dtype) for z in zr])
+        return moment_matched(m, v)
+
+    def loss_and_grads(params, dtype):
+        with ieee_fp32():
+            loss = -tmf.elbo(params, [x.to(dtype) for x in model._X],
+                             [y.to(dtype) for y in model._Y], MF_S,
+                             noise=[z.to(dtype) for z in zl])
+            return (loss.detach(), *torch.autograd.grad(
+                loss, list(params.parameters())))
+
+    for what, fn, labels, tol in (
+            ("request", request, ["mean", "var"], TOL_REQUEST),
+            ("loss and gradients", loss_and_grads, ["loss"] + names, TOL_GRAD)):
+        before = counts()
+        with cholesky_route("kernels"):
+            on = fn(model.params, torch.float32)
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            with kernels_scope(False):
+                off = fn(model.params, torch.float32)
+        expect = (mf_expected_counts(requests=1) if what == "request"
+                  else mf_expected_counts(losses=1))
+        if launched != expect:
+            raise AssertionError(f"[mf] {what}: launches {launched}, "
+                                 f"expected {expect}")
+        report = []
+        for name, a, b in zip(labels, on, off):
+            err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+            report.append(f"{name} {err:.2e}")
+            if not err <= tol:
+                raise AssertionError(f"[mf] {what}: {name} differs with the "
+                                     f"quadform kernels off by {err:.2e}")
+        log(f"[mf] {what}: quadform kernels on vs off on fixed normals, err / "
+            f"max|off| (tol {tol}): {', '.join(report)}")
+        if what != "request":
+            for i in range(1, len(model.params.layers)):
+                g = on[1 + names.index(f"layers.{i}.z_left")]
+                if not (torch.isfinite(g).all() and bool((g != 0).any())):
+                    raise AssertionError(f"[mf] z_left {i}'s gradient {g}")
+            continue
+        double = copy.deepcopy(model.params).double()
+        with f64_twin():
+            ref = fn(double, torch.float64)
+        with kernels_scope(False):
+            plain = fn(model.params, torch.float32)
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(on, plain)]
+        log(f"[mf] {what}: every kernel on vs off (use_kernels), err / "
+            f"max|off| (tol {TOL_REQUEST}): "
+            + ", ".join(f"{n} {e:.2e}" for n, e in zip(labels, errs)))
+        if not max(errs) <= TOL_REQUEST:
+            raise AssertionError(f"[mf] {what}: differs with use_kernels off")
+        hold_to_f64(f"[mf] {what}: every kernel vs the plain versions",
+                    labels, ref, on, plain)
+
+
+def time_mf(model, gpu, steps=10, rounds=3):
+    """Wall ms per MF loss-and-gradient evaluation (host clock around
+    ``steps`` evaluations, ``rounds`` rounds) and per 1,000-row predict;
+    the device's idle share over three Adam steps (torch.profiler)."""
+    from dgp_tpu_torch.config import ieee_fp32
+    from dgp_tpu_torch.models import training
+
+    loss_fn, batch = model._loss_spec()
+    params = list(model.params.parameters())
+
+    def evaluations():
+        with ieee_fp32():
+            for _ in range(steps):
+                loss = loss_fn(model.params, model.generator, batch)
+                torch.autograd.grad(loss, params)
+
+    evaluations()
+    ms = [1e3 * timed(evaluations)[1] / steps for _ in range(rounds)]
+    log(f"[timing] MF loss and gradient (Park, N {MF_N}, S {MF_S}), ms per "
+        f"evaluation over {steps}, {rounds} rounds: "
+        f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
+    Xr = mf_request_rows()
+    model.predict(Xr)
+    ms = [1e3 * timed(lambda: model.predict(Xr))[1] for _ in range(rounds)]
+    log(f"[timing] MF predict, {MF_REQUEST} rows at {MF_PREDICT_S} samples "
+        f"(moment-matched, to the host), ms per request, {rounds} rounds: "
+        f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
+    mask = training.make_mask(model.params)
+    profile_run("three MF Adam steps", lambda: training.adam_run(
+        loss_fn, model.params, mask, model.generator, steps=3, data=batch),
+        gpu)
+
+
+# -- phase 7 --------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -2160,6 +2506,12 @@ def main():
         err_qf = max(err_qf, check_quadform(2, 100, 1_037, with_t1, 290, prior=True))
         err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
             2, 100, 1_037, with_t1, 390, prior=True))
+    # the multi-fidelity model's shapes (D = 1, M = 30 and 5)
+    for seed, (D, Mi, n) in enumerate(MF_QUADFORM):
+        for with_t1 in (False, True):
+            err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 240 + seed))
+            err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
+                D, Mi, n, with_t1, 340 + seed))
 
     err_fw = err_fw_bwd = 0.0
     for seed, (D, Mi, Din, n) in enumerate([
@@ -2210,6 +2562,11 @@ def main():
     for inverse in (False, True):  # the largest M of each plan
         err_chol[inverse] = max(err_chol[inverse], check_cholesky(
             1, largest_cholesky_m(inverse), 690 + inverse, inverse))
+    # the Park model's own Kuu stacks, held to their float64 twins
+    for name, stack in park_kuu():
+        for inverse in (False, True):
+            err_chol[inverse] = max(err_chol[inverse], check_cholesky(
+                1, stack[0].shape[-1], 0, inverse, kuu=name, stack=stack))
 
     # each main path's launch counts (zeroed just before it, read just
     # after); a kernel's launches in the kernels line are their sum
@@ -2253,6 +2610,9 @@ def main():
                        COMPOSITE_NAT_STEPS))
 
     paths.append(run_bo(gpu))
+    launched, model_mf = run_mf(gpu)
+    paths.append(launched)
+    compare_mf(model_mf)
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
@@ -2304,6 +2664,7 @@ def main():
                 gpu)
     profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
+    time_mf(model_mf, gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     qf_source = "dgp_tpu_torch/csrc/quadform.cu"

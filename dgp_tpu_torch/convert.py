@@ -6,8 +6,9 @@ attribute name with ``np.asarray`` (it imports nothing of JAX or of the JAX
 package), and :func:`dgp_from_numpy` builds the port's ``DGPParams`` from
 that tree of numpy arrays, so both packages compute from the same numbers.
 :func:`numpy_tree_from_port` gives the same tree for the port's own
-``DGPParams``, so parameters trained in both packages can be compared. An
-exact GP's ``GPRParams`` goes the same way (:func:`gpr_from_numpy`).
+``DGPParams``, so parameters trained in both packages can be compared. A
+multi-fidelity deep GP's ``MFDGPParams`` (:func:`mf_dgp_from_numpy`) and an
+exact GP's ``GPRParams`` (:func:`gpr_from_numpy`) go the same way.
 
 The tree is plain data::
 
@@ -15,6 +16,9 @@ The tree is plain data::
                  "q_sqrt": [D, M, M], "mean_function": F,
                  "num_outputs": D, "white": bool, "input_prop_dim": int|None}],
      "likelihood": {"type": "Gaussian", "variance_raw": []}}
+
+where an augmented layer (the multi-fidelity models') holds ``"z_left":
+[M, D_left]`` in place of ``"z"``.
 
 with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "lengthscales_raw", "active_dims"}, {"type": "Linear" | "White",
@@ -33,6 +37,7 @@ import torch
 from .layers.svgp import SVGPLayer
 from .models.dgp import DGPParams
 from .models.gpr import GPRParams
+from .models.mf_dgp import MFDGPParams
 from .ops import kernels as K
 from .ops import likelihoods, means
 
@@ -82,20 +87,19 @@ def _likelihood_tree(lik):
 
 def numpy_tree_from_reference(params) -> dict:
     """The tree of a ``dgp_tpu.models.dgp.DGPParams`` (or of a
+    ``dgp_tpu.models.mf_dgp.MFDGPParams`` or a
     ``dgp_tpu.models.gpr.GPRParams``) as numpy arrays (the two packages
-    name their fields alike, so the port's ``DGPParams`` and ``GPRParams``
-    read the same way: :func:`numpy_tree_from_port`)."""
+    name their fields alike, so the port's ``DGPParams``, ``MFDGPParams``
+    and ``GPRParams`` read the same way: :func:`numpy_tree_from_port`)."""
     if not hasattr(params, "layers"):
         return {"kernel": _kernel_tree(params.kernel),
                 "likelihood": _likelihood_tree(params.likelihood)}
     layers = []
     for layer in params.layers:
-        if getattr(layer, "augmented", False):
-            raise TypeError("augmented layers are ported with the "
-                            "multi-fidelity models")
+        z = "z_left" if getattr(layer, "augmented", False) else "z"
         layers.append({
             "kernel": _kernel_tree(layer.kernel),
-            "z": _np(layer.z),
+            z: _np(getattr(layer, z)),
             "q_mu": _np(layer.q_mu),
             "q_sqrt": _np(layer.q_sqrt),
             "mean_function": _mean_tree(layer.mean_function),
@@ -107,8 +111,8 @@ def numpy_tree_from_reference(params) -> dict:
 
 
 def numpy_tree_from_port(params) -> dict:
-    """The tree of the port's ``DGPParams``, in the layout
-    :func:`numpy_tree_from_reference` gives."""
+    """The tree of the port's ``DGPParams``, ``MFDGPParams`` or
+    ``GPRParams``, in the layout :func:`numpy_tree_from_reference` gives."""
     return numpy_tree_from_reference(params)
 
 
@@ -147,23 +151,35 @@ def _mean_function(tree, device, dtype):
     raise TypeError(f"no port of mean function {name}")
 
 
+def _layer(t, device, dtype):
+    optional = lambda name: (_array(t[name], device, dtype) if name in t
+                             else None)
+    return SVGPLayer(
+        _kernel(t["kernel"], device, dtype),
+        optional("z"),
+        _array(t["q_mu"], device, dtype),
+        _array(t["q_sqrt"], device, dtype),
+        _mean_function(t["mean_function"], device, dtype),
+        t["num_outputs"], white=t["white"],
+        input_prop_dim=t["input_prop_dim"],
+        z_left=optional("z_left"),
+    )
+
+
 def dgp_from_numpy(tree: dict, device, dtype) -> DGPParams:
     """The port's ``DGPParams`` from a tree of numpy arrays, on ``device``
     in ``dtype``."""
     device = torch.device(device)
-    layers = [
-        SVGPLayer(
-            _kernel(t["kernel"], device, dtype),
-            _array(t["z"], device, dtype),
-            _array(t["q_mu"], device, dtype),
-            _array(t["q_sqrt"], device, dtype),
-            _mean_function(t["mean_function"], device, dtype),
-            t["num_outputs"], white=t["white"],
-            input_prop_dim=t["input_prop_dim"],
-        )
-        for t in tree["layers"]
-    ]
-    return DGPParams(layers, _likelihood(tree["likelihood"], device, dtype))
+    return DGPParams([_layer(t, device, dtype) for t in tree["layers"]],
+                     _likelihood(tree["likelihood"], device, dtype))
+
+
+def mf_dgp_from_numpy(tree: dict, device, dtype) -> MFDGPParams:
+    """The port's ``MFDGPParams`` (layer 0 plain, the others augmented) from
+    a tree of numpy arrays, on ``device`` in ``dtype``."""
+    device = torch.device(device)
+    return MFDGPParams([_layer(t, device, dtype) for t in tree["layers"]],
+                       _likelihood(tree["likelihood"], device, dtype))
 
 
 def _likelihood(tree, device, dtype):

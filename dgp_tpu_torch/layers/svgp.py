@@ -4,7 +4,10 @@ A layer is an ``nn.Module`` holding the kernel, the inducing inputs and the
 variational parameters under the JAX pytree's names; the math lives in plain
 functions that take the inducing inputs explicitly. Sampling takes an
 explicit ``torch.Generator`` (or fixed unit normals) in place of
-``jax.random`` keys. Augmented layers (multi-fidelity) come with that family.
+``jax.random`` keys. An augmented layer (the multi-fidelity models') holds
+only the trainable left block ``z_left`` of its inducing inputs and no
+``z``: the model recomputes the rest inside every loss and request and
+passes the full inducing inputs in.
 """
 
 from __future__ import annotations
@@ -32,10 +35,13 @@ from ..variational.gaussian import gauss_kl
 class SVGPLayer(nn.Module):
     def __init__(self, kernel, z, q_mu, q_sqrt, mean_function: MeanFunction,
                  num_outputs: int, white: bool = False,
-                 input_prop_dim: Optional[int] = None):
+                 input_prop_dim: Optional[int] = None, z_left=None):
         super().__init__()
         self.kernel = kernel
-        self.z = nn.Parameter(z)              # [M, Din]
+        # [M, Din]; None for augmented layers
+        self.z = None if z is None else nn.Parameter(z)
+        # [M, D_left]; None for plain layers
+        self.z_left = None if z_left is None else nn.Parameter(z_left)
         self.q_mu = nn.Parameter(q_mu)        # [M, D_out]
         self.q_sqrt = nn.Parameter(q_sqrt)    # [D_out, M, M] lower-triangular
         self.mean_function = mean_function
@@ -43,16 +49,25 @@ class SVGPLayer(nn.Module):
         self.white = white
         self.input_prop_dim = input_prop_dim
 
+    @property
+    def augmented(self) -> bool:
+        return self.z_left is not None
+
 
 def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
-                    white=False, input_prop_dim=None, dtype=None,
-                    device=None) -> SVGPLayer:
+                    white=False, input_prop_dim=None, augmented=False,
+                    Z_full_init=None, dtype=None, device=None) -> SVGPLayer:
     """A layer with the reference's initialization: q_mu = 0; q_sqrt = I
     (whitened) or chol(Kuu) at the initial inducing inputs (non-whitened;
     kernel #7 where it applies, and NaN, not a raise, for a Kuu that is not
     positive definite, as in the JAX package). The layer holds its own copy
     of ``kernel`` (the JAX layers share immutable values; shared modules
-    would tie the parameters)."""
+    would tie the parameters).
+
+    :param Z: inducing inputs [M, Din]; for an augmented layer the trainable
+        left block, with the full initial [M, Din + aug] in ``Z_full_init``
+        for the q_sqrt prior init.
+    """
     dtype = dtype or default_float()
     Z = torch.as_tensor(Z, dtype=dtype, device=device)
     kernel = copy.deepcopy(kernel).to(device=Z.device, dtype=dtype)
@@ -65,10 +80,14 @@ def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
         if white:
             Lu = eye
         else:
-            Lu = cholesky(kernel.K(Z) + default_jitter(dtype) * eye)
+            Z_init = Z if Z_full_init is None else torch.as_tensor(
+                Z_full_init, dtype=dtype, device=Z.device)
+            Lu = cholesky(kernel.K(Z_init) + default_jitter(dtype) * eye)
         q_sqrt = Lu[None].repeat(num_outputs, 1, 1)
-    return SVGPLayer(kernel, Z, q_mu, q_sqrt, mean_function, num_outputs,
-                     white=white, input_prop_dim=input_prop_dim)
+    return SVGPLayer(kernel, None if augmented else Z, q_mu, q_sqrt,
+                     mean_function, num_outputs, white=white,
+                     input_prop_dim=input_prop_dim,
+                     z_left=Z if augmented else None)
 
 
 def stack_projections(layers, Zs):
@@ -146,3 +165,16 @@ def layer_kl(layer: SVGPLayer, Z, Lu=None):
         Kuu = layer.kernel.K(Z)
         Lu = cholesky(Kuu + default_jitter(Z.dtype) * eye_like(Kuu))
     return gauss_kl(layer.q_mu, layer.q_sqrt, Lu=Lu)
+
+
+def mean_propagated_sample(layer: SVGPLayer, Z, points, generator=None,
+                           num_samples=50, z=None):
+    """Mean over ``num_samples`` reparameterized draws of the layer at
+    ``points`` [N, Din]: the building block of the augmented inducing
+    points' recomputation.
+
+    :param z: optional fixed unit normals [num_samples, N, D].
+    """
+    tiled = points[None].expand(num_samples, *points.shape)
+    samples, _, _ = sample_from_conditional(layer, Z, tiled, generator, z=z)
+    return torch.mean(samples, dim=0)

@@ -1,5 +1,7 @@
 """Likelihoods (counterpart of ``dgp_tpu/ops/likelihoods.py``): the
-Gaussian likelihood, whose closed forms broadcast over the sample axis."""
+Gaussian likelihood, whose closed forms broadcast over the sample axis, and
+the Gaussian densities with an explicit variance that the multi-fidelity
+models' inner fidelities use."""
 
 from __future__ import annotations
 
@@ -46,3 +48,16 @@ class Gaussian(nn.Module):
         tot = Fvar + self.variance
         return (-_HALF_LOG_2PI - 0.5 * torch.log(tot)
                 - 0.5 * (Y - Fmu) ** 2 / tot)
+
+
+def gaussian_logdensity(Y, mu, var):
+    """log N(Y | mu, var) with an explicit variance (the inner-fidelity
+    likelihood of the multi-fidelity models)."""
+    return -_HALF_LOG_2PI - 0.5 * torch.log(var) - 0.5 * (Y - mu) ** 2 / var
+
+
+def fidelity_variational_expectations(Fmu, Fvar, Y, variance):
+    """E_q[log N(Y | f, variance)] with the noise variance given (an inner
+    multi-fidelity layer's White-kernel variance)."""
+    return (-_HALF_LOG_2PI - 0.5 * torch.log(variance)
+            - 0.5 * ((Y - Fmu) ** 2 + Fvar) / variance)

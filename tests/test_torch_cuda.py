@@ -760,3 +760,44 @@ def test_bo_surrogates_go_through_the_cholesky_kernels(cuda):
     with torch.no_grad():
         dgp.params.layers[0].z[2, 0] = float("nan")
     assert torch.isnan(dgp.ELBO())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", chip_smoke.MF_QUADFORM)
+def test_quadform_kernels_at_the_mf_shapes(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 at the multi-fidelity model's shapes (D = 1,
+    M = 30 and 5, n from 50 to 250,000), held as in
+    test_quadform_kernels_match_plain."""
+    chip_smoke.check_quadform(D, M, n, with_t1, M + n % 97)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, M + n % 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cholesky_kernels_on_the_park_kuu(cuda, inverse):
+    """Kernels #7 and #8 on the Park MF model's own Kuu stacks ([1, 30, 30]
+    and [1, 5, 5], the second at the recomputed augmented Z), held to their
+    float64 twins under the float32 jitter."""
+    for name, stack in chip_smoke.park_kuu():
+        assert chip_smoke.check_cholesky(1, stack[0].shape[-1], 0, inverse,
+                                         kuu=name, stack=stack) < 1.0
+
+
+@pytest.mark.cuda
+def test_mf_dgp_goes_through_the_kernels(cuda):
+    """The Park MF model on the card: built with #7 per layer and one
+    Z_right (#8, #5); each loss evaluation of optimize_adam launches #5,
+    #6 and its phase B four times and #8 three times; a request and a loss
+    gradient on fixed normals with the quadform kernels on equal the
+    kernels-off path's to 1e-3 of scale, z_left's gradient nonzero, and the
+    request holds to its float64 twin (chip_smoke.compare_mf)."""
+    chip_smoke.zero_counts()
+    model = chip_smoke.mf_model()
+    assert chip_smoke.counts() == chip_smoke.mf_expected_counts(built=1)
+    losses = model.optimize_adam(iterations1=1, iterations2=1, iterations3=1,
+                                 messages=0)
+    assert bool(torch.isfinite(losses).all())
+    assert chip_smoke.counts() == chip_smoke.mf_expected_counts(built=1,
+                                                                losses=3)
+    chip_smoke.compare_mf(model)

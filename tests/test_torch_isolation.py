@@ -15,6 +15,7 @@ from dgp_tpu_torch.config import ieee_fp32
 from dgp_tpu_torch.bo.so_bo import SO_BO, make_single_model
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import gpr as TGPR
+from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
 from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
@@ -32,10 +33,11 @@ FORBIDDEN = re.compile(
 
 
 def port_sources():
-    for base, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                yield os.path.join(base, f)
+    for base in (PKG, os.path.join(ROOT, "compat_torch")):
+        for base, _, files in os.walk(base):
+            for f in files:
+                if f.endswith(".py"):
+                    yield os.path.join(base, f)
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
@@ -47,7 +49,8 @@ def test_no_jax_imports_in_port():
             "utils/checkpoint.py", "convert.py", "ops/quadform.py",
             "ops/conditional_fused.py", "ops/cholesky.py", "models/gpr.py",
             "bo/doe.py", "bo/de.py", "bo/acquisition.py",
-            "bo/so_bo.py"} <= rel
+            "bo/so_bo.py", "models/mf_dgp.py", "utils/test_functions.py",
+            "../compat_torch/validate_mf_dgp.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -88,6 +91,14 @@ bo = SO_BO(problem=P(), DoE_size=4, model_Y_dic={"num_layers": 0,
 bo.run(1, train_iterations=5, popsize_DE=8, iterations_DE=3,
        iterations_adam=3, verbose=False)
 assert len(bo.Ymin) == 2 and np.isfinite(bo.Ymin[-1])
+from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
+from dgp_tpu_torch.utils.test_functions import park_high, park_low
+Xm = [rng.uniform(size=(6, 4)), rng.uniform(size=(3, 4))]
+mf = MultiFidelityDeepGP(Xm, [park_low(Xm[0]), park_high(Xm[1])],
+                         num_samples=2, device="cpu")
+losses = mf.optimize_nat_adam(iterations1=1, iterations2=1, iterations3=1,
+                              messages=0)
+assert losses.shape == (3,) and mf.predict(Xm[1])[0].shape == (3, 1)
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -125,6 +136,11 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         SO_BO(problem=_Problem(), DoE_size=4, model_Y_dic=gp)
     bo = SO_BO(problem=_Problem(), DoE_size=4, model_Y_dic=gp, device="cpu")
     assert bo.model_Y.device == torch.device("cpu")
+    Xm, Ym = [X, X[:3]], [X, X[:3]]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiFidelityDeepGP(Xm, Ym, dtype=torch.float64)
+    mf = MultiFidelityDeepGP(Xm, Ym, dtype=torch.float64, device="cpu")
+    assert mf.params.layers[1].z_left.device == torch.device("cpu")
 
 
 class _Problem:

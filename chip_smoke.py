@@ -43,9 +43,11 @@ Phases, each of which raises (exit code 1) on any fault:
              non-whitened layer's own operands at the prior: each with a
              repeat and a run with NaN below Sq's diagonal bit for bit
              equal, dSq exactly 0 below the diagonal, one phase-A and one
-             phase-B launch per pass; and at the MF model's shapes (D = 1,
+             phase-B launch per pass; at the MF model's shapes (D = 1,
              M = 30 by n = 50, 250, 300, 500 and 250,000; M = 5 by n = 50,
-             250 and 250,000).
+             250 and 250,000); and at the Embedded Mapping model's (D = 2,
+             M = 6 by n = 300, 600 and 250,000; D = 1, M = 30 by n = 300,
+             600, 3,000 and 250,000; D = 1, M = 6 by n = 600 and 250,000).
              Then the Kuf-consuming fused conditional (kernel #3) and its
              backward (#4) on the Kuf and Kff of an RBF + Linear kernel (Kff
              varies per point), at the same four shapes (#3 also at #1's
@@ -70,8 +72,11 @@ Phases, each of which raises (exit code 1) on any fault:
              first panel NaN in place, the Function's gradient against
              autograd in float64; and on the MF Park model's own Kuu stacks
              ([1, 30, 30] at Z, [1, 5, 5] at the recomputed augmented Z,
-             White 1e-6 and the float32 jitter 1e-4), held to their float64
-             twins under the same jitter.
+             White 1e-6 and the float32 jitter 1e-4) and the Park_VD
+             model's ([1, 30, 30] at Z, [1, 6, 6] the reduction layer's at
+             W, [2, 6, 6] layer 1's at its recomputed 5-D augmented Z with
+             the reduction layer's), held to their float64 twins under the
+             same jitter.
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -133,7 +138,23 @@ Phases, each of which raises (exit code 1) on any fault:
              scale (z_left's gradient nonzero); the request also with every
              kernel on and off (use_kernels) within 1e-3, and each of the
              two against the same request in float64.
-7. timing  — CUDA-event times of every kernel and of its plain version at
+7. em      — compat/validate_mf_dgp_em.py through the port's
+             MultiFidelityDeepGP_EM on the card (the nb_mfdgpem Park_VD
+             pair: a 2-D low fidelity of N = 30, a 4-D high fidelity of
+             N = 6, X_red = X[1][:, :2], Z = X, W = [X[1]], S = 100,
+             float32; a reduction layer of D = 2, M = 6 and layers of
+             M = 30 and 6 through #5-#8): build it,
+             optimize_nat_adam(lr_adam=0.005) for 10 + 10 + 40 steps (cut
+             from --fast's 0 / 400 / 800), a fresh model's optimize_adam for
+             10 + 10 + 10, one predict of 1,000 rows at 250 samples. As the
+             mf phase, with em_moves: the reduction layer's z moving from
+             phase 1, its q_sqrt in the natural-gradient phase 3 only, both
+             likelihoods frozen but for the model likelihood in Adam's
+             phase 3; launches as em_expected_counts reckons them; the
+             request and the loss gradient (z_left's, the reduction layer's
+             z and q_mu's and the projection likelihood's nonzero) with the
+             kernels on and off, and the request against float64.
+8. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -154,8 +175,9 @@ Phases, each of which raises (exit code 1) on any fault:
              (whitened RBF) and per Adam step (non-whitened, RBF + Linear);
              the device time by kernel over one request and over three Adam
              steps of each of the three models (torch.profiler); the MF
-             model's ms per loss-and-gradient evaluation and per 1,000-row
-             predict, and its device idle share over three Adam steps.
+             and EM models' ms per loss-and-gradient evaluation and per
+             1,000-row predict, and their device idle share over three Adam
+             steps.
 
 The line before the last is one JSON object listing every ported kernel
 (and, as entries of their own, the phase B of #2 and of #4; #6's phase B
@@ -167,6 +189,7 @@ either.
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -240,6 +263,27 @@ MF_NAT, MF_ADAM = (20, 20, 40), (10, 10, 10)
 # that the other checks take
 MF_QUADFORM = [(1, 30, 250), (1, 30, 300), (1, 30, 250_000), (1, 30, 50),
                (1, 30, 500), (1, 5, 50), (1, 5, 250), (1, 5, 250_000)]
+# the multi-fidelity configuration with Embedded Mapping
+# (compat/validate_mf_dgp_em.py, the notebook nb_mfdgpem): Park_VD, a 2-D
+# low fidelity of 30 points (lhs seed 123) and a 4-D high fidelity of 6
+# (lhs seed 0), X_red = X[1][:, :2], Z = X, W = [X[1]], S = 100, float32;
+# requests of 1,000 rows (lhs seed 321) at 250 samples; training cut from
+# --fast's 0 / 400 / 800 steps at lr_adam 0.01 to 10 / 10 / 40 at 0.005
+# (phase 1 kept: it moves the reduction layer's inducing inputs alone; at
+# 0.01 the first steps of phase 2 raise the loss 35-fold, a CPU rehearsal)
+EM_DIN, EM_N, EM_S = (2, 4), (30, 6), 100
+EM_REQUEST, EM_PREDICT_S = 1_000, 250
+EM_NAT, EM_ADAM = (10, 10, 40), (10, 10, 10)
+# its quadform shapes (D, M, n): the reduction layer (D = 2, M = 6) at
+# 50 x 6 points (Z_right in a loss or request), 100 x 6 (at init, the
+# projection term and the fidelity-1 term) and 250 x 1,000 (a request);
+# layer 0 (D = 1, M = 30) at 50 x 6, 100 x 6, 100 x 30 (the fidelity-0
+# term) and 250 x 1,000; layer 1 (D = 1, M = 6, its composite kernel on the
+# 5-D augmented Z) at 100 x 6 and 250 x 1,000: D = 2 at an M below 8, which
+# no other path runs
+EM_QUADFORM = [(2, 6, 300), (2, 6, 600), (2, 6, 250_000), (1, 30, 300),
+               (1, 30, 600), (1, 30, 3_000), (1, 30, 250_000), (1, 6, 600),
+               (1, 6, 250_000)]
 DEVICE = "cuda"
 
 
@@ -1610,30 +1654,38 @@ def mf_request_rows():
     return lhs(MF_DIN, MF_REQUEST, seed=125)
 
 
-def park_kuu():
-    """[(name, (A, A64))]: the Park model's own Kuu stacks, [1, 30, 30]
-    (layer 0 at Z) and [1, 5, 5] (layer 1 at its augmented Z, recomputed),
-    each kernel's White 1e-6 inside, with the float32 jitter 1e-4; A64 the
+def kuu_twins(layers, zs):
+    """(A, A64): the float32 Kuu stack of ``layers`` at the inducing inputs
+    ``zs`` (each kernel's White inside, the float32 jitter 1e-4) and its
     float64 twin: the same kernels in float64 at the same inducing inputs,
     under the same jitter (f64_twin)."""
     import copy
 
-    from dgp_tpu_torch.models.mf_dgp import compute_full_zs
     from dgp_tpu_torch.ops.conditionals import _jittered_kuu
+
+    with torch.no_grad():
+        A = torch.stack([_jittered_kuu(layer.kernel, z, None)
+                         for layer, z in zip(layers, zs)])
+        with f64_twin():
+            A64 = torch.stack([
+                _jittered_kuu(copy.deepcopy(layer.kernel).double(), z.double(),
+                              None)
+                for layer, z in zip(layers, zs)])
+    return A, A64
+
+
+def park_kuu():
+    """[(name, (A, A64))]: the Park model's own Kuu stacks, [1, 30, 30]
+    (layer 0 at Z) and [1, 5, 5] (layer 1 at its augmented Z, recomputed),
+    each with its float64 twin (kuu_twins)."""
+    from dgp_tpu_torch.models.mf_dgp import compute_full_zs
 
     model = mf_model()
     gen = torch.Generator(device=DEVICE).manual_seed(3)
-    double = copy.deepcopy(model.params).double()
-    out = []
     with torch.no_grad():
         zs = compute_full_zs(model.params.layers, gen)
-        for i, (layer, twin, z) in enumerate(zip(model.params.layers,
-                                                 double.layers, zs)):
-            A = _jittered_kuu(layer.kernel, z, None)[None]
-            with f64_twin():
-                A64 = _jittered_kuu(twin.kernel, z.double(), None)[None]
-            out.append((f"Park layer {i}", (A, A64)))
-    return out
+    return [(f"Park layer {i}", kuu_twins([layer], [z]))
+            for i, (layer, z) in enumerate(zip(model.params.layers, zs))]
 
 
 def mf_expected_counts(built=0, losses=0, requests=0):
@@ -1680,85 +1732,107 @@ def phase_snapshots():
         training.adam_run, training.nat_adam_run = saved
 
 
-def check_mf_training(what, seen, losses, nat, window=10):
-    """The three phases ran as the reference stages them: phase 1 trains
-    the kernels alone (z, z_left, the likelihood and every q frozen), phase
-    2 also the inducing inputs, phase 3 everything but q (which the natural
-    gradient moves) or, with Adam, everything. Each frozen tensor is
-    unchanged bit for bit; z_left moves from phase 2, the likelihood and q
-    in phase 3. The losses are finite and the last ``window`` below the
-    first ``window`` (means)."""
+MF_MOVES = {"z_left": 2, "z": 2, "likelihood": 3, "q_mu": 3, "q_sqrt": 3}
+
+
+def mf_moves(name, nat):
+    """The phase from which the MF model's tensor ``name`` moves: z and
+    z_left from phase 2, the likelihood and q in phase 3; None for the
+    tensors not checked (the kernels)."""
+    parts = name.split(".")
+    return next((MF_MOVES[f] for f in MF_MOVES if f in parts), None)
+
+
+def check_mf_training(what, seen, losses, nat, window=10, moves=mf_moves,
+                      tag="mf", moved="z_left moved from phase 2, the "
+                      "likelihood and q in phase 3"):
+    """The three phases ran as the reference stages them: with the MF
+    model (``moves`` = mf_moves), phase 1 trains the kernels alone (z,
+    z_left, the likelihood and every q frozen), phase 2 also the inducing
+    inputs, phase 3 everything but q (which the natural gradient moves)
+    or, with Adam, everything. Each frozen tensor is unchanged bit for bit
+    (q aside in the natural-gradient phase), and each tensor that
+    ``moves(name, nat)`` names a phase for stays unchanged before that
+    phase and moves from it on (math.inf: never). The losses are finite and
+    the last ``window`` below the first ``window`` (means)."""
     losses = losses.cpu().numpy()
     first, last = losses[:window].mean(), losses[-window:].mean()
     if not (np.all(np.isfinite(losses)) and last < first):
-        raise AssertionError(f"[mf] {what}: losses {losses}")
+        raise AssertionError(f"[{tag}] {what}: losses {losses}")
     loops = [loop for loop, *_ in seen]
     if loops != ["Adam", "Adam", "Adam + natural gradients" if nat else "Adam"]:
-        raise AssertionError(f"[mf] {what}: phases {loops}")
-    moved_from = {"z_left": 2, "z": 2, "likelihood": 3, "q_mu": 3,
-                  "q_sqrt": 3}
+        raise AssertionError(f"[{tag}] {what}: phases {loops}")
     report = []
     for phase, (loop, mask, before, after) in enumerate(seen, 1):
         frozen = sorted(k for k, trained in mask.items() if not trained)
         for name in mask:
-            field = next((f for f in moved_from if f in name.split(".")),
-                         None)
+            from_phase = moves(name, nat)
             unchanged = torch.equal(before[name], after[name])
-            if name in frozen and not unchanged and not (
-                    loop != "Adam" and field in ("q_mu", "q_sqrt")):
-                raise AssertionError(f"[mf] {what}: frozen {name} moved in "
+            q = name.split(".")[-1] in ("q_mu", "q_sqrt")
+            if name in frozen and not unchanged and not (loop != "Adam" and q):
+                raise AssertionError(f"[{tag}] {what}: frozen {name} moved in "
                                      f"phase {phase}")
-            if field is not None and unchanged != (phase < moved_from[field]):
-                raise AssertionError(f"[mf] {what}: {name} "
+            if from_phase is not None and unchanged != (phase < from_phase):
+                raise AssertionError(f"[{tag}] {what}: {name} "
                                      f"{'did not move' if unchanged else 'moved'}"
                                      f" in phase {phase}")
         report.append(f"phase {phase} ({loop}) {len(frozen)} frozen")
-    log(f"[mf] {what}: losses finite, {first:.1f} -> {last:.1f} (means of "
+    log(f"[{tag}] {what}: losses finite, {first:.1f} -> {last:.1f} (means of "
         f"the first and last {window}); "
-        f"{', '.join(report)}: frozen tensors bit for bit unchanged, z_left "
-        f"moved from phase 2, the likelihood and q in phase 3")
+        f"{', '.join(report)}: frozen tensors bit for bit unchanged, {moved}")
 
 
-def run_mf(gpu):
-    """The multi-fidelity path through the entry points a user calls: build
-    the Park model, optimize_nat_adam(lr_adam=0.005) for MF_NAT steps, a
-    fresh model's optimize_adam for MF_ADAM steps, then one predict of
-    MF_REQUEST rows at 250 samples (moment-matched). Checks each phase's
-    frozen tensors and the losses (check_mf_training), the prediction's
-    shapes and finiteness, and the launches of #5-#8 against
-    mf_expected_counts(). Returns (counts(), the trained model)."""
+def run_staged(tag, build, nat_steps, adam_steps, rows, expected, describe,
+               gpu, lr_adam, **check):
+    """A multi-fidelity path through the entry points a user calls: build
+    the model, optimize_nat_adam(lr_adam) for ``nat_steps``, a fresh
+    model's optimize_adam for ``adam_steps``, then one predict of ``rows``
+    at 250 samples (moment-matched). Checks each phase's frozen tensors
+    and the losses (check_mf_training), the prediction's shapes and
+    finiteness, and the launches of #5-#8 against ``expected(built=,
+    losses=, requests=)``; ``check`` goes to check_mf_training. Returns
+    (counts(), the trained model)."""
     zero_counts()
-    model, dt_build = timed(mf_model)
-    n1, n2, n3 = MF_NAT
+    model, dt_build = timed(build)
+    n1, n2, n3 = nat_steps
     with phase_snapshots() as seen:
         losses, dt_nat = timed(lambda: model.optimize_nat_adam(
-            lr_adam=0.005, iterations1=n1, iterations2=n2, iterations3=n3,
+            lr_adam=lr_adam, iterations1=n1, iterations2=n2, iterations3=n3,
             messages=0))
     check_mf_training(f"optimize_nat_adam {n1} + {n2} + {n3} steps", seen,
-                      losses, nat=True)
-    fresh = mf_model(seed=1)
-    a1, a2, a3 = MF_ADAM
+                      losses, nat=True, tag=tag, **check)
+    fresh = build(seed=1)
+    a1, a2, a3 = adam_steps
     with phase_snapshots() as seen:
         losses, dt_adam = timed(lambda: fresh.optimize_adam(
             iterations1=a1, iterations2=a2, iterations3=a3, messages=0))
     check_mf_training(f"optimize_adam {a1} + {a2} + {a3} steps", seen,
-                      losses, nat=False)
-    Xr = mf_request_rows()
-    (mean, var), dt_predict = timed(lambda: model.predict(Xr))
-    if not (mean.shape == var.shape == (MF_REQUEST, 1)
+                      losses, nat=False, tag=tag, **check)
+    (mean, var), dt_predict = timed(lambda: model.predict(rows))
+    if not (mean.shape == var.shape == (len(rows), 1)
             and np.all(np.isfinite(mean)) and np.all(var > 0)):
-        raise AssertionError("[mf] predict: bad output")
+        raise AssertionError(f"[{tag}] predict: bad output")
     launched = counts()
-    expect = mf_expected_counts(built=2, losses=n1 + n2 + 2 * n3 + a1 + a2 + a3,
-                                requests=1)
-    log(f"[mf] Park (Din {MF_DIN}, N {MF_N}, M = N, S {MF_S}, float32): built "
-        f"in {dt_build:.2f} s; optimize_nat_adam {dt_nat:.2f} s; "
-        f"optimize_adam {dt_adam:.2f} s; predict of {MF_REQUEST} rows at "
-        f"{MF_PREDICT_S} samples {1e3 * dt_predict:.1f} ms (first use); "
-        f"launches {COUNTED} {launched}, reckoned {expect} ({gpu})")
+    expect = expected(built=2, losses=n1 + n2 + 2 * n3 + a1 + a2 + a3,
+                      requests=1)
+    log(f"[{tag}] {describe}: built in {dt_build:.2f} s; optimize_nat_adam "
+        f"{dt_nat:.2f} s; optimize_adam {dt_adam:.2f} s; predict of "
+        f"{len(rows)} rows at 250 samples {1e3 * dt_predict:.1f} ms (first "
+        f"use); launches {COUNTED} {launched}, reckoned {expect} ({gpu})")
     if launched != expect:
-        raise AssertionError(f"[mf] launches {launched}, reckoned {expect}")
+        raise AssertionError(f"[{tag}] launches {launched}, reckoned {expect}")
     return launched, model
+
+
+def run_mf(gpu):
+    """The multi-fidelity path (run_staged): the Park model,
+    optimize_nat_adam(lr_adam=0.005) for MF_NAT steps, optimize_adam for
+    MF_ADAM, a predict of MF_REQUEST rows; launches as mf_expected_counts
+    reckons them."""
+    return run_staged(
+        "mf", mf_model, MF_NAT, MF_ADAM, mf_request_rows(), mf_expected_counts,
+        f"Park (Din {MF_DIN}, N {MF_N}, M = N, S {MF_S}, float32)", gpu,
+        lr_adam=0.005)
 
 
 def mf_normals(model, gen, rows=None, S=MF_S):
@@ -1779,71 +1853,81 @@ def mf_normals(model, gen, rows=None, S=MF_S):
             for shape in shapes]
 
 
-def compare_mf(model):
-    """One 1,000-row request (moment-matched) and one loss with its
-    gradients, on fixed unit normals: the quadform kernels on against off
-    (both arms factor Kuu through #7/#8, as compare_paths) within
-    TOL_REQUEST / TOL_GRAD of scale, z_left's gradient nonzero and finite;
-    then the request with every kernel on against the plain versions
-    (use_kernels off, #7/#8 too) within TOL_REQUEST of scale, and each of
-    the two against the same request in float64 (f64_twin, hold_to_f64). (The
-    float32 loss gradient is itself off its float64 twin by more than
-    WITNESS_CAP at this Kuu, in layer 0's z: a CPU rehearsal with the
-    plain versions in both arms.)"""
+def compare_on_off(tag, model, rows, predict, elbo, expect_request,
+                   expect_loss, nonzero, gradient_witness=False):
+    """One request of ``rows`` (``predict(params, X, dtype)``, then
+    moment-matched) and one loss (-``elbo(params, dtype)``) with its
+    gradients, on the fixed unit normals the two closures hold: the
+    quadform kernels on against off (both arms factor Kuu through #7/#8, as
+    compare_paths) within TOL_REQUEST / TOL_GRAD of scale, the launches of
+    the kernels' arm as ``expect_request`` / ``expect_loss``, the gradients
+    of ``nonzero`` nonzero and finite; then the request with every kernel
+    on against the plain versions (use_kernels off, #7/#8 too) within
+    TOL_REQUEST of scale, and each of the two against the same request in
+    float64 (f64_twin, hold_to_f64). With ``gradient_witness``, where the
+    float32 loss gradient is itself ill-conditioned, each gradient of the
+    kernels' arm is held to the plain arm's within TOL_GRAD plus twice the
+    plain arm's own distance from the float64 twin's, that second term
+    capped at WITNESS_CAP (the witness rule of hold_to_f64)."""
     import copy
 
     from dgp_tpu_torch.config import ieee_fp32, kernels_scope
-    from dgp_tpu_torch.models import mf_dgp as tmf
     from dgp_tpu_torch.models.dgp import moment_matched
 
-    gen = torch.Generator(device=DEVICE).manual_seed(11)
-    X = torch.tensor(mf_request_rows(), dtype=torch.float32, device=DEVICE)
-    zr = mf_normals(model, gen, rows=MF_REQUEST, S=MF_PREDICT_S)
-    zl = mf_normals(model, gen)
+    X = torch.tensor(rows, dtype=torch.float32, device=DEVICE)
     names = [n for n, _ in model.params.named_parameters()]
 
     @torch.no_grad()
     def request(params, dtype):
-        m, v = tmf.predict_y(params, X.to(dtype), MF_PREDICT_S,
-                             noise=[z.to(dtype) for z in zr])
-        return moment_matched(m, v)
+        return moment_matched(*predict(params, X.to(dtype), dtype))
 
     def loss_and_grads(params, dtype):
         with ieee_fp32():
-            loss = -tmf.elbo(params, [x.to(dtype) for x in model._X],
-                             [y.to(dtype) for y in model._Y], MF_S,
-                             noise=[z.to(dtype) for z in zl])
+            loss = -elbo(params, dtype)
             return (loss.detach(), *torch.autograd.grad(
                 loss, list(params.parameters())))
 
-    for what, fn, labels, tol in (
-            ("request", request, ["mean", "var"], TOL_REQUEST),
-            ("loss and gradients", loss_and_grads, ["loss"] + names, TOL_GRAD)):
+    for what, fn, labels, tol, expect in (
+            ("request", request, ["mean", "var"], TOL_REQUEST, expect_request),
+            ("loss and gradients", loss_and_grads, ["loss"] + names, TOL_GRAD,
+             expect_loss)):
         before = counts()
         with cholesky_route("kernels"):
             on = fn(model.params, torch.float32)
             launched = tuple(a - b for a, b in zip(counts(), before))
             with kernels_scope(False):
                 off = fn(model.params, torch.float32)
-        expect = (mf_expected_counts(requests=1) if what == "request"
-                  else mf_expected_counts(losses=1))
         if launched != expect:
-            raise AssertionError(f"[mf] {what}: launches {launched}, "
+            raise AssertionError(f"[{tag}] {what}: launches {launched}, "
                                  f"expected {expect}")
+        witness = what != "request" and gradient_witness
+        limits = [tol] * len(labels)
+        if witness:
+            double = copy.deepcopy(model.params).double()
+            with f64_twin():
+                ref = fn(double, torch.float64)
+            limits = [tol + min(2 * float((b.double() - r).abs().max())
+                                / (float(r.abs().max()) or 1.0), WITNESS_CAP)
+                      for b, r in zip(off, ref)]
         report = []
-        for name, a, b in zip(labels, on, off):
+        for name, a, b, limit in zip(labels, on, off, limits):
             err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
-            report.append(f"{name} {err:.2e}")
-            if not err <= tol:
-                raise AssertionError(f"[mf] {what}: {name} differs with the "
-                                     f"quadform kernels off by {err:.2e}")
-        log(f"[mf] {what}: quadform kernels on vs off on fixed normals, err / "
-            f"max|off| (tol {tol}): {', '.join(report)}")
+            report.append(f"{name} {err:.2e}"
+                          + (f" (limit {limit:.2e})" if witness else ""))
+            if not err <= limit:
+                raise AssertionError(f"[{tag}] {what}: {name} differs with the "
+                                     f"quadform kernels off by {err:.2e}, "
+                                     f"limit {limit:.2e}")
+        log(f"[{tag}] {what}: quadform kernels on vs off on fixed normals, "
+            f"err / max|off| (tol {tol}"
+            + (f" + 2x off's own error against float64, at most "
+               f"{WITNESS_CAP}" if witness else "")
+            + f"): {', '.join(report)}")
         if what != "request":
-            for i in range(1, len(model.params.layers)):
-                g = on[1 + names.index(f"layers.{i}.z_left")]
+            for name in nonzero:
+                g = on[1 + names.index(name)]
                 if not (torch.isfinite(g).all() and bool((g != 0).any())):
-                    raise AssertionError(f"[mf] z_left {i}'s gradient {g}")
+                    raise AssertionError(f"[{tag}] {name}'s gradient {g}")
             continue
         double = copy.deepcopy(model.params).double()
         with f64_twin():
@@ -1852,19 +1936,44 @@ def compare_mf(model):
             plain = fn(model.params, torch.float32)
         errs = [float((a - b).abs().max()) / float(b.abs().max())
                 for a, b in zip(on, plain)]
-        log(f"[mf] {what}: every kernel on vs off (use_kernels), err / "
+        log(f"[{tag}] {what}: every kernel on vs off (use_kernels), err / "
             f"max|off| (tol {TOL_REQUEST}): "
             + ", ".join(f"{n} {e:.2e}" for n, e in zip(labels, errs)))
         if not max(errs) <= TOL_REQUEST:
-            raise AssertionError(f"[mf] {what}: differs with use_kernels off")
-        hold_to_f64(f"[mf] {what}: every kernel vs the plain versions",
+            raise AssertionError(f"[{tag}] {what}: differs with use_kernels "
+                                 f"off")
+        hold_to_f64(f"[{tag}] {what}: every kernel vs the plain versions",
                     labels, ref, on, plain)
 
 
-def time_mf(model, gpu, steps=10, rounds=3):
-    """Wall ms per MF loss-and-gradient evaluation (host clock around
-    ``steps`` evaluations, ``rounds`` rounds) and per 1,000-row predict;
-    the device's idle share over three Adam steps (torch.profiler)."""
+def compare_mf(model):
+    """compare_on_off for the Park model: a 1,000-row request at 250
+    samples and a loss, z_left's gradient nonzero. (The float32 loss
+    gradient is itself off its float64 twin by more than WITNESS_CAP at
+    this Kuu, in layer 0's z: a CPU rehearsal with the plain versions in
+    both arms.)"""
+    from dgp_tpu_torch.models import mf_dgp as tmf
+
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    zr = mf_normals(model, gen, rows=MF_REQUEST, S=MF_PREDICT_S)
+    zl = mf_normals(model, gen)
+    compare_on_off(
+        "mf", model, mf_request_rows(),
+        lambda params, X, dtype: tmf.predict_y(
+            params, X, MF_PREDICT_S, noise=[z.to(dtype) for z in zr]),
+        lambda params, dtype: tmf.elbo(
+            params, [x.to(dtype) for x in model._X],
+            [y.to(dtype) for y in model._Y], MF_S,
+            noise=[z.to(dtype) for z in zl]),
+        mf_expected_counts(requests=1), mf_expected_counts(losses=1),
+        [f"layers.{i}.z_left" for i in range(1, len(model.params.layers))])
+
+
+def time_staged(label, model, rows, gpu, steps=10, rounds=3):
+    """Wall ms per loss-and-gradient evaluation of a multi-fidelity model
+    (host clock around ``steps`` evaluations, ``rounds`` rounds) and per
+    predict of ``rows``; the device's idle share over three Adam steps
+    (torch.profiler)."""
     from dgp_tpu_torch.config import ieee_fp32
     from dgp_tpu_torch.models import training
 
@@ -1879,22 +1988,189 @@ def time_mf(model, gpu, steps=10, rounds=3):
 
     evaluations()
     ms = [1e3 * timed(evaluations)[1] / steps for _ in range(rounds)]
-    log(f"[timing] MF loss and gradient (Park, N {MF_N}, S {MF_S}), ms per "
-        f"evaluation over {steps}, {rounds} rounds: "
-        f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
-    Xr = mf_request_rows()
-    model.predict(Xr)
-    ms = [1e3 * timed(lambda: model.predict(Xr))[1] for _ in range(rounds)]
-    log(f"[timing] MF predict, {MF_REQUEST} rows at {MF_PREDICT_S} samples "
+    log(f"[timing] {label} loss and gradient, ms per evaluation over "
+        f"{steps}, {rounds} rounds: {', '.join(f'{t:.2f}' for t in ms)} "
+        f"({gpu})")
+    name = label.split(" ")[0]
+    model.predict(rows)
+    ms = [1e3 * timed(lambda: model.predict(rows))[1] for _ in range(rounds)]
+    log(f"[timing] {name} predict, {len(rows)} rows at 250 samples "
         f"(moment-matched, to the host), ms per request, {rounds} rounds: "
         f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
     mask = training.make_mask(model.params)
-    profile_run("three MF Adam steps", lambda: training.adam_run(
+    profile_run(f"three {name} Adam steps", lambda: training.adam_run(
         loss_fn, model.params, mask, model.generator, steps=3, data=batch),
         gpu)
 
 
-# -- phase 7 --------------------------------------------------------------------
+def time_mf(model, gpu):
+    time_staged(f"MF (Park, N {MF_N}, S {MF_S})", model, mf_request_rows(),
+                gpu)
+
+
+# -- phase 7: the multi-fidelity deep GP with Embedded Mapping ---------------------
+
+
+def em_model(seed=0):
+    """The Park_VD configuration (EM_*) as a MultiFidelityDeepGP_EM on the
+    card in float32, its data from the port's own lhs and test
+    functions."""
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
+    from dgp_tpu_torch.utils.test_functions import park_vd_high, park_vd_low
+
+    X = [lhs(EM_DIN[0], EM_N[0], seed=123), lhs(EM_DIN[1], EM_N[1], seed=0)]
+    Y = [park_vd_low(X[0]), park_vd_high(X[1])]
+    return MultiFidelityDeepGP_EM(X, Y, [X[1][:, :EM_DIN[0]]],
+                                  num_samples=EM_S, seed=seed, device=DEVICE,
+                                  dtype=torch.float32)
+
+
+def em_request_rows():
+    from dgp_tpu_torch.bo.doe import lhs
+
+    return lhs(EM_DIN[1], EM_REQUEST, seed=321)
+
+
+def em_kuu():
+    """[(name, (A, A64))]: the Park_VD model's own Kuu stacks, each with its
+    float64 twin (kuu_twins): [1, 30, 30] (layer 0 at Z), [1, 6, 6] (the
+    reduction layer at W, as each Z_right factors it) and [2, 6, 6] (layer
+    1 at its augmented 5-D Z, recomputed, and the reduction layer: the
+    stack a loss and a request factor)."""
+    from dgp_tpu_torch.models.mf_dgp_em import compute_full_zs_em
+
+    params = em_model().params
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    with torch.no_grad():
+        zs = compute_full_zs_em(params, gen)
+    red = params.layers_red[0]
+    return [("Park_VD layer 0", kuu_twins([params.layers[0]], [zs[0]])),
+            ("Park_VD reduction layer", kuu_twins([red], [red.z])),
+            ("Park_VD layer 1 and reduction layer",
+             kuu_twins([params.layers[1], red], [zs[1], red.z]))]
+
+
+def em_expected_counts(built=0, losses=0, requests=0):
+    """counts() reckoned for the Park_VD model (reduction layer of D = 2,
+    M = 6; layer 0 of M = 30; layer 1 of M = 6; all non-whitened).
+    Building it: #7 per layer (the initial q_sqrt: three), and
+    init_layers_mf_em's Z_right (the reduction layer, then layer 0, at
+    100 x 6 points: #8 for each projection, #5 each). A loss evaluation
+    with its gradient: compute_full_zs_em's Z_right (the same two at 50 x 6
+    points: #8, #5 each), the projections of the three layers (#8 per
+    (M, white) group: two, [1, 30, 30] and [2, 6, 6], whose Lu the KLs take
+    too), the fidelity-0 term (layer 0: #5), the projection term (the
+    reduction layer: #5; no Z_right) and the fidelity-1 term (the reduction
+    layer, layers 0 and 1: #5 each); the backward runs #6 and its phase B
+    once per #5 (every n fits one pass). A request: the same Z_right, the
+    two #8 and one #5 per layer."""
+    c5 = 2 * built + 7 * losses + 5 * requests
+    c6 = 7 * losses
+    c8 = 2 * built + 4 * losses + 4 * requests
+    return (0, 0, 0, 0, c5, c6, 3 * built, c8, 0, 0, c6)
+
+
+def em_moves(name, nat):
+    """The phase from which the EM model's tensor ``name`` moves: the
+    reduction layers' z from phase 1, z and z_left from phase 2, the
+    fidelity layers' q in phase 3, the reduction layers' q_sqrt in the
+    natural-gradient phase 3 only, the likelihood in Adam's phase 3 only,
+    the projection likelihood never (math.inf); None for the kernels and
+    for the reduction layers' q_mu, whose natural-gradient steps from this
+    init (q_sqrt scaled 1e-5, S ~ 1e-10) are ~5e-12 of its size, below
+    float32's resolution (a float64 CPU rehearsal)."""
+    parts = name.split(".")
+    red = parts[0] == "layers_red"
+    if parts[0] == "likelihood_projection":
+        return math.inf
+    if parts[0] == "likelihood":
+        return math.inf if nat else 3
+    if parts[-1] in ("z", "z_left"):
+        return 1 if red else 2
+    if parts[-1] == "q_mu" and red:
+        return None
+    if parts[-1] in ("q_mu", "q_sqrt"):
+        return 3 if nat or not red else math.inf
+    return None
+
+
+def run_em(gpu):
+    """The Embedded Mapping path (run_staged): the Park_VD model,
+    optimize_nat_adam(lr_adam=0.005) for EM_NAT steps, optimize_adam for EM_ADAM, a
+    predict of EM_REQUEST rows; launches as em_expected_counts reckons
+    them."""
+    return run_staged(
+        "em", em_model, EM_NAT, EM_ADAM, em_request_rows(), em_expected_counts,
+        f"Park_VD (Din {EM_DIN}, N {EM_N}, Z = X, W = [X[1]], S {EM_S}, "
+        f"float32)", gpu, lr_adam=0.005, moves=em_moves,
+        moved="the reduction z moved from phase 1, z_left from phase 2, q in "
+              "phase 3 (the reduction q_sqrt by the natural gradient only), the "
+              "likelihood in Adam's phase 3 alone, the projection likelihood "
+              "never")
+
+
+def em_normals(model, gen, rows=None, S=EM_S):
+    """Fixed unit normals in the order the EM functions draw them: each
+    augmented layer i's Z_right (one [50, M_i, D] draw per reduction layer
+    of its sub-chain, then per earlier layer), then for a request of
+    ``rows`` rows one [S, rows, D] per reduction layer and per layer or,
+    with ``rows`` None, for each fidelity f of a loss one [S, N_f, D] per
+    reduction layer of layers_red[L-f:] and per layer up to f, and below the
+    last fidelity one [S, N_{f+1}, D] per reduction layer of
+    layers_red[L-f-1:] (the projection term)."""
+    layers, reds = model.params.layers, model.params.layers_red
+    L = len(reds)
+    shapes = [(50, layers[i].z_left.shape[0], layer.num_outputs)
+              for i in range(1, len(layers))
+              for layer in (*reds[L - i:], *layers[:i])]
+    if rows is None:
+        for f, x in enumerate(model._X):
+            shapes += [(S, x.shape[0], layer.num_outputs)
+                       for layer in (*reds[L - f:], *layers[:f + 1])]
+            if f < len(layers) - 1:
+                shapes += [(S, model._X[f + 1].shape[0], layer.num_outputs)
+                           for layer in reds[L - f - 1:]]
+    else:
+        shapes += [(S, rows, layer.num_outputs) for layer in (*reds, *layers)]
+    return [torch.randn(shape, generator=gen, device=DEVICE)
+            for shape in shapes]
+
+
+def compare_em(model):
+    """compare_on_off for the Park_VD model: a 1,000-row request at 250
+    samples and a loss, the gradients of z_left, the reduction layer's z
+    and q_mu and the projection likelihood nonzero. The float32 loss
+    gradient here is itself off its float64 twin by up to 1.1e-1 of scale
+    (layer 1's Linear variance; layer 0's z, q_mu and lengthscales ~5e-2;
+    a CPU rehearsal after the phase's training, plain versions), and the
+    two float32 arms differed by 2.5e-3 in layer 0's RBF variance (the
+    card): the gradients are held by the witness rule
+    (``gradient_witness``)."""
+    from dgp_tpu_torch.models import mf_dgp_em as tem
+
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    zr = em_normals(model, gen, rows=EM_REQUEST, S=EM_PREDICT_S)
+    zl = em_normals(model, gen)
+    cast = lambda xs, dtype: [x.to(dtype) for x in xs]
+    compare_on_off(
+        "em", model, em_request_rows(),
+        lambda params, X, dtype: tem.predict_y(
+            params, X, EM_PREDICT_S, noise=cast(zr, dtype)),
+        lambda params, dtype: tem.elbo(
+            params, cast(model._X, dtype), cast(model._Y, dtype),
+            cast(model._X_red, dtype), EM_S, noise=cast(zl, dtype)),
+        em_expected_counts(requests=1), em_expected_counts(losses=1),
+        ["layers.1.z_left", "layers_red.0.z", "layers_red.0.q_mu",
+         "likelihood_projection.variance_raw"], gradient_witness=True)
+
+
+def time_em(model, gpu):
+    time_staged(f"EM (Park_VD, N {EM_N}, S {EM_S})", model, em_request_rows(),
+                gpu)
+
+
+# -- phase 8 --------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -2512,6 +2788,13 @@ def main():
             err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 240 + seed))
             err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
                 D, Mi, n, with_t1, 340 + seed))
+    # the Embedded Mapping model's shapes (D = 2 at M = 6, D = 1 at M = 30
+    # and 6)
+    for seed, (D, Mi, n) in enumerate(EM_QUADFORM):
+        for with_t1 in (False, True):
+            err_qf = max(err_qf, check_quadform(D, Mi, n, with_t1, 260 + seed))
+            err_qf_bwd = max(err_qf_bwd, check_quadform_backward(
+                D, Mi, n, with_t1, 360 + seed))
 
     err_fw = err_fw_bwd = 0.0
     for seed, (D, Mi, Din, n) in enumerate([
@@ -2562,11 +2845,13 @@ def main():
     for inverse in (False, True):  # the largest M of each plan
         err_chol[inverse] = max(err_chol[inverse], check_cholesky(
             1, largest_cholesky_m(inverse), 690 + inverse, inverse))
-    # the Park model's own Kuu stacks, held to their float64 twins
-    for name, stack in park_kuu():
+    # the Park and Park_VD models' own Kuu stacks, held to their float64
+    # twins
+    for name, stack in park_kuu() + em_kuu():
         for inverse in (False, True):
             err_chol[inverse] = max(err_chol[inverse], check_cholesky(
-                1, stack[0].shape[-1], 0, inverse, kuu=name, stack=stack))
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack))
 
     # each main path's launch counts (zeroed just before it, read just
     # after); a kernel's launches in the kernels line are their sum
@@ -2613,6 +2898,9 @@ def main():
     launched, model_mf = run_mf(gpu)
     paths.append(launched)
     compare_mf(model_mf)
+    launched, model_em = run_em(gpu)
+    paths.append(launched)
+    compare_em(model_em)
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
@@ -2665,6 +2953,7 @@ def main():
     profile_run("three RBF + Linear Adam steps", lambda: trained_c.optimize_adam(
         iterations=3, messages=0, shrink_inner=False), gpu)
     time_mf(model_mf, gpu)
+    time_em(model_em, gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     qf_source = "dgp_tpu_torch/csrc/quadform.cu"

@@ -7,8 +7,9 @@ package), and :func:`dgp_from_numpy` builds the port's ``DGPParams`` from
 that tree of numpy arrays, so both packages compute from the same numbers.
 :func:`numpy_tree_from_port` gives the same tree for the port's own
 ``DGPParams``, so parameters trained in both packages can be compared. A
-multi-fidelity deep GP's ``MFDGPParams`` (:func:`mf_dgp_from_numpy`) and an
-exact GP's ``GPRParams`` (:func:`gpr_from_numpy`) go the same way.
+multi-fidelity deep GP's ``MFDGPParams`` (:func:`mf_dgp_from_numpy`), its
+Embedded Mapping variant's ``MFDGPEMParams`` (:func:`mf_dgp_em_from_numpy`)
+and an exact GP's ``GPRParams`` (:func:`gpr_from_numpy`) go the same way.
 
 The tree is plain data::
 
@@ -18,7 +19,8 @@ The tree is plain data::
      "likelihood": {"type": "Gaussian", "variance_raw": []}}
 
 where an augmented layer (the multi-fidelity models') holds ``"z_left":
-[M, D_left]`` in place of ``"z"``.
+[M, D_left]`` in place of ``"z"``, and an ``MFDGPEMParams`` adds
+``"layers_red"`` (a list of layers) and ``"likelihood_projection"``.
 
 with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "lengthscales_raw", "active_dims"}, {"type": "Linear" | "White",
@@ -38,6 +40,7 @@ from .layers.svgp import SVGPLayer
 from .models.dgp import DGPParams
 from .models.gpr import GPRParams
 from .models.mf_dgp import MFDGPParams
+from .models.mf_dgp_em import MFDGPEMParams
 from .ops import kernels as K
 from .ops import likelihoods, means
 
@@ -87,32 +90,42 @@ def _likelihood_tree(lik):
 
 def numpy_tree_from_reference(params) -> dict:
     """The tree of a ``dgp_tpu.models.dgp.DGPParams`` (or of a
-    ``dgp_tpu.models.mf_dgp.MFDGPParams`` or a
+    ``dgp_tpu.models.mf_dgp.MFDGPParams``, a
+    ``dgp_tpu.models.mf_dgp_em.MFDGPEMParams`` or a
     ``dgp_tpu.models.gpr.GPRParams``) as numpy arrays (the two packages
-    name their fields alike, so the port's ``DGPParams``, ``MFDGPParams``
-    and ``GPRParams`` read the same way: :func:`numpy_tree_from_port`)."""
+    name their fields alike, so the port's ``DGPParams``, ``MFDGPParams``,
+    ``MFDGPEMParams`` and ``GPRParams`` read the same way:
+    :func:`numpy_tree_from_port`)."""
     if not hasattr(params, "layers"):
         return {"kernel": _kernel_tree(params.kernel),
                 "likelihood": _likelihood_tree(params.likelihood)}
-    layers = []
-    for layer in params.layers:
-        z = "z_left" if getattr(layer, "augmented", False) else "z"
-        layers.append({
-            "kernel": _kernel_tree(layer.kernel),
-            z: _np(getattr(layer, z)),
-            "q_mu": _np(layer.q_mu),
-            "q_sqrt": _np(layer.q_sqrt),
-            "mean_function": _mean_tree(layer.mean_function),
-            "num_outputs": int(layer.num_outputs),
-            "white": bool(layer.white),
-            "input_prop_dim": layer.input_prop_dim,
-        })
-    return {"layers": layers, "likelihood": _likelihood_tree(params.likelihood)}
+    tree = {"layers": [_layer_tree(layer) for layer in params.layers],
+            "likelihood": _likelihood_tree(params.likelihood)}
+    if hasattr(params, "layers_red"):
+        tree["layers_red"] = [_layer_tree(layer) for layer in params.layers_red]
+        tree["likelihood_projection"] = _likelihood_tree(
+            params.likelihood_projection)
+    return tree
+
+
+def _layer_tree(layer):
+    z = "z_left" if getattr(layer, "augmented", False) else "z"
+    return {
+        "kernel": _kernel_tree(layer.kernel),
+        z: _np(getattr(layer, z)),
+        "q_mu": _np(layer.q_mu),
+        "q_sqrt": _np(layer.q_sqrt),
+        "mean_function": _mean_tree(layer.mean_function),
+        "num_outputs": int(layer.num_outputs),
+        "white": bool(layer.white),
+        "input_prop_dim": layer.input_prop_dim,
+    }
 
 
 def numpy_tree_from_port(params) -> dict:
-    """The tree of the port's ``DGPParams``, ``MFDGPParams`` or
-    ``GPRParams``, in the layout :func:`numpy_tree_from_reference` gives."""
+    """The tree of the port's ``DGPParams``, ``MFDGPParams``,
+    ``MFDGPEMParams`` or ``GPRParams``, in the layout
+    :func:`numpy_tree_from_reference` gives."""
     return numpy_tree_from_reference(params)
 
 
@@ -180,6 +193,18 @@ def mf_dgp_from_numpy(tree: dict, device, dtype) -> MFDGPParams:
     device = torch.device(device)
     return MFDGPParams([_layer(t, device, dtype) for t in tree["layers"]],
                        _likelihood(tree["likelihood"], device, dtype))
+
+
+def mf_dgp_em_from_numpy(tree: dict, device, dtype) -> MFDGPEMParams:
+    """The port's ``MFDGPEMParams`` (fidelity layers, reduction layers and
+    both likelihoods) from a tree of numpy arrays, on ``device`` in
+    ``dtype``."""
+    device = torch.device(device)
+    return MFDGPEMParams(
+        [_layer(t, device, dtype) for t in tree["layers"]],
+        [_layer(t, device, dtype) for t in tree["layers_red"]],
+        _likelihood(tree["likelihood"], device, dtype),
+        _likelihood(tree["likelihood_projection"], device, dtype))
 
 
 def _likelihood(tree, device, dtype):

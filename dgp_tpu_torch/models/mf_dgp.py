@@ -159,6 +159,13 @@ def _white_variance(layer):
     return layer.kernel.kernels[-1].variance
 
 
+@torch.no_grad()
+def set_variance(likelihood: Gaussian, variance: float):
+    """Set a Gaussian likelihood's variance in place."""
+    likelihood.variance_raw.copy_(positive_inverse(torch.as_tensor(
+        variance, dtype=likelihood.variance_raw.dtype)))
+
+
 def _weighted_data_term(var_exp, w):
     """(weighted row sum of E_S[var_exp], effective row count): rows of
     weight 0 are shape padding (training.pad_to_bucket)."""
@@ -465,10 +472,8 @@ class MultiFidelityDeepGP:
                 layer.q_mu.copy_(y)
             # else (custom Z): keep zeros
             layer.q_sqrt.mul_(q_sqrt_scale * torch.var(y, correction=0))
-        variance = float(torch.var(self._Y[-1], correction=0)) * 1e-2
-        lik = self.params.likelihood
-        lik.variance_raw.copy_(positive_inverse(torch.as_tensor(
-            variance, dtype=lik.variance_raw.dtype)))
+        set_variance(self.params.likelihood,
+                     float(torch.var(self._Y[-1], correction=0)) * 1e-2)
 
     def _phase_masks(self):
         """Frozen sets per phase: (1) the kernels alone; (2) and the

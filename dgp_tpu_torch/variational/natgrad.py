@@ -95,17 +95,22 @@ def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
     :return: list of updated (q_mu, q_sqrt), detached.
     """
     qs = [(m.detach(), torch.tril(L.detach())) for m, L in qs]
+    # the maps run in float64 whatever the parameters' dtype: in float32,
+    # eta2 - eta1 eta1^T cancels a small S (a q_sqrt scaled 1e-5 gives
+    # S ~ 1e-10) against m m^T of order one, its factor fails, and every
+    # step would be rejected
+    wide = [(m.double(), L.double()) for m, L in qs]
     etas = []
-    for m, L in qs:
+    for m, L in wide:
         e1, e2 = meanvarsqrt_to_expectation(m.T, L)
         etas.append((e1.clone().requires_grad_(True),
                      e2.clone().requires_grad_(True)))
 
     with torch.enable_grad():
         new_qs = []
-        for e1, e2 in etas:
+        for (e1, e2), (m0, L0) in zip(etas, qs):
             m, L = expectation_to_meanvarsqrt(e1, e2)
-            new_qs.append((m.T, L))
+            new_qs.append((m.T.to(m0.dtype), L.to(L0.dtype)))
         loss_before = loss_fn(new_qs)
         leaves = [e for pair in etas for e in pair]
         flat = torch.autograd.grad(loss_before, leaves, allow_unused=True)
@@ -118,7 +123,7 @@ def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
     @torch.no_grad()
     def attempt(gma):
         out = []
-        for (m, L), (g1, g2) in zip(qs, grads):
+        for (m0, L0), (m, L), (g1, g2) in zip(qs, wide, grads):
             th1, th2 = meanvarsqrt_to_natural(m.T, L)
             th1 = th1 - gma * g1
             th2 = th2 - gma * _sym(g2)
@@ -133,7 +138,8 @@ def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
                 size_old = torch.linalg.norm(m) + torch.linalg.norm(L)
                 size_new = torch.linalg.norm(m_new) + torch.linalg.norm(L_new)
                 ok = ok & (size_new <= max_growth * (size_old + 1.0))
-            out.append((torch.where(ok, m_new.T, m), torch.where(ok, L_new, L)))
+            out.append((torch.where(ok, m_new.T.to(m0.dtype), m0),
+                        torch.where(ok, L_new.to(L0.dtype), L0)))
         return out
 
     out = attempt(gamma)

@@ -801,3 +801,45 @@ def test_mf_dgp_goes_through_the_kernels(cuda):
     assert chip_smoke.counts() == chip_smoke.mf_expected_counts(built=1,
                                                                 losses=3)
     chip_smoke.compare_mf(model)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", chip_smoke.EM_QUADFORM)
+def test_quadform_kernels_at_the_em_shapes(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 at the Embedded Mapping model's shapes (the
+    reduction layer's D = 2 at M = 6; D = 1 at M = 30 and 6; n from 300 to
+    250,000), held as in test_quadform_kernels_match_plain."""
+    chip_smoke.check_quadform(D, M, n, with_t1, D + M + n % 97)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, D + M + n % 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cholesky_kernels_on_the_em_kuu(cuda, inverse):
+    """Kernels #7 and #8 on the Park_VD model's own Kuu stacks ([1, 30, 30],
+    [1, 6, 6] and [2, 6, 6], layer 1's at the recomputed 5-D augmented Z),
+    held to their float64 twins under the float32 jitter."""
+    for name, stack in chip_smoke.em_kuu():
+        assert chip_smoke.check_cholesky(stack[0].shape[0],
+                                         stack[0].shape[-1], 0, inverse,
+                                         kuu=name, stack=stack) < 1.0
+
+
+@pytest.mark.cuda
+def test_em_dgp_goes_through_the_kernels(cuda):
+    """The Park_VD model on the card through the smoke run's em phase
+    (chip_smoke.run_em: built with #7 per layer and one Z_right, then
+    optimize_nat_adam and optimize_adam with each phase's frozen tensors
+    unchanged, and a predict; the launches of #5-#8 as em_expected_counts
+    reckons them), then a request and a loss gradient on fixed normals
+    with the quadform kernels on and off, the gradients of z_left, the
+    reduction layer's z and q_mu and the projection likelihood nonzero, and
+    the request held to its float64 twin (chip_smoke.compare_em). The
+    comparison is made at the trained state, where the smoke run makes it:
+    at the initial state layer 0's kernel-variance gradient is beyond
+    float32's resolution (the plain float32 arm itself 17 % off its float64
+    twin; PERF.md section 7)."""
+    launched, model = chip_smoke.run_em(chip_smoke.gpu_line())
+    assert launched[4] > 0 and launched[7] > 0
+    chip_smoke.compare_em(model)

@@ -16,6 +16,7 @@ from dgp_tpu_torch.bo.so_bo import SO_BO, make_single_model
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import gpr as TGPR
 from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
+from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
 from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
@@ -50,7 +51,8 @@ def test_no_jax_imports_in_port():
             "ops/conditional_fused.py", "ops/cholesky.py", "models/gpr.py",
             "bo/doe.py", "bo/de.py", "bo/acquisition.py",
             "bo/so_bo.py", "models/mf_dgp.py", "utils/test_functions.py",
-            "../compat_torch/validate_mf_dgp.py"} <= rel
+            "../compat_torch/validate_mf_dgp.py", "models/mf_dgp_em.py",
+            "../compat_torch/validate_mf_dgp_em.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -99,6 +101,14 @@ mf = MultiFidelityDeepGP(Xm, [park_low(Xm[0]), park_high(Xm[1])],
 losses = mf.optimize_nat_adam(iterations1=1, iterations2=1, iterations3=1,
                               messages=0)
 assert losses.shape == (3,) and mf.predict(Xm[1])[0].shape == (3, 1)
+from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
+from dgp_tpu_torch.utils.test_functions import park_vd_high, park_vd_low
+Xe = [rng.uniform(size=(6, 2)), rng.uniform(size=(3, 4))]
+em = MultiFidelityDeepGP_EM(Xe, [park_vd_low(Xe[0]), park_vd_high(Xe[1])],
+                            [Xe[1][:, :2]], num_samples=2, device="cpu")
+losses = em.optimize_nat_adam(iterations1=1, iterations2=1, iterations3=1,
+                              messages=0)
+assert losses.shape == (3,) and em.predict(Xe[1])[0].shape == (3, 1)
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -141,6 +151,12 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         MultiFidelityDeepGP(Xm, Ym, dtype=torch.float64)
     mf = MultiFidelityDeepGP(Xm, Ym, dtype=torch.float64, device="cpu")
     assert mf.params.layers[1].z_left.device == torch.device("cpu")
+    Xe = [X, rng.uniform(size=(3, 2))]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiFidelityDeepGP_EM(Xe, Ym, [Xe[1][:, :1]], dtype=torch.float64)
+    em = MultiFidelityDeepGP_EM(Xe, Ym, [Xe[1][:, :1]], dtype=torch.float64,
+                                device="cpu")
+    assert em.params.layers_red[0].z.device == torch.device("cpu")
 
 
 class _Problem:

@@ -76,7 +76,13 @@ Phases, each of which raises (exit code 1) on any fault:
              model's ([1, 30, 30] at Z, [1, 6, 6] the reduction layer's at
              W, [2, 6, 6] layer 1's at its recomputed 5-D augmented Z with
              the reduction layer's), held to their float64 twins under the
-             same jitter.
+             same jitter; and #7 on the Gram stacks the exact surrogates'
+             multi-start engine factors at its first step (8 starts: the
+             borehole pair's AR(1) joint Gram [8, 56, 56] and NARGP level
+             Grams [8, 40, 40] and [8, 16, 16]; the nonlinear pair's
+             [8, 48, 48], [8, 32, 32] and [8, 16, 16]; padding rows with a
+             unit diagonal), held to their float64 twins (the nonlinear
+             pair's with the witness rule for L too).
 3. serving — build the 2-layer whitened RBF DGP of
              benchmarks/predict_throughput.py (DIN=8, HIDDEN=8, M=128, f32,
              S=10) from seeded data with perturbed variational parameters;
@@ -154,7 +160,25 @@ Phases, each of which raises (exit code 1) on any fault:
              request and the loss gradient (z_left's, the reduction layer's
              z and q_mu's and the projection likelihood's nonzero) with the
              kernels on and off, and the request against float64.
-8. timing  — CUDA-event times of every kernel and of its plain version at
+8. exact_mf — the exact multi-fidelity surrogates through the port's
+             AR1CoKriging and NARGP on the card in float32: the borehole
+             pair of benchmarks/mf_bo_bakeoff.py (d = 8, a DoE of 40 low
+             and 10 high rows drawn as MF_BO draws one, Y under its pooled
+             normalization, n_bucket 8), each optimize(8 starts, 2,000 Adam
+             steps, lr 0.05): every engine step factors the 8 starts'
+             Grams in one launch of #7 (launches reckoned from the loop),
+             the winner the least finite final NLL and no higher than
+             start 0's; the loss and gradient at the init and at the
+             trained parameters with #7 on and off and against float64
+             (at the trained ones, where the gradient vanishes, each entry
+             against the magnitudes of the terms it sums); predict_f and
+             predict_y of 1,000 rows (NARGP at 100 samples); one EI
+             maximization each by DE 60 x 40 + 50 Adam steps, AR(1)'s EI
+             at the maximizer against float64. The nonlinear pair of
+             tests/test_nargp.py (f_high = f_low^2) at its budget (8 x
+             1,500): held-out r2(NARGP) > 0.9 and r2(AR(1)) < 0.5. The EI
+             loss and its gradient in x over the mf and em phases' models.
+9. timing  — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -164,10 +188,12 @@ Phases, each of which raises (exit code 1) on any fault:
              beside the fp32 bound too (their products b_d run on the
              tensor cores); #3 and #5 against their plain versions at
              n = 10,000;
-             #7 and #8 at the models' and the BO's stacks beside the
-             library calls for the same function (cholesky_ex, and
-             solve_triangular for #8), event-timed and, from torch.profiler,
-             the device time of the kernel and of the library's kernels;
+             #7 and #8 at the models' and the BO's stacks, and #7 at the
+             exact surrogates' engine stacks [8, 56, 56] and [8, 40, 40],
+             beside the library calls for the same function (cholesky_ex,
+             and solve_triangular for #8), event-timed and, from
+             torch.profiler, the device time of the kernel and of the
+             library's kernels; the engine's wall ms per step (8 starts);
              bench.py's whitened model's precompute_projections and Adam step with the factorizations
              through the kernels, their plain versions, and the checked
              torch.linalg.cholesky the port called before;
@@ -284,6 +310,20 @@ EM_NAT, EM_ADAM = (10, 10, 40), (10, 10, 10)
 EM_QUADFORM = [(2, 6, 300), (2, 6, 600), (2, 6, 250_000), (1, 30, 300),
                (1, 30, 600), (1, 30, 3_000), (1, 30, 250_000), (1, 6, 600),
                (1, 6, 250_000)]
+# the exact multi-fidelity surrogates: the borehole pair of
+# benchmarks/mf_bo_bakeoff.py (d = 8, a DoE of 40 low and 10 high rows drawn
+# as MF_BO draws a DoE, Y under its pooled normalization; n_bucket 8; the
+# bake-off's training, 8 starts x 2,000 Adam steps at lr 0.05), requests of
+# 1,000 rows (NARGP at 100 samples)
+XMF_D, XMF_DOE, XMF_BUCKET = 8, (40, 10), 8
+XMF_STARTS, XMF_ITERATIONS, XMF_LR = 8, 2_000, 0.05
+XMF_REQUEST, XMF_S = 1_000, 100
+# tests/test_nargp.py's nonlinear pair (f_high = f_low^2, f_low =
+# sin(8 pi x); 30 low and 10 high rows) at its budget (8 starts x 1,500
+# steps) and oracle: on 200 held-out points at 300 samples r2(NARGP) > 0.9
+# and r2(AR(1)) < 0.5
+NONLINEAR_DOE, NONLINEAR_ITERATIONS = (30, 10), 1_500
+NONLINEAR_TEST, NONLINEAR_S = 200, 300
 DEVICE = "cuda"
 
 
@@ -947,7 +987,8 @@ def spd_stack(G, Mi, seed, kuu=None):
     return torch.tensor(A, dtype=torch.float32, device=DEVICE)
 
 
-def check_cholesky(G, Mi, seed, inverse, kuu=None, stack=None):
+def check_cholesky(G, Mi, seed, inverse, kuu=None, stack=None,
+                   witness=False):
     """Kernel #7 (or #8) against its plain version in float64 on the same
     float32 stack: L within TOL of max|L|; W within TOL of max|W| plus twice
     the error of the float32 library pair (cholesky_ex + solve_triangular)
@@ -964,7 +1005,10 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None, stack=None):
     torch.linalg.cholesky and solve_triangular in float64. With ``stack``
     = (A, A64), a model's own float32 Kuu stack and its float64 twin (the
     same kernel in float64 under the float32 jitter, :func:`park_kuu`), the
-    reference is the plain version on the twin."""
+    reference is the plain version on the twin. With ``witness`` (a model's
+    ill-conditioned Gram, whose float32 entries alone move L off the twin's
+    by more than TOL: the nonlinear pair's, exact_grams), L too is held by
+    the witness rule, TOL plus twice the float32 library's error."""
     from dgp_tpu_torch.ops import cholesky as tch
 
     A = spd_stack(G, Mi, seed, kuu) if stack is None else stack[0]
@@ -997,7 +1041,7 @@ def check_cholesky(G, Mi, seed, inverse, kuu=None, stack=None):
         scale = float(w.abs().max())
         err = float((g.double() - w).abs().max())
         err32 = float((p.double() - w).abs().max())
-        limit = TOL * scale + (2 * err32 if name == "W" else 0.0)
+        limit = TOL * scale + (2 * err32 if name == "W" or witness else 0.0)
         report.append(f"{name} {err / scale:.2e} (library fp32 "
                       f"{err32 / scale:.2e}, limit {limit / scale:.2e})")
         worst = max(worst, err)
@@ -2170,7 +2214,501 @@ def time_em(model, gpu):
                 gpu)
 
 
-# -- phase 8 --------------------------------------------------------------------
+# -- phase 8: the exact multi-fidelity surrogates ---------------------------------
+
+
+def borehole_data():
+    """The borehole pair as MF_BO builds it: each fidelity's DoE by lhs at
+    seed 0 + f (dgp_tpu/bo/mf_bo.py:184), Y under one pooled normalization
+    (:269-276)."""
+    from dgp_tpu_torch.bo.doe import mf_doe
+    from dgp_tpu_torch.utils.test_functions import borehole_high, borehole_low
+
+    return mf_doe((borehole_low, borehole_high), XMF_D, XMF_DOE)[:2]
+
+
+def nonlinear_data():
+    """tests/test_nargp.py's pair: f_high = f_low^2, lhs seeds 0 and 1."""
+    from dgp_tpu_torch.bo.doe import mf_doe
+    from dgp_tpu_torch.utils.test_functions import (nonlinear_high,
+                                                    nonlinear_low)
+
+    return mf_doe((nonlinear_low, nonlinear_high), 1, NONLINEAR_DOE,
+                  normalize=False)[:2]
+
+
+def exact_model(kind, data, device=None):
+    """An AR(1) co-kriging ("ar1") or NARGP ("nargp") surrogate on the card
+    in float32, rows bucketed by XMF_BUCKET (NARGP predicting at XMF_S
+    samples by default)."""
+    from dgp_tpu_torch.models.cokriging import AR1CoKriging
+    from dgp_tpu_torch.models.nargp import NARGP
+
+    device = device or DEVICE
+    if kind == "ar1":
+        return AR1CoKriging(data, n_bucket=XMF_BUCKET, device=device,
+                            dtype=torch.float32)
+    return NARGP(data, n_bucket=XMF_BUCKET, num_samples=XMF_S, device=device,
+                 dtype=torch.float32)
+
+
+def exact_expected_counts(kind, iterations=0, requests=0, n_fid=2):
+    """counts() reckoned for an exact surrogate: one #7 launch per engine
+    step for all the starts at once, and one for each start's final loss
+    (per level for NARGP, whose level t also factors each lower level's
+    Gram once for its mean chain: one launch per level below it); one per
+    request for AR(1)'s joint Gram, one per level for NARGP's."""
+    if kind == "ar1":
+        c7 = (iterations + 1 if iterations else 0) + requests
+    else:
+        c7 = (n_fid * (iterations + 1) + n_fid * (n_fid - 1) // 2
+              if iterations else 0) + n_fid * requests
+    return (0, 0, 0, 0, 0, 0, c7, 0, 0, 0, 0)
+
+
+@contextlib.contextmanager
+def engine_runs():
+    """Record every training.multistart_adam run inside the scope: the
+    number of starts, each start's final loss (the run's last loss
+    evaluation), the winner's, its loss trace and the run's seconds."""
+    from dgp_tpu_torch.models import training
+
+    runs = []
+    run = training.multistart_adam
+
+    def recorded(loss_fn, stacked, batch, iterations, lr):
+        last = []
+
+        def loss(params, *args):
+            out = loss_fn(params, *args)
+            last[:] = [out.detach()]
+            return out
+
+        (best, nll, trace), dt = timed(
+            lambda: run(loss, stacked, batch, iterations, lr))
+        runs.append({"finals": last[0], "nll": float(nll), "trace": trace,
+                     "seconds": dt, "iterations": iterations})
+        return best, nll, trace
+
+    training.multistart_adam = recorded
+    try:
+        yield runs
+    finally:
+        training.multistart_adam = run
+
+
+def check_engine_runs(tag, runs, starts):
+    """Each run: the winner's loss trace finite, its final loss the least
+    finite final (non-finite finals counted as +inf) and no higher than
+    start 0's."""
+    for i, r in enumerate(runs):
+        finals = torch.where(torch.isfinite(r["finals"]), r["finals"],
+                             torch.inf).double().cpu()
+        if not (finals.shape == (starts,)
+                and bool(torch.isfinite(r["trace"]).all())
+                and r["nll"] == float(finals.min())
+                and r["nll"] <= float(finals[0])):
+            raise AssertionError(f"[{tag}] engine run {i}: finals "
+                                 f"{finals.tolist()}, winner {r['nll']}")
+
+
+def train_exact(tag, kind, data, iterations, gpu):
+    """optimize(XMF_STARTS starts, ``iterations`` steps, XMF_LR) of a fresh
+    surrogate; the launches of #7 as exact_expected_counts reckons them and
+    the engine runs as check_engine_runs. Returns (the trained model, its
+    launches)."""
+    zero_counts()
+    model = exact_model(kind, data)
+    with engine_runs() as runs:
+        _, dt = timed(lambda: model.optimize(
+            n_starts=XMF_STARTS, iterations=iterations, lr=XMF_LR, seed=0))
+    check_engine_runs(tag, runs, XMF_STARTS)
+    launched, expect = counts(), exact_expected_counts(kind, iterations)
+    log(f"[exact_mf] {tag}: optimize({XMF_STARTS} starts x {iterations} "
+        f"steps, lr {XMF_LR}) {dt:.2f} s, "
+        + "; ".join(f"level {i}: {r['seconds']:.2f} s, "
+                    f"{1e3 * r['seconds'] / r['iterations']:.3f} ms per engine "
+                    f"step, final NLL {r['nll']:.4f} (start 0's "
+                    f"{float(r['finals'][0]):.4f})"
+                    for i, r in enumerate(runs))
+        + f"; joint NLL {model._nll:.4f}; launches {COUNTED} {launched}, "
+          f"reckoned {expect} ({gpu})")
+    if launched != expect:
+        raise AssertionError(f"[exact_mf] {tag}: launches {launched}, "
+                             f"reckoned {expect}")
+    return model, launched
+
+
+def exact_loss(model):
+    """(loss(params, dtype), params): the training loss of an exact
+    surrogate on its train_data cast to ``dtype`` (AR(1)'s joint NLL, the
+    sum of NARGP's level NLLs on its augmented rows)."""
+    from dgp_tpu_torch.models import cokriging, gpr
+
+    cast = lambda ts, dtype: tuple(None if t is None else t.to(dtype)
+                                   for t in ts)
+    data = model.train_data
+    if model.name == "ar1":
+        return lambda params, dtype: cokriging.neg_log_marginal_likelihood(
+            params, *(cast(ts, dtype) for ts in data))
+    return lambda params, dtype: sum(
+        gpr.neg_log_marginal_likelihood(p, *cast(d, dtype))
+        for p, d in zip(params, data))
+
+
+def exact_grams_of(model, params, dtype):
+    """[(K, y)]: the noise-augmented Gram of each factor an exact
+    surrogate's training loss takes (AR(1)'s joint Gram, each NARGP level's)
+    at ``params``, with its targets, on the train_data cast to ``dtype``."""
+    from dgp_tpu_torch.models import cokriging, gpr
+
+    cast = lambda ts: tuple(None if t is None else t.to(dtype) for t in ts)
+    if model.name == "ar1":
+        Xs, Ys, ws = (cast(ts) for ts in model.train_data)
+        return [(cokriging._joint_gram(params, Xs, ws), torch.cat(Ys, dim=0))]
+    return [(gpr._masked_gram(p, X, w), Y) for p, (X, Y, w) in
+            zip(params, (cast(d) for d in model.train_data))]
+
+
+def gradient_terms(model, params):
+    """Per scalar parameter t (in the order of params.parameters()), the sum
+    over the surrogate's Grams K of |G_ij| |dK_ij/dt|, G = (K^-1 - a a^T) / 2
+    and a = K^-1 y: the magnitudes of the terms whose signed sum is the
+    loss's gradient in t. At an optimum the terms cancel and the gradient
+    vanishes while they do not, so this is the scale its error is held to
+    there (as TOL_BWD holds dvariance, a sum that cancels, to the sum of its
+    terms' magnitudes). Float64 ``params`` under f64_twin; dK by central
+    differences."""
+    with torch.no_grad():
+        Gs = []
+        for K, y in exact_grams_of(model, params, torch.float64):
+            Ki = torch.cholesky_inverse(torch.linalg.cholesky(K))
+            a = Ki @ y
+            Gs.append((0.5 * (Ki - a @ a.T)).abs())
+        out = []
+        for p in params.parameters():
+            flat = p.view(-1)
+            for e in range(flat.numel()):
+                old = float(flat[e])
+                h = 1e-6 * max(1.0, abs(old))
+                flat[e] = old + h
+                up = exact_grams_of(model, params, torch.float64)
+                flat[e] = old - h
+                down = exact_grams_of(model, params, torch.float64)
+                flat[e] = old
+                out.append(sum(float((G * (u - d).abs()).sum()) / (2 * h)
+                               for G, (u, _), (d, _) in zip(Gs, up, down)))
+    return torch.tensor(out, dtype=torch.float64, device=DEVICE)
+
+
+def compare_exact(tag, model, trained=False):
+    """The training loss and its gradient (every parameter, as one vector)
+    at the model's parameters: #7 on against the plain version (use_kernels
+    off) within TOL_GRAD of scale plus twice the plain arm's own distance
+    from the float64 twin's (the witness rule), one #7 launch per Gram; and
+    each arm against the float64 twin, the kernels' arm within TOL_REQUEST
+    plus twice the plain arm's distance (hold_to_f64's rule); the witness
+    term at most WITNESS_CAP. The scale is the float64 twin's max|value|;
+    with ``trained`` (the parameters at an optimum, where the gradient
+    vanishes and its float32 error does not), each gradient entry's error is
+    taken against its own gradient_terms instead."""
+    import copy
+
+    from dgp_tpu_torch.config import ieee_fp32, kernels_scope
+
+    loss_fn = exact_loss(model)
+
+    def loss_and_gradient(params, dtype):
+        with ieee_fp32():
+            loss = loss_fn(params, dtype)
+            grads = torch.autograd.grad(loss, list(params.parameters()))
+        return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+    before = counts()
+    on = loss_and_gradient(model.params, torch.float32)
+    launched = counts()[6] - before[6]
+    with kernels_scope(False):
+        off = loss_and_gradient(model.params, torch.float32)
+    with f64_twin():
+        params64 = copy.deepcopy(model.params).double()
+        ref = loss_and_gradient(params64, torch.float64)
+        terms = gradient_terms(model, params64) if trained else None
+    grams = 1 if model.name == "ar1" else len(model.params)
+    if launched != grams:
+        raise AssertionError(f"[exact_mf] {tag}: {launched} launches of #7, "
+                             f"expected {grams}")
+    report = []
+    for name, a, b, r in zip(("NLL", "gradient"), on, off, ref):
+        if name == "gradient" and trained:
+            scale = torch.where(terms > 0, terms, torch.ones_like(terms))
+        else:
+            scale = float(r.abs().max()) or 1.0
+        rel = lambda e: float((e.double().abs() / scale).max())
+        err, own, ek = rel(a - b), rel(b.double() - r), rel(a.double() - r)
+        witness = min(2 * own, WITNESS_CAP)
+        limits = (TOL_GRAD + witness, TOL_REQUEST + witness)
+        report.append(f"{name}: on vs off {err:.2e} (limit {limits[0]:.2e}), "
+                      f"on vs float64 {ek:.2e} (limit {limits[1]:.2e}), off "
+                      f"vs float64 {own:.2e}")
+        if not (err <= limits[0] and ek <= limits[1]):
+            raise AssertionError(f"[exact_mf] {tag}: {report[-1]}")
+    log(f"[exact_mf] {tag}: loss and gradient, #7 on vs off and against the "
+        f"float64 twin, err / "
+        + ("max|reference| (the gradient's entries: / their gradient_terms)"
+           if trained else "max|reference|")
+        + f" (tol {TOL_GRAD} / {TOL_REQUEST} + 2x off's own error against "
+          f"float64, at most {WITNESS_CAP}): " + "; ".join(report))
+
+
+def exact_predictions(tag, model, rows, S, gpu):
+    """predict_f and predict_y of ``rows``: shapes, finite values, variances
+    not negative, #7's launches as reckoned; returns predict_f's moments
+    (on the host) and the requests' launches."""
+    zero_counts()
+    X = np.asarray(rows, dtype=np.float32)
+    kw = {} if model.name == "ar1" else {"S": S}
+    (f_mean, f_var), ms_f = timed(lambda: model.predict_f(X, **kw))
+    kw = {} if model.name == "ar1" else {"num_samples": S}
+    (y_mean, y_var), ms_y = timed(lambda: model.predict_y(X, **kw))
+    shape = (1 if model.name == "ar1" else S, len(rows), 1)
+    for a in (f_mean, f_var, y_mean, y_var):
+        if not (a.shape == shape and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"[exact_mf] {tag}: prediction of shape "
+                                 f"{tuple(a.shape)} (expected {shape}) or "
+                                 f"not finite")
+    if not (bool((f_var >= 0).all()) and bool((y_var >= f_var).all())):
+        raise AssertionError(f"[exact_mf] {tag}: variances")
+    launched = counts()
+    expect = exact_expected_counts(model.name, requests=2)
+    log(f"[exact_mf] {tag}: predict_f and predict_y of {len(rows)} rows"
+        + ("" if model.name == "ar1" else f" at {S} samples")
+        + f": {1e3 * ms_f:.1f} / {1e3 * ms_y:.1f} ms (first use); launches "
+          f"{COUNTED} {launched}, reckoned {expect} ({gpu})")
+    if launched != expect:
+        raise AssertionError(f"[exact_mf] {tag}: launches {launched}, "
+                             f"reckoned {expect}")
+    return f_mean.cpu().numpy(), f_var.cpu().numpy(), launched
+
+
+def r2_nonlinear(model):
+    """(held-out r2 of the moment-matched predict_f on the nonlinear pair,
+    the request's launches)."""
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.models.dgp import moment_matched
+    from dgp_tpu_torch.utils.test_functions import nonlinear_high
+
+    Xt = lhs(1, NONLINEAR_TEST, seed=99)
+    zero_counts()
+    m_s, v_s = model.predict_f(Xt.astype(np.float32), S=NONLINEAR_S)
+    launched = counts()
+    mean, _ = moment_matched(m_s.double(), v_s.double())
+    yt = nonlinear_high(Xt)
+    r2 = 1.0 - float(np.mean((mean.cpu().numpy() - yt) ** 2) / np.var(yt))
+    return r2, launched
+
+
+def maximize_ei(tag, model, gpu):
+    """One EI maximization over an exact surrogate by the port's DE + Adam,
+    cut as the bo phase cuts it (DE BO_DE, BO_ADAM Adam steps) at XMF_S
+    samples (NARGP), y_min the best normalized high-fidelity value: x in
+    the box, -EI there finite and the reported objective; #7 launched once
+    per Gram per evaluation ((1 + generations) + (Adam steps + 1)
+    evaluations); for AR(1) the EI at x (exact moments) held to the same EI
+    from the float64 twin's predict_f, the moments AR(1)'s EI takes
+    (hold_to_f64, the plain versions' EI the witness). Returns the
+    maximization's launches."""
+    import copy
+
+    from dgp_tpu_torch.bo import acquisition as acq
+    from dgp_tpu_torch.config import kernels_scope
+    from dgp_tpu_torch.models import cokriging
+
+    y_min = float(model.data[1][-1].min())
+    ei = acq.EI(y_min, XMF_D)
+    bounds = (np.zeros(XMF_D), np.ones(XMF_D))
+    zero_counts()
+    x, dt = timed(lambda: ei.optimize(
+        model, bounds, popsize_DE=BO_DE[0], iterations_DE=BO_DE[1],
+        iterations_adam=BO_ADAM, method="DE+Adam", num_samples=XMF_S, key=0))
+    evaluations = (1 + BO_DE[1]) + (BO_ADAM + 1)
+    launched = counts()
+    expect = exact_expected_counts(model.name, requests=evaluations)
+    if not (x.shape == (1, XMF_D) and np.all((x >= 0) & (x <= 1))
+            and np.isfinite(ei.IC_optimized) and launched == expect):
+        raise AssertionError(f"[exact_mf] {tag} EI: x {x}, -EI "
+                             f"{ei.IC_optimized}, launches {launched}, "
+                             f"reckoned {expect}")
+    log(f"[exact_mf] {tag}: EI maximized by DE {BO_DE[0]}x{BO_DE[1]} + "
+        f"{BO_ADAM} Adam steps in {dt:.2f} s: EI {-ei.IC_optimized:.6g} "
+        f"(y_min {y_min:.5f}); launches {COUNTED} {launched}, reckoned "
+        f"{expect} ({gpu})")
+    if model.name != "ar1":
+        return launched
+    key = acq.split_key(0)[1]
+    with torch.no_grad():
+        on = -ei.run(model, x, num_samples=XMF_S, key=key)
+        with kernels_scope(False):
+            plain = -ei.run(model, x, num_samples=XMF_S, key=key)
+        with f64_twin():
+            X64 = torch.tensor(x, dtype=torch.float64, device=DEVICE)
+            data64 = tuple(tuple(t.double() for t in ts)
+                           for ts in model.train_data)
+            mean, var = cokriging.predict_f(
+                copy.deepcopy(model.params).double(), data64, X64)
+            ref = acq._expected_improvement(y_min, mean, var)
+    if abs(float(on[0, 0]) + ei.IC_optimized) > 1e-6 * max(1.0, abs(
+            ei.IC_optimized)):
+        raise AssertionError(f"[exact_mf] {tag}: EI at x {float(on[0, 0])} "
+                             f"is not the objective {-ei.IC_optimized}")
+    hold_to_f64(f"[exact_mf] {tag}: EI at the maximizer, #7 vs the plain "
+                f"version", ["EI"], [ref], [on], [plain])
+    return launched
+
+
+def ei_gradient(tag, model, gpu):
+    """One EI loss and its gradient in x over a trained deep multi-fidelity
+    surrogate (the mf or em phase's), at BO_DE[0] points and the acquisition's
+    500 samples: finite, the gradient nonzero, the quadform kernels (#5,
+    #6) and #8 launched. Returns the launches."""
+    from dgp_tpu_torch.bo import acquisition as acq
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.config import ieee_fp32
+
+    d = model._X[-1].shape[1]
+    loss_fn, args = acq.EI(float(model._Y[-1].min()), d)._default_loss_spec(
+        model, 0, num_samples=500)
+    x = torch.tensor(lhs(d, BO_DE[0], seed=4), dtype=torch.float32,
+                     device=DEVICE, requires_grad=True)
+    zero_counts()
+    with ieee_fp32():
+        loss = loss_fn(x, args)
+        (g,) = torch.autograd.grad(loss.sum(), x)
+    launched = counts()
+    if not (loss.shape == (BO_DE[0], 1) and bool(torch.isfinite(loss).all())
+            and bool(torch.isfinite(g).all()) and bool((g != 0).any())
+            and min(launched[4], launched[5], launched[7]) > 0):
+        raise AssertionError(f"[exact_mf] {tag}: EI loss or gradient, "
+                             f"launches {launched}")
+    log(f"[exact_mf] {tag}: EI loss and gradient at {BO_DE[0]} points, 500 "
+        f"samples: -EI in [{float(loss.detach().min()):.4g}, "
+        f"{float(loss.detach().max()):.4g}], "
+        f"max |grad| {float(g.abs().max()):.4g}; launches {COUNTED} "
+        f"{launched} ({gpu})")
+    return launched
+
+
+def run_exact_mf(gpu, model_mf, model_em):
+    """The exact multi-fidelity path through the entry points a user calls:
+    AR(1) co-kriging and NARGP on the borehole pair (the loss and gradient
+    at the init, train_exact at XMF_ITERATIONS, the loss and gradient at
+    the trained parameters, 1,000-row predictions, an EI maximization
+    each), the nonlinear pair's r2 oracle at its own budget, and the EI
+    loss and gradient over the mf and em phases' models. Returns the
+    path's launches (the comparisons' own left out)."""
+    launches = []
+    rows = np.random.default_rng(2).uniform(size=(XMF_REQUEST, XMF_D))
+    data = borehole_data()
+    for kind in ("ar1", "nargp"):
+        tag = f"borehole {kind}"
+        compare_exact(f"{tag} at the init", exact_model(kind, data))
+        model, launched = train_exact(tag, kind, data, XMF_ITERATIONS, gpu)
+        launches.append(launched)
+        compare_exact(f"{tag} trained", model, trained=True)
+        launches.append(exact_predictions(tag, model, rows, XMF_S, gpu)[2])
+        launches.append(maximize_ei(tag, model, gpu))
+    r2 = {}
+    for kind in ("nargp", "ar1"):
+        model, launched = train_exact(f"nonlinear {kind}", kind,
+                                      nonlinear_data(), NONLINEAR_ITERATIONS,
+                                      gpu)
+        r2[kind], predicted = r2_nonlinear(model)
+        launches += [launched, predicted]
+    log(f"[exact_mf] nonlinear pair (f_high = f_low^2, N {NONLINEAR_DOE}): "
+        f"held-out r2 on {NONLINEAR_TEST} points at {NONLINEAR_S} samples: "
+        f"NARGP {r2['nargp']:.5f} (> 0.9), AR(1) {r2['ar1']:.5f} (< 0.5) "
+        f"({gpu})")
+    if not (r2["nargp"] > 0.9 and r2["ar1"] < 0.5):
+        raise AssertionError(f"[exact_mf] nonlinear oracle: r2 {r2}")
+    for tag, model in (("mf", model_mf), ("em", model_em)):
+        launches.append(ei_gradient(tag, model, gpu))
+    total = tuple(sum(c[k] for c in launches) for k in range(11))
+    log(f"[exact_mf] launches on the path {COUNTED}: {total} ({gpu})")
+    return total
+
+
+def exact_grams():
+    """[(name, (A, A64), witness)]: the Gram stacks the engine factors at
+    its first step (its XMF_STARTS starts, seed 0), each with its float64
+    twin under the float32 jitter: the borehole pair's AR(1) joint Gram
+    [8, 56, 56] and NARGP level Grams [8, 40, 40] and [8, 16, 16] (level 1
+    on the mean chain at the init), and the nonlinear pair's [8, 48, 48],
+    [8, 32, 32] and [8, 16, 16]; padding rows with a unit diagonal and no
+    coupling. ``witness`` is true for the nonlinear pair's stacks alone:
+    their float32 entries move L off the twin's by more than TOL
+    (check_cholesky's witness rule)."""
+    import copy
+
+    from dgp_tpu_torch.models import cokriging, gpr
+
+    out = []
+    for pair, data in (("borehole", borehole_data()),
+                       ("nonlinear", nonlinear_data())):
+        ar1 = exact_model("ar1", data)
+        stacked = ar1._starts(XMF_STARTS, 0)
+        Xs, _, ws = ar1.train_data
+        with torch.no_grad():
+            A = cokriging._joint_gram(stacked, Xs, ws)
+            with f64_twin():
+                A64 = cokriging._joint_gram(
+                    copy.deepcopy(stacked).double(),
+                    [x.double() for x in Xs], [w.double() for w in ws])
+        witness = pair == "nonlinear"
+        out.append((f"{pair} AR(1) joint Gram", (A, A64), witness))
+        nargp = exact_model("nargp", data)
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        for t, (X, _, w) in enumerate(nargp.train_data):
+            stacked = nargp._starts(nargp.params[t], XMF_STARTS, gen)
+            with torch.no_grad():
+                A = gpr._masked_gram(stacked, X, w)
+                with f64_twin():
+                    A64 = gpr._masked_gram(copy.deepcopy(stacked).double(),
+                                           X.double(), w.double())
+            out.append((f"{pair} NARGP level {t} Gram", (A, A64), witness))
+    return out
+
+
+def time_engine(gpu, steps=50, rounds=3):
+    """Wall ms per engine step (multistart_adam, XMF_STARTS starts) on the
+    borehole pair's AR(1) joint NLL and NARGP's level-0 NLL, host clock
+    around ``steps`` steps, ``rounds`` rounds; and the device's share of ten
+    steps (profile_run)."""
+    from dgp_tpu_torch.models import cokriging, gpr, training
+
+    data = borehole_data()
+    ar1, nargp = exact_model("ar1", data), exact_model("nargp", data)
+    cases = {
+        "AR(1) joint NLL [8, 56, 56]": (cokriging.neg_log_marginal_likelihood,
+                                        lambda: ar1._starts(XMF_STARTS, 0),
+                                        ar1.train_data),
+        "NARGP level-0 NLL [8, 40, 40]": (
+            gpr.neg_log_marginal_likelihood,
+            lambda: nargp._starts(nargp.params[0], XMF_STARTS,
+                                  torch.Generator(device=DEVICE).manual_seed(0)),
+            nargp.train_data[0]),
+    }
+    for what, (loss_fn, starts, batch) in cases.items():
+        run = lambda: training.multistart_adam(loss_fn, starts(), batch, steps,
+                                               XMF_LR)
+        run()
+        ms = [1e3 * timed(run)[1] / steps for _ in range(rounds)]
+        log(f"[timing] engine step, {XMF_STARTS} starts, {what}: ms per step "
+            f"over {steps} steps, {rounds} rounds: "
+            f"{', '.join(f'{t:.3f}' for t in ms)} ({gpu})")
+        profile_run(f"ten engine steps, {what}", lambda: training.multistart_adam(
+            loss_fn, starts(), batch, 10, XMF_LR), gpu)
+
+
+# -- phase 9 --------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -2548,17 +3086,18 @@ def fmt_us(us):
     return "not measured" if us is None else f"{us:.1f} us"
 
 
-def time_cholesky(G, Mi, inverse, gpu, kuu="model"):
+def time_cholesky(G, Mi, inverse, gpu, kuu="model", stack=None):
     """Kernel #7 (#8) through its wrapper's launch beside its plain version
     and the library calls that compute the same function:
     torch.linalg.cholesky_ex (with solve_triangular against the identity
     for #8), timed here and used nowhere in the port. CUDA events over
     back-to-back calls give the time a caller sees (the larger of host and
     device time per call); torch.profiler over the same calls gives the
-    device time of the kernel alone and of the library's kernels."""
+    device time of the kernel alone and of the library's kernels. With
+    ``stack``, on that float32 stack (named ``kuu``)."""
     from dgp_tpu_torch.ops import cholesky as tch
 
-    A = spd_stack(G, Mi, 15, kuu)
+    A = spd_stack(G, Mi, 15, kuu) if stack is None else stack
     eye = torch.eye(Mi, device=DEVICE).expand(A.shape)
 
     def library():
@@ -2575,6 +3114,7 @@ def time_cholesky(G, Mi, inverse, gpu, kuu="model"):
         lib_us, lib_kernels = device_us(library, 100)
     bound, by = cholesky_bound_ms(G, Mi, inverse)
     what = "#8 chol+inverse" if inverse else "#7 chol"
+    what += "" if stack is None else f" ({kuu})"
     log(f"[timing] {what} G={G} M={Mi}: events: kernel {1e3 * ms:.1f} us, plain "
         f"{1e3 * plain_ms:.1f} us, library {1e3 * library_ms:.1f} us; device "
         f"(profiler): kernel {fmt_us(dev_us)}, library {fmt_us(lib_us)} in "
@@ -2852,6 +3392,12 @@ def main():
             err_chol[inverse] = max(err_chol[inverse], check_cholesky(
                 stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
                 stack=stack))
+    # #7 on the Gram stacks the exact surrogates' engine factors, one launch
+    # for all its starts, held to their float64 twins
+    for name, stack, witness in exact_grams():
+        err_chol[0] = max(err_chol[0], check_cholesky(
+            stack[0].shape[0], stack[0].shape[-1], 0, False, kuu=name,
+            stack=stack, witness=witness))
 
     # each main path's launch counts (zeroed just before it, read just
     # after); a kernel's launches in the kernels line are their sum
@@ -2901,6 +3447,7 @@ def main():
     launched, model_em = run_em(gpu)
     paths.append(launched)
     compare_em(model_em)
+    paths.append(run_exact_mf(gpu, model_mf, model_em))
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
@@ -2936,6 +3483,9 @@ def main():
     chol8 = time_cholesky(2, M, True, gpu)    # the whitened models' Kuu stack
     time_cholesky(1, 8, False, gpu, "bo")     # the BO GPR's padded Gram
     time_cholesky(2, 8, True, gpu, "bo")      # the BO DGP's Kuu stack
+    for name, stack, _ in exact_grams()[:2]:     # the engine's largest stacks
+        time_cholesky(*stack[0].shape[:2], False, gpu, kuu=name,
+                      stack=stack[0])
     time_cholesky_variants(trained, gpu)
     time_steps(trained, gpu)
     time_steps(trained_nw, gpu, nat=False)
@@ -2954,6 +3504,7 @@ def main():
         iterations=3, messages=0, shrink_inner=False), gpu)
     time_mf(model_mf, gpu)
     time_em(model_em, gpu)
+    time_engine(gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"
     qf_source = "dgp_tpu_torch/csrc/quadform.cu"

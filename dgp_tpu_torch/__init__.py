@@ -13,3 +13,19 @@ from .config import (  # noqa: F401
     kernels_scope,
     use_kernels,
 )
+
+_EXPORTS = {
+    "AR1CoKriging": ("dgp_tpu_torch.models.cokriging", "AR1CoKriging"),
+    "NARGP": ("dgp_tpu_torch.models.nargp", "NARGP"),
+}
+
+
+def __getattr__(name):
+    """Lazy top-level exports, as ``dgp_tpu`` has them (keeps ``import
+    dgp_tpu_torch`` light)."""
+    if name in _EXPORTS:
+        import importlib
+
+        module, attr = _EXPORTS[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'dgp_tpu_torch' has no attribute {name!r}")

@@ -9,14 +9,18 @@ draws the same unit normals, so DE and Adam see a deterministic surface.
 A key here is an int seed (``split_key`` and ``fold_in`` derive others from
 it, as ``jax.random.split`` / ``fold_in`` do); the draws are PyTorch's, not
 JAX's. The moments come from the pure model functions (``models/gpr.py``,
-``models/dgp.py:predict_y`` / ``predict_f`` / ``propagate``), not from the
-wrappers' ``@torch.no_grad`` methods, because Adam refinement needs the
-acquisition's gradient in x. The JAX package caches each loss function so
-its compiled optimizers are reused across infills; eager PyTorch compiles
-nothing, so the losses here are plain closures.
+``models/cokriging.py``, ``models/nargp.py``, ``predict_y`` / ``predict_f`` /
+``propagate`` of ``models/dgp.py``, ``models/mf_dgp.py`` and
+``models/mf_dgp_em.py``), not from the wrappers' ``@torch.no_grad``
+methods, because Adam refinement needs the acquisition's gradient in x. The
+JAX package caches each loss function so its compiled optimizers are
+reused across infills; eager PyTorch compiles nothing, so the losses here
+are plain closures.
 
-Surrogate kinds: ``gpr`` and ``dgp``. The multi-fidelity kinds (``ar1``,
-``nargp``, ``mf_dgp``, ``mf_dgp_EM``) are not ported yet and raise.
+Surrogate kinds (``model.name``): ``gpr``, ``dgp`` and the multi-fidelity
+``ar1`` (exact), ``nargp``, ``mf_dgp`` and ``mf_dgp_EM`` (whose state kind
+is ``em``), each predicting its highest fidelity; MC moments are moment
+matched over the samples.
 """
 
 from __future__ import annotations
@@ -27,11 +31,16 @@ import numpy as np
 import torch
 
 from ..config import default_float, resolve_device
+from ..models import cokriging as ar1_mod
 from ..models import dgp as dgp_mod
 from ..models import gpr as gpr_mod
+from ..models import mf_dgp as mf_mod
+from ..models import mf_dgp_em as em_mod
+from ..models import nargp as nargp_mod
 from . import de
 
-_NOT_PORTED = ("ar1", "nargp", "mf_dgp", "mf_dgp_EM")
+# the sampled kinds' model functions, by state kind
+_MC_MODELS = {"dgp": dgp_mod, "mf_dgp": mf_mod, "em": em_mod}
 
 
 def split_key(key, num=2):
@@ -53,12 +62,12 @@ def _generator(key, device):
     return torch.Generator(device=device).manual_seed(int(key))
 
 
-def _noise(key, device):
-    """The draws of one DGP evaluation: :func:`_generator`, or, where
-    ``key`` is a list of tensors, those fixed unit normals (``propagate``'s
-    ``zs``)."""
+def _noise(key, device, kind="dgp"):
+    """The draws of one evaluation: :func:`_generator`, or, where ``key``
+    is a list of tensors, those fixed unit normals (the DGP's ``zs``, the
+    other sampled models' ``noise``)."""
     if isinstance(key, (list, tuple)):
-        return {"zs": key}
+        return {"zs" if kind == "dgp" else "noise": key}
     return {"generator": _generator(key, device)}
 
 
@@ -99,45 +108,89 @@ def _expected_improvement(y_min, mean, var):
 
 
 def _model_state(model):
-    """(kind, state) of a surrogate: a GPR carries (params, padded train
-    data), a DGP its parameters."""
-    if model.name == "gpr":
-        return "gpr", (model.params, model.train_data)
-    if model.name == "dgp":
-        return "dgp", model.params
-    if model.name in _NOT_PORTED:
-        raise ValueError(
-            f"surrogate kind {model.name!r} is not ported to dgp_tpu_torch "
-            f"yet (ar1, nargp, mf_dgp and mf_dgp_EM wait for the "
-            f"multi-fidelity models); supported: gpr, dgp")
-    raise ValueError(f"unsupported surrogate kind {model.name!r} for "
-                     "acquisition moments; supported: gpr, dgp")
+    """(kind, state) of a surrogate: a GPR, an AR(1) co-kriging and a NARGP
+    carry (params, padded train data), the sampled deep GPs their
+    parameters (the MF-DGPs' augmented inducing rows are recomputed from
+    them in each evaluation)."""
+    if model.name in ("gpr", "ar1", "nargp"):
+        return model.name, (model.params, model.train_data)
+    if model.name in ("dgp", "mf_dgp"):
+        return model.name, model.params
+    if model.name == "mf_dgp_EM":
+        return "em", model.params
+    # fail at the dispatch boundary: an unknown wrapper's parameters would
+    # otherwise reach a model function and fail (or mis-predict) deep inside
+    raise ValueError(
+        f"unsupported surrogate kind {model.name!r} for acquisition moments; "
+        "supported: gpr, ar1, nargp, mf_dgp, mf_dgp_EM, dgp")
+
+
+def _mc_moments(kind, state, x, key, num_samples, predict):
+    """``predict`` ('predict_f' or 'predict_y') of a sampled surrogate at
+    its highest fidelity, moment matched over the samples."""
+    noise = _noise(key, x.device, kind)
+    if kind == "nargp":
+        params, datas = state
+        m_s, v_s = getattr(nargp_mod, predict)(params, datas, x, num_samples,
+                                               **noise)
+    else:
+        m_s, v_s = getattr(_MC_MODELS[kind], predict)(state, x, num_samples,
+                                                      **noise)
+    return _moment_matched(m_s, v_s)
 
 
 def _y_moments_pure(kind, state, x, key, num_samples):
     if kind == "gpr":
-        params, data = state
-        return gpr_mod.predict_y(params, data, x)
-    m_s, v_s = dgp_mod.predict_y(state, x, num_samples, **_noise(key, x.device))
-    return _moment_matched(m_s, v_s)
+        return gpr_mod.predict_y(*state, x)
+    if kind == "ar1":
+        return ar1_mod.predict_y(*state, x, -1)
+    return _mc_moments(kind, state, x, key, num_samples, "predict_y")
 
 
 def _f_moments_pure(kind, state, x, key, num_samples):
+    # a GPR's EI takes its predictive-y moments, as in the JAX package
     if kind == "gpr":
-        params, data = state
-        return gpr_mod.predict_y(params, data, x)
-    m_s, v_s = dgp_mod.predict_f(state, x, num_samples, **_noise(key, x.device))
-    return _moment_matched(m_s, v_s)
+        return gpr_mod.predict_y(*state, x)
+    if kind == "ar1":
+        return ar1_mod.predict_f(*state, x, -1)
+    return _mc_moments(kind, state, x, key, num_samples, "predict_f")
+
+
+def _unit_normals(key, shape, like):
+    """Unit normals of ``shape`` in ``like``'s dtype and device: drawn from
+    the seed ``key``, or ``key`` itself where it is an array (a fixed
+    draw)."""
+    if torch.is_tensor(key) or isinstance(key, np.ndarray):
+        return torch.as_tensor(key, dtype=like.dtype,
+                               device=like.device).reshape(shape)
+    return torch.randn(shape, dtype=like.dtype, device=like.device,
+                       generator=_generator(key, like.device))
 
 
 def _samples_pure(kind, state, x, key, num_samples):
-    if kind == "gpr":
-        params, data = state
-        mean, var = gpr_mod.predict_y(params, data, x)
-        z = torch.randn((num_samples,) + tuple(mean.shape), dtype=mean.dtype,
-                        generator=_generator(key, x.device), device=x.device)
+    """Highest-fidelity samples [S, n, 1]: the exact surrogates' predictive
+    normal, NARGP's per-sample predictive (its moments from one half of the
+    key, the normals from the other), the deep GPs' last layer. A list key
+    holds the draws in the JAX package's order: the exact surrogates' one,
+    NARGP's predict_y's and then its sample's, the deep GPs' (``_noise``)."""
+    fixed = isinstance(key, (list, tuple))
+    if kind in ("gpr", "ar1"):
+        mean, var = _y_moments_pure(kind, state, x, key, num_samples)
+        z = _unit_normals(key[0] if fixed else key,
+                          (num_samples,) + tuple(mean.shape), mean)
         return mean[None] + torch.sqrt(var)[None] * z
-    Fs, _, _ = dgp_mod.propagate(state, x, num_samples, **_noise(key, x.device))
+    if kind == "nargp":
+        params, datas = state
+        if fixed:
+            noise, k2 = {"noise": list(key[:-1])}, key[-1]
+        else:
+            k1, k2 = split_key(key)
+            noise = {"generator": _generator(k1, x.device)}
+        m_s, v_s = nargp_mod.predict_y(params, datas, x, num_samples, **noise)
+        z = _unit_normals(k2, m_s.shape, m_s)
+        return m_s + torch.sqrt(torch.clamp_min(v_s, 0.0)) * z
+    Fs, _, _ = _MC_MODELS[kind].propagate(state, x, num_samples,
+                                          **_noise(key, x.device, kind))
     return Fs[-1]
 
 

@@ -28,3 +28,21 @@ def doe(problem, doe_size: int, seed=None):
         return X, Y, C
     Y = problem.fun(X)[0]
     return X, Y
+
+
+def mf_doe(fns, dim: int, sizes, normalize=True):
+    """A multi-fidelity DoE as MF_BO draws it (``dgp_tpu/bo/mf_bo.py``):
+    fidelity f's ``sizes[f]`` points by :func:`lhs` at seed f, its values
+    ``fns[f](X) -> [n, 1]``, with ``normalize`` all fidelities' Y under one
+    pooled normalization.
+
+    :return: (X list, Y list, (mu, sd)); (0, 1) without ``normalize``.
+    """
+    X = [lhs(dim, n, seed=f) for f, n in enumerate(sizes)]
+    Y = [np.asarray(fn(x), dtype=float).reshape(-1, 1)
+         for fn, x in zip(fns, X)]
+    mu, sd = 0.0, 1.0
+    if normalize:
+        pooled = np.vstack(Y)
+        mu, sd = float(pooled.mean()), float(pooled.std() or 1.0)
+    return X, [(y - mu) / sd for y in Y], (mu, sd)

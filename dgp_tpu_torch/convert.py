@@ -9,7 +9,9 @@ that tree of numpy arrays, so both packages compute from the same numbers.
 ``DGPParams``, so parameters trained in both packages can be compared. A
 multi-fidelity deep GP's ``MFDGPParams`` (:func:`mf_dgp_from_numpy`), its
 Embedded Mapping variant's ``MFDGPEMParams`` (:func:`mf_dgp_em_from_numpy`)
-and an exact GP's ``GPRParams`` (:func:`gpr_from_numpy`) go the same way.
+an exact GP's ``GPRParams`` (:func:`gpr_from_numpy`), AR(1) co-kriging's
+``AR1Params`` (:func:`ar1_from_numpy`) and NARGP's tuple of per-level
+``GPRParams`` (:func:`nargp_from_numpy`) go the same way.
 
 The tree is plain data::
 
@@ -27,8 +29,15 @@ with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "variance_raw", "active_dims"} or {"type": "Sum" | "Product", "kernels":
 [K, ...]}, and F = {"type": "Zero", "num_outputs"}, {"type": "Identity"} or
 {"type": "LinearMean", "W": [Din, D]}. A ``GPRParams`` gives
-``{"kernel": K, "likelihood": {...}}``. Raw values are the
-softplus-unconstrained parameters both packages store.
+``{"kernel": K, "likelihood": {...}}``, an ``AR1Params`` ``{"kernels":
+[K, ...], "rho": [L-1], "likelihoods": [{...}, ...]}`` and NARGP's levels
+``{"levels": [{"kernel": K, "likelihood": {...}}, ...]}``. Raw values are
+the softplus-unconstrained parameters both packages store.
+
+Stacked starts: the exact models' parameters stacked over a leading starts
+axis (the JAX package's ``_starts``) give a tree whose every value carries
+that axis, and :func:`ar1_from_numpy` / :func:`gpr_from_numpy` build from
+it the stacked module that ``training.multistart_adam`` takes.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import torch
 
 from .layers.svgp import SVGPLayer
 from .models.dgp import DGPParams
+from .models.cokriging import AR1Params
 from .models.gpr import GPRParams
 from .models.mf_dgp import MFDGPParams
 from .models.mf_dgp_em import MFDGPEMParams
@@ -95,7 +105,15 @@ def numpy_tree_from_reference(params) -> dict:
     ``dgp_tpu.models.gpr.GPRParams``) as numpy arrays (the two packages
     name their fields alike, so the port's ``DGPParams``, ``MFDGPParams``,
     ``MFDGPEMParams`` and ``GPRParams`` read the same way:
-    :func:`numpy_tree_from_port`)."""
+    :func:`numpy_tree_from_port`), of a ``dgp_tpu.models.cokriging.AR1Params``
+    or of a NARGP's tuple of ``GPRParams``."""
+    if hasattr(params, "rho"):
+        return {"kernels": [_kernel_tree(k) for k in params.kernels],
+                "rho": _np(params.rho),
+                "likelihoods": [_likelihood_tree(lik)
+                                for lik in params.likelihoods]}
+    if isinstance(params, (tuple, list, torch.nn.ModuleList)):
+        return {"levels": [numpy_tree_from_reference(p) for p in params]}
     if not hasattr(params, "layers"):
         return {"kernel": _kernel_tree(params.kernel),
                 "likelihood": _likelihood_tree(params.likelihood)}
@@ -124,7 +142,8 @@ def _layer_tree(layer):
 
 def numpy_tree_from_port(params) -> dict:
     """The tree of the port's ``DGPParams``, ``MFDGPParams``,
-    ``MFDGPEMParams`` or ``GPRParams``, in the layout
+    ``MFDGPEMParams``, ``GPRParams``, ``AR1Params`` or NARGP levels, in the
+    layout
     :func:`numpy_tree_from_reference` gives."""
     return numpy_tree_from_reference(params)
 
@@ -214,8 +233,27 @@ def _likelihood(tree, device, dtype):
 
 
 def gpr_from_numpy(tree: dict, device, dtype) -> GPRParams:
-    """The port's ``GPRParams`` from a tree of numpy arrays, on ``device``
-    in ``dtype``."""
+    """The port's ``GPRParams`` from a tree of numpy arrays (stacked over a
+    leading starts axis where the tree's values are), on ``device`` in
+    ``dtype``."""
     device = torch.device(device)
     return GPRParams(_kernel(tree["kernel"], device, dtype),
                      _likelihood(tree["likelihood"], device, dtype))
+
+
+def ar1_from_numpy(tree: dict, device, dtype) -> AR1Params:
+    """The port's ``AR1Params`` from a tree of numpy arrays (stacked over a
+    leading starts axis where the tree's values are), on ``device`` in
+    ``dtype``."""
+    device = torch.device(device)
+    return AR1Params(
+        [_kernel(t, device, dtype) for t in tree["kernels"]],
+        _tensor(tree["rho"], device, dtype),
+        [_likelihood(t, device, dtype) for t in tree["likelihoods"]])
+
+
+def nargp_from_numpy(tree: dict, device, dtype) -> torch.nn.ModuleList:
+    """A NARGP's per-level ``GPRParams`` (an ``nn.ModuleList``) from a tree
+    of numpy arrays, on ``device`` in ``dtype``."""
+    return torch.nn.ModuleList(gpr_from_numpy(t, device, dtype)
+                               for t in tree["levels"])

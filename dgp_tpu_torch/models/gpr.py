@@ -36,22 +36,27 @@ def _masked_gram(params: GPRParams, X, row_weights):
     (padding) rows are exactly decoupled: their cross-covariances are zeroed
     and their diagonal set to 1, so K is block-diagonal and the padded block
     adds only a parameter-independent constant to the log marginal
-    likelihood and nothing to the posterior."""
-    noise = params.likelihood.variance + default_jitter(X.dtype)
+    likelihood and nothing to the posterior. Parameters stacked over a
+    leading axis (``training.multistart_adam``) give a [B, n, n] stack."""
     K = params.kernel.K(X)
+    noise = torch.as_tensor(params.likelihood.variance + default_jitter(X.dtype),
+                            dtype=K.dtype, device=K.device)
     if row_weights is None:
-        return K + noise * eye_like(K)
+        return K + noise[..., None, None] * eye_like(K)
     w = row_weights
-    return w[:, None] * w[None, :] * K + torch.diag(w * noise + (1.0 - w))
+    return (w[:, None] * w[None, :] * K
+            + torch.diag_embed(w * noise[..., None] + (1.0 - w)))
 
 
 @ieee_fp32()
 def neg_log_marginal_likelihood(params: GPRParams, X, Y, row_weights=None):
+    """The negative log marginal likelihood; [B] for parameters stacked
+    over a leading axis (their Grams factored in one call of #7)."""
     n, d = X.shape[0], Y.shape[1]
     L = cholesky(_masked_gram(params, X, row_weights))
     alpha = tri_solve(L, Y, lower=True)
-    return (0.5 * torch.sum(alpha ** 2) + 0.5 * d * log_det_from_chol(L)
-            + _HALF_LOG_2PI * n * d)
+    return (0.5 * torch.sum(alpha ** 2, dim=(-2, -1))
+            + 0.5 * d * log_det_from_chol(L) + _HALF_LOG_2PI * n * d)
 
 
 @ieee_fp32()

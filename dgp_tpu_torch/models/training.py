@@ -13,10 +13,17 @@ sync per step).
 A loss is ``loss_fn(params, generator)`` or, with ``data`` given,
 ``loss_fn(params, generator, data)``; ``params`` is the model's
 ``nn.Module`` and is updated in place.
+
+:func:`multistart_adam` is the counterpart of ``multistart_adam_engine``,
+the exact multi-fidelity models' multi-start training: the JAX package
+vmaps one Adam run over a leading starts axis of the parameter pytree; here
+the parameters carry that axis themselves (:func:`stack_starts`), and every
+step advances all starts in one batched loss and one Adam step.
 """
 
 from __future__ import annotations
 
+import copy
 import warnings
 from typing import Callable, Sequence
 
@@ -104,7 +111,11 @@ def masked_adam(params, mask, lr, b1=0.9, b2=0.999, eps=1e-7):
     transform alone passes the frozen leaves' raw gradients through).
 
     ``torch.optim.Adam`` steps by ``lr * m_hat / (sqrt(v_hat) + eps)``, as
-    ``optax.adam`` does (``eps_root = 0``)."""
+    ``optax.adam`` does (``eps_root = 0``). The default eps 1e-7 is the one
+    the JAX package's DGP and GPR loops pass (gpflow's Adam default, which
+    the reference's training runs used); ``optax.adam``'s own default,
+    1e-8, is the one of the JAX package's multi-start engine, and
+    :func:`multistart_adam` takes it."""
     return torch.optim.Adam(trainable_parameters(params, mask), lr=lr,
                             betas=(b1, b2), eps=eps)
 
@@ -164,6 +175,73 @@ def pad_to_bucket(X, Y, bucket: int):
     Yp = torch.cat([Y, torch.zeros((pad, Y.shape[1]), dtype=Y.dtype,
                                    device=Y.device)], dim=0)
     return Xp, Yp, w
+
+
+# -- multi-start Adam on an exact NLL --------------------------------------------
+
+def _set_parameter(module, name, value):
+    owner, _, leaf = name.rpartition(".")
+    setattr(module.get_submodule(owner) if owner else module, leaf,
+            torch.nn.Parameter(value))
+
+
+def stack_starts(modules):
+    """One module whose every parameter stacks, over a new leading axis,
+    that parameter of each of ``modules`` (alike but for their values): the
+    counterpart of ``jax.tree.map(jnp.stack, *pytrees)``."""
+    stacked = copy.deepcopy(modules[0])
+    values = [dict(m.named_parameters()) for m in modules]
+    for name, _ in list(stacked.named_parameters()):
+        _set_parameter(stacked, name,
+                       torch.stack([v[name].detach() for v in values]))
+    return stacked
+
+
+def select_start(stacked, i):
+    """A copy of ``stacked`` (:func:`stack_starts`) holding start i's
+    parameters."""
+    out = copy.deepcopy(stacked)
+    for name, p in list(out.named_parameters()):
+        _set_parameter(out, name, p.detach()[i].clone())
+    return out
+
+
+def multistart_adam(loss_fn, stacked, batch, iterations: int, lr: float):
+    """Multi-start Adam on an exact NLL: ``loss_fn(stacked, *batch)`` gives
+    one loss per start, [n_starts], for parameters stacked over a leading
+    axis (:func:`stack_starts`), so each step evaluates every start at once
+    (their Grams factored by one launch of #7). One ``torch.optim.Adam``
+    steps on the sum: Adam is elementwise and start i's loss reaches only
+    start i's slice, so each start takes exactly its own Adam step, with
+    optax's constants (eps 1e-8, eps_root 0), as the JAX package's vmapped
+    runs do. A start whose Gram is not positive definite goes NaN and stays
+    so, as in the JAX package, and touches no other start.
+
+    :return: (the winning start's parameters as an unstacked copy, its
+        final loss, its losses [iterations]). The winner is the first
+        argmin of the final losses, non-finite ones counted as +inf; the
+        loss trace stays on the device until then (one read at the end).
+    """
+    params = list(stacked.parameters())
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    trace = []
+    with torch.enable_grad(), ieee_fp32():
+        for _ in range(iterations):
+            losses = loss_fn(stacked, *batch)
+            grads = torch.autograd.grad(torch.sum(losses), params)
+            for p, g in zip(params, grads):
+                p.grad = g
+            opt.step()
+            trace.append(losses.detach())
+    for p in params:
+        p.grad = None
+    with torch.no_grad(), ieee_fp32():
+        finals = loss_fn(stacked, *batch)
+    finals = torch.where(torch.isfinite(finals), finals, torch.inf)
+    i = int(torch.argmin(finals))
+    trace = (torch.stack(trace) if trace
+             else finals.new_zeros((0, finals.shape[0])))
+    return select_start(stacked, i), finals[i], trace[:, i]
 
 
 def _empty_trace(params):

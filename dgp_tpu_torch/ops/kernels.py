@@ -6,6 +6,14 @@ hyperparameters as the JAX pytrees (``variance_raw``, ``lengthscales_raw``);
 ``active_dims`` is a plain attribute. ``Sum``/``Product`` compose through
 ``+``/``*``. Pairwise distances are written product-first, as in the JAX
 package: ``||x||^2 + ||z||^2 - 2 x.z``.
+
+The stationary kernels (and sums and products of them) also take a stack of
+hyperparameters: a variance of shape [B] (and lengthscales [B, d] or [B])
+gives K [B, n, m] and K_diag [B, n], one matrix per entry of the stack, as
+``jax.vmap`` over a stacked pytree gives them (the exact multi-fidelity
+models' multi-start training). X may carry leading batch dimensions too.
+With unstacked hyperparameters and 2-D inputs every value is the one the
+2-D formulas give, bit for bit.
 """
 
 from __future__ import annotations
@@ -13,6 +21,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -78,26 +87,37 @@ class _Stationary(Kernel):
     def lengthscales(self):
         return positive(self.lengthscales_raw)
 
+    def _matrix_variance(self):
+        """The variance broadcast against [..., n, m] matrices."""
+        return self.variance[..., None, None]
+
     def _scaled(self, X):
-        return self._slice(X) / self.lengthscales
+        # the variance's shape is the stack's: lengthscales with one more
+        # dimension are ARD ([..., d]), else one per kernel ([...])
+        ls = self.lengthscales
+        ls = (ls[..., None, :] if ls.dim() > self.variance_raw.dim()
+              else ls[..., None, None])
+        return self._slice(X) / ls
 
     def _sqdist(self, X, X2):
         Xs = self._scaled(X)
         X2s = Xs if X2 is None else self._scaled(X2)
-        xx = torch.sum(Xs * Xs, dim=-1)[:, None]
-        zz = torch.sum(X2s * X2s, dim=-1)[None, :]
-        return torch.clamp_min(xx + zz - 2.0 * (Xs @ X2s.T), 0.0)
+        xx = torch.sum(Xs * Xs, dim=-1)[..., :, None]
+        zz = torch.sum(X2s * X2s, dim=-1)[..., None, :]
+        return torch.clamp_min(xx + zz - 2.0 * (Xs @ X2s.mT), 0.0)
 
     def K_diag(self, X):
-        n = self._slice(X).shape[0]
-        return self.variance.expand(n).to(X.dtype)
+        variance = self.variance
+        # numpy's rule: torch.broadcast_shapes imports sympy on first use
+        shape = np.broadcast_shapes(variance.shape, X.shape[:-2])
+        return variance[..., None].expand(*shape, X.shape[-2]).to(X.dtype)
 
 
 class RBF(_Stationary):
     """Squared-exponential (gpflow ``SquaredExponential``/``RBF``)."""
 
     def K(self, X, X2=None):
-        return self.variance * torch.exp(-0.5 * self._sqdist(X, X2))
+        return self._matrix_variance() * torch.exp(-0.5 * self._sqdist(X, X2))
 
 
 def _safe_dist(sqdist):
@@ -109,7 +129,8 @@ class Matern32(_Stationary):
     def K(self, X, X2=None):
         r = _safe_dist(self._sqdist(X, X2))
         sqrt3 = math.sqrt(3.0)
-        return self.variance * (1.0 + sqrt3 * r) * torch.exp(-sqrt3 * r)
+        return (self._matrix_variance() * (1.0 + sqrt3 * r)
+                * torch.exp(-sqrt3 * r))
 
 
 class Matern52(_Stationary):
@@ -117,7 +138,7 @@ class Matern52(_Stationary):
         r2 = self._sqdist(X, X2)
         r = _safe_dist(r2)
         sqrt5 = math.sqrt(5.0)
-        return (self.variance * (1.0 + sqrt5 * r + (5.0 / 3.0) * r2)
+        return (self._matrix_variance() * (1.0 + sqrt5 * r + (5.0 / 3.0) * r2)
                 * torch.exp(-sqrt5 * r))
 
 

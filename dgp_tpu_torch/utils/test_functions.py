@@ -3,8 +3,9 @@
 kept here so that the port imports nothing of the JAX package): the Park
 pair on [0,1]^4, the variant-input-dimension Park_VD pair (low fidelity on
 [0,1]^2, high on [0,1]^4, extra coordinates pinned to 0.5 in the
-low-fidelity coupling), the borehole, Branin and Forrester pairs, and the
-r2 / rmse / mnll metrics.
+low-fidelity coupling), the borehole, Branin and Forrester pairs, the
+nonlinear pair f_high = f_low^2 (NARGP's test case), and the r2 / rmse /
+mnll metrics.
 """
 
 from __future__ import annotations
@@ -121,6 +122,18 @@ def forrester_low(x):
     """Standard low-fidelity Forrester: 0.5*f(x) + 10(x - 0.5) - 5."""
     x = np.asarray(x).reshape(-1)
     return (0.5 * forrester_high(x)[:, 0] + 10 * (x - 0.5) - 5)[:, None]
+
+
+def nonlinear_low(x):
+    """sin(8 pi x), x in [0,1] -> [n, 1]: the low fidelity of the pair whose
+    high fidelity is its square, a map no linear (AR(1)) coupling
+    recovers."""
+    return np.sin(8.0 * np.pi * np.asarray(x).reshape(-1, 1))
+
+
+def nonlinear_high(x):
+    """nonlinear_low(x)^2 -> [n, 1]."""
+    return nonlinear_low(x) ** 2
 
 
 def calculate_metrics(y_test, y_mean, y_var):

@@ -843,3 +843,37 @@ def test_em_dgp_goes_through_the_kernels(cuda):
     launched, model = chip_smoke.run_em(chip_smoke.gpu_line())
     assert launched[4] > 0 and launched[7] > 0
     chip_smoke.compare_em(model)
+
+
+@pytest.mark.cuda
+def test_cholesky_kernel_on_the_exact_mf_grams(cuda):
+    """Kernel #7 on the Gram stacks the exact surrogates' multi-start engine
+    factors at its first step (8 starts: the borehole pair's AR(1) joint
+    Gram [8, 56, 56] and NARGP level Grams [8, 40, 40], [8, 16, 16]; the
+    nonlinear pair's [8, 48, 48], [8, 32, 32], [8, 16, 16]; padding rows
+    with a unit diagonal), held to their float64 twins under the float32
+    jitter (chip_smoke.exact_grams, the witness rule for L on the
+    nonlinear pair's)."""
+    for name, stack, witness in chip_smoke.exact_grams():
+        assert chip_smoke.check_cholesky(stack[0].shape[0],
+                                         stack[0].shape[-1], 0, False,
+                                         kuu=name, stack=stack,
+                                         witness=witness) < 1.0
+
+
+@pytest.mark.parametrize("kind", ["ar1", "nargp"])
+@pytest.mark.cuda
+def test_exact_surrogates_go_through_the_cholesky_kernel(cuda, kind):
+    """The borehole pair's AR(1) and NARGP on the card, 20 engine steps of
+    8 starts: one #7 launch per step for all the starts (per level for
+    NARGP, and one for its mean chain), the winner the least final NLL;
+    the loss and gradient at the trained parameters with #7 on and off
+    and against float64; 1,000-row predictions, one #7 per Gram each
+    (chip_smoke.train_exact, compare_exact, exact_predictions)."""
+    model, _ = chip_smoke.train_exact(f"card test {kind}", kind,
+                                      chip_smoke.borehole_data(), 20,
+                                      "card test")
+    chip_smoke.compare_exact(f"card test {kind}", model)
+    rows = np.random.default_rng(2).uniform(size=(1_000, chip_smoke.XMF_D))
+    chip_smoke.exact_predictions(f"card test {kind}", model, rows,
+                                 chip_smoke.XMF_S, "card test")

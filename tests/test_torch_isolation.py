@@ -15,8 +15,10 @@ from dgp_tpu_torch.config import ieee_fp32
 from dgp_tpu_torch.bo.so_bo import SO_BO, make_single_model
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import gpr as TGPR
+from dgp_tpu_torch.models.cokriging import AR1CoKriging
 from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
 from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
+from dgp_tpu_torch.models.nargp import NARGP
 from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
 from dgp_tpu_torch.ops import kernels as TK
@@ -52,7 +54,9 @@ def test_no_jax_imports_in_port():
             "bo/doe.py", "bo/de.py", "bo/acquisition.py",
             "bo/so_bo.py", "models/mf_dgp.py", "utils/test_functions.py",
             "../compat_torch/validate_mf_dgp.py", "models/mf_dgp_em.py",
-            "../compat_torch/validate_mf_dgp_em.py"} <= rel
+            "../compat_torch/validate_mf_dgp_em.py", "models/cokriging.py",
+            "models/nargp.py",
+            "../compat_torch/validate_mf_bo_bakeoff_fit.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -109,6 +113,16 @@ em = MultiFidelityDeepGP_EM(Xe, [park_vd_low(Xe[0]), park_vd_high(Xe[1])],
 losses = em.optimize_nat_adam(iterations1=1, iterations2=1, iterations3=1,
                               messages=0)
 assert losses.shape == (3,) and em.predict(Xe[1])[0].shape == (3, 1)
+from dgp_tpu_torch import AR1CoKriging, NARGP
+Xa = [rng.uniform(size=(7, 2)), rng.uniform(size=(3, 2))]
+Ya = [np.sin(4 * x[:, :1]) for x in Xa]
+for cls in (AR1CoKriging, NARGP):
+    exact = cls((Xa, Ya), n_bucket=4, device="cpu")
+    exact.optimize(n_starts=2, iterations=2)
+    m_s, v_s = exact.predict_f(Xa[1], S=3)
+    assert m_s.shape[1:] == (3, 1) and bool(torch.isfinite(v_s).all())
+from dgp_tpu_torch.bo.acquisition import EI
+assert EI(0.0, 2).run(exact, Xa[1], num_samples=3).shape == (3, 1)
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -157,6 +171,11 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     em = MultiFidelityDeepGP_EM(Xe, Ym, [Xe[1][:, :1]], dtype=torch.float64,
                                 device="cpu")
     assert em.params.layers_red[0].z.device == torch.device("cpu")
+    for cls in (AR1CoKriging, NARGP):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls((Xm, Ym), dtype=torch.float64)
+        exact = cls((Xm, Ym), dtype=torch.float64, device="cpu")
+        assert exact.train_data[0][0].device == torch.device("cpu")
 
 
 class _Problem:

@@ -178,7 +178,27 @@ Phases, each of which raises (exit code 1) on any fault:
              tests/test_nargp.py (f_high = f_low^2) at its budget (8 x
              1,500): held-out r2(NARGP) > 0.9 and r2(AR(1)) < 0.5. The EI
              loss and its gradient in x over the mf and em phases' models.
-9. timing  — CUDA-event times of every kernel and of its plain version at
+9. mf_bo   — the multi-fidelity BO driver through the port's MF_BO on the
+             card in float32: benchmarks/mf_bo_bakeoff.py's Forrester cell
+             (d = 1, DoE 8 + 4, seed 1) with the default AR(1) surrogate
+             cut to 8 starts x 300 steps, DE 60 x 40, 100 samples: three
+             infills (the third by suggest() and observe()), a batch of two
+             with a believer lie, and one PoF infill under g(x) = 0.55 - x
+             (its constraint GPR cut to 300 Adam steps); one infill each of
+             the NARGP surrogate, of the MF-DGP (schedule (20, 10, 10), a
+             batch of two: the lie's 200-step warm refit through #5/#6/#8)
+             and of MF-DGP-EM on Park_VD 30/6 (x[:, :2] the projection).
+             Each infill's seconds split into surrogate fit, constraint
+             fits, acquisition, fidelity rule and lies, and its #7
+             launches; the archives real evaluations only, the cost and
+             fidelity accounting, the best trace finite, non-increasing and
+             at or above the Forrester minimum; the launches of #5-#8 equal
+             to those reckoned from the loop's operations (recorded_loop,
+             reckon_loop); at the AR(1) and MF-DGP batch states the
+             fidelity rule's sigma and the believer lies with the kernels on
+             and off and against float64; the device idle share of one
+             AR(1) infill (torch.profiler).
+10. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -324,6 +344,27 @@ XMF_REQUEST, XMF_S = 1_000, 100
 # and r2(AR(1)) < 0.5
 NONLINEAR_DOE, NONLINEAR_ITERATIONS = (30, 10), 1_500
 NONLINEAR_TEST, NONLINEAR_S = 200, 300
+# the multi-fidelity BO driver: benchmarks/mf_bo_bakeoff.py's Forrester cell
+# (d = 1, DoE 8 + 4, MF_BO's default AR(1) surrogate of 8 starts x 2,000
+# Adam steps, DE 300 x 400, 500 samples, 10 infills) at seed 1, cut to
+# 8 starts x 300 steps, DE 60 x 40 and 100 samples; the constraint GPR
+# (g(x) = 0.55 - x) cut from 2,000 Adam steps to 300, the variational forms'
+# schedule from (200, 200, 400) to (20, 10, 10)
+MFBO_DOE, MFBO_SEED, MFBO_STEPS = (8, 4), 1, 300
+MFBO_SPECS = {
+    "ar1": {"type": "ar1", "n_starts": 8, "iterations": MFBO_STEPS},
+    "nargp": {"type": "nargp", "n_starts": 8, "iterations": MFBO_STEPS,
+              "num_samples": 100},
+    "mf_dgp": {"schedule": (20, 10, 10)},
+    "em": {"type": "em", "schedule": (20, 10, 10)},
+}
+MFBO_CON = {"kernels": "rbf", "iterations": MFBO_STEPS}
+MFBO_RUN = dict(popsize_DE=60, iterations_DE=40, num_samples=100,
+                verbose=False)
+# the high fidelity's minimum is -6.020740 (the bake-off's f*): no best value
+# may lie below it
+FORRESTER_FLOOR = -6.0208
+MFBO_ROWS = 21               # rows of the fidelity rule's and lies' checks
 DEVICE = "cuda"
 
 
@@ -2708,7 +2749,401 @@ def time_engine(gpu, steps=50, rounds=3):
             loss_fn, starts(), batch, 10, XMF_LR), gpu)
 
 
-# -- phase 9 --------------------------------------------------------------------
+# -- phase 9: the multi-fidelity BO driver --------------------------------------
+
+
+def forrester_con(x):
+    """g(x) = 0.55 - x <= 0: the constrained infill's constraint (feasible
+    from 0.55 on, so the Forrester optimum at 0.757 stays feasible)."""
+    return 0.55 - np.asarray(x)[:, 0]
+
+
+def launch_vector(c5=0, c6=0, c7=0, c8=0):
+    """counts() with #5, #6 (its phase B once per phase A: every n here fits
+    one pass), #7 and #8."""
+    return (0, 0, 0, 0, c5, c6, c7, c8, 0, 0, c6)
+
+
+def add_counts(*cs):
+    return tuple(sum(c[k] for c in cs) for k in range(11))
+
+
+def surrogate_launches(kind, op, n_fid=2, f=0, steps=0):
+    """counts() of one operation of an MF_BO surrogate of ``kind`` ("ar1",
+    "nargp", "mf_dgp", "em", or "gpr" for a constraint GPR). ``op``:
+    "fit", a fresh model trained for ``steps`` (the exact forms' engine
+    steps, exact_expected_counts; the variational forms' build, as
+    mf_expected_counts / em_expected_counts reckon it, and ``steps`` loss
+    evaluations with their gradient; the GPR's Adam steps, one #7 each);
+    "loss", one loss with its gradient (a warm lie refit's step);
+    "request", a prediction at fidelity ``f`` (the fidelity rule's, a
+    believer lie's, an acquisition evaluation's at the top fidelity). An
+    AR(1) request factors its joint Gram (#7), a NARGP one factors levels
+    0..f (#7 each); an MF-DGP one recomputes layer 1's Z_right (#8, #5), then
+    projects layers 0..f (#8 each: two M) and runs their quadforms (#5); an
+    EM one runs the whole chain whatever f (em_expected_counts)."""
+    if kind in ("ar1", "nargp"):
+        if op == "fit":
+            return exact_expected_counts(kind, steps, n_fid=n_fid)
+        return launch_vector(c7=1 if kind == "ar1" else f + 1)
+    if kind == "gpr":
+        return launch_vector(c7=steps if op == "fit" else 1)
+    counts_of = mf_expected_counts if kind == "mf_dgp" else em_expected_counts
+    if op == "fit":
+        return counts_of(built=1, losses=steps)
+    if op == "loss":
+        return counts_of(losses=1)
+    if kind == "mf_dgp":
+        return launch_vector(c5=f + 2, c8=f + 2)
+    return counts_of(requests=1)
+
+
+@contextlib.contextmanager
+def recorded_loop(bo):
+    """Record what the loop ``bo`` does while the scope lasts: ``ops``, the
+    operations the launch reckoning counts ((what, kind, fidelity, steps)),
+    the seconds of its steps (``s``: surrogate fit, constraint fits,
+    fidelity rule, lies; the acquisition is the rest of an infill) and each
+    fresh batch state (``states``). The instance's methods are wrapped and
+    restored on exit."""
+    kind = bo.model_dic.get("type", "mf_dgp")
+    rec = {"ops": [], "s": dict(fit=0.0, con=0.0, rule=0.0, lie=0.0),
+           "states": []}
+
+    def fit(Ys_n, seed):
+        if kind in ("ar1", "nargp"):
+            steps = int(bo.model_dic["iterations"])
+        else:
+            n1, n2, n3 = bo.model_dic["schedule"]
+            steps = n1 + n2 + 2 * n3   # natural-gradient steps evaluate twice
+        rec["ops"].append(("fit", kind, None, steps))
+        return methods["_fit_model"](Ys_n, seed)
+
+    def con_fits():
+        if bo.n_con:
+            rec["ops"] += [("fit", "gpr", None,
+                            int(bo.model_C_dic["iterations"]))] * bo.n_con
+        return methods["_make_train_con_models"]()
+
+    def sigma(model, x_new, f, S=100):
+        rec["ops"].append(("request", kind, f, 0))
+        return methods["_fidelity_sigma"](model, x_new, f, S)
+
+    def select(model, x_new, S=100, extra_queries=()):
+        rec["ops"].append(("pick", kind, None, 0))
+        return methods["_select_fidelity"](model, x_new, S, extra_queries)
+
+    def lie_value(st, x_new, f, lie):
+        if lie == "believer":
+            rec["ops"].append(("request", kind, f, 0))
+        return methods["_lie_value"](st, x_new, f, lie)
+
+    def lie_at(st, x_new, f, lie, lie_train_iterations):
+        if kind in ("mf_dgp", "em"):
+            steps = 200 if lie_train_iterations is None else lie_train_iterations
+            rec["ops"] += [("loss", kind, None, 0)] * steps
+        rec["ops"] += [("request", "gpr", None, 0)] * bo.n_con
+        return methods["_lie_at"](st, x_new, f, lie, lie_train_iterations)
+
+    def fresh(IC):
+        st = methods["_fresh_batch_state"](IC)
+        rec["states"].append(st)
+        return st
+
+    wrappers = {"_fit_model": (fit, "fit"),
+                "_make_train_con_models": (con_fits, "con"),
+                "_fidelity_sigma": (sigma, None),
+                "_select_fidelity": (select, "rule"),
+                "_lie_value": (lie_value, None), "_lie_at": (lie_at, "lie"),
+                "_fresh_batch_state": (fresh, None)}
+    methods = {name: getattr(bo, name) for name in wrappers}
+
+    def timed_as(fn, key):
+        def run(*args, **kwargs):
+            out, dt = timed(lambda: fn(*args, **kwargs))
+            rec["s"][key] += dt
+            return out
+        return run
+
+    for name, (fn, key) in wrappers.items():
+        setattr(bo, name, fn if key is None else timed_as(fn, key))
+    try:
+        yield rec
+    finally:
+        for name in wrappers:
+            delattr(bo, name)
+
+
+def reckon_loop(bo, ops):
+    """counts() reckoned from a loop's recorded operations: each fit, loss,
+    request and constraint fit as surrogate_launches counts it, and each
+    pick's DE maximization, (1 + generations) evaluations of the criterion
+    on the surrogate at the top fidelity (and, constrained, of each
+    constraint GPR)."""
+    total = launch_vector()
+    top = bo.n_fid - 1
+    for what, kind, f, steps in ops:
+        if what == "pick":
+            evaluations = 1 + MFBO_RUN["iterations_DE"]
+            one = add_counts(surrogate_launches(kind, "request", bo.n_fid, top),
+                             *[surrogate_launches("gpr", "request")] * bo.n_con)
+            total = add_counts(total, tuple(evaluations * c for c in one))
+        else:
+            total = add_counts(total, surrogate_launches(
+                kind, what, bo.n_fid, f if f is not None else top, steps))
+    return total
+
+
+def check_archives(tag, bo, n0):
+    """The loop's bookkeeping: the archives grew by the chosen fidelities'
+    counts and hold real evaluations only (every Y row is its fidelity's
+    value at its X row: no lie reached them), the cost is the sum of the
+    chosen fidelities' costs, and the best trace, one entry per evaluation,
+    finite, never rising and at or above the high fidelity's minimum."""
+    trace = np.asarray(bo.best_trace, dtype=float)
+    ok = len(trace) == 1 + len(bo.fidelity_choices) == len(bo.cost_trace)
+    for f in range(bo.n_fid):
+        ok &= len(bo.X[f]) == len(bo.Y[f]) == n0[f] + bo.fidelity_choices.count(f)
+        ok &= bool(np.allclose(bo.Y[f], np.asarray(bo.fidelities[f](bo.X[f]))
+                               .reshape(-1, 1), rtol=1e-12, atol=1e-12))
+        if bo.n_con:
+            ok &= bool(np.allclose(bo.C[f], bo._eval_cons(bo.X[f]),
+                                   rtol=1e-12, atol=1e-12))
+    ok &= abs(bo.cost_spent - sum(bo.costs[f] for f in bo.fidelity_choices)) < 1e-9
+    ok &= bool(np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 0))
+    if not ok:
+        raise AssertionError(f"[mf_bo] {tag}: bookkeeping: best {trace}, "
+                             f"fidelities {bo.fidelity_choices}, cost "
+                             f"{bo.cost_spent}, archives "
+                             f"{[len(x) for x in bo.X]} from {n0}")
+
+
+def infill(tag, bo, rec, step, gpu):
+    """One infill of ``bo`` by ``step()``, logged: its seconds split into
+    surrogate fit, constraint fits, acquisition, fidelity rule and lies
+    (recorded_loop), its #7 launches, its fidelities and the best value."""
+    before, s0, k0 = counts(), dict(rec["s"]), len(bo.fidelity_choices)
+    _, dt = timed(step)
+    part = {k: rec["s"][k] - s0[k] for k in s0}
+    acquisition = dt - sum(part.values())
+    log(f"[mf_bo] {tag}: {dt:.3f} s: surrogate fit {part['fit']:.3f}, "
+        f"constraint fits {part['con']:.3f}, acquisition {acquisition:.3f}, "
+        f"fidelity rule {part['rule']:.3f}, lies {part['lie']:.3f}; #7 "
+        f"launches {counts()[6] - before[6]}; fidelities "
+        f"{bo.fidelity_choices[k0:]}, best {bo.best_trace[-1]:.6f}, cost "
+        f"{bo.cost_spent:.2f} ({gpu})")
+
+
+def drive(tag, bo, steps, gpu, floor=None):
+    """Drive ``bo`` through ``steps`` (one callable an infill) with its
+    launches zeroed just before and read just after: bookkeeping as
+    check_archives, the best trace at or above ``floor``, the launches equal
+    to those reckoned from the loop (reckon_loop) and those of the kernels
+    its surrogate runs nonzero (#7 for every kind, #5, #6 and #8 for the
+    variational ones). Returns (the launches, the loop's batch states)."""
+    kind = bo.model_dic.get("type", "mf_dgp")
+    n0 = [len(x) for x in bo.X]
+    zero_counts()
+    with recorded_loop(bo) as rec:
+        for j, step in enumerate(steps):
+            infill(f"{tag} infill {j}", bo, rec, step, gpu)
+    launched, expect = counts(), reckon_loop(bo, rec["ops"])
+    check_archives(tag, bo, n0)
+    if floor is not None and not min(bo.best_trace) >= floor:
+        raise AssertionError(f"[mf_bo] {tag}: best {bo.best_trace} below "
+                             f"the minimum {floor}")
+    used = (6,) if kind in ("ar1", "nargp") else (4, 5, 6, 7, 10)
+    log(f"[mf_bo] {tag}: best trace "
+        f"{np.array2string(np.asarray(bo.best_trace), precision=6)}, "
+        f"fidelities {bo.fidelity_choices}, cost {bo.cost_spent:.2f}; "
+        f"launches {COUNTED} {launched}, reckoned {expect} ({gpu})")
+    if launched != expect or min(launched[k] for k in used) < 1:
+        raise AssertionError(f"[mf_bo] {tag}: launches {launched}, reckoned "
+                             f"{expect}")
+    return launched, rec["states"]
+
+
+class FixedDraws:
+    """An MF_BO surrogate seen through its pure model function, at given
+    parameters and dtype, with fixed unit normals for the MF-DGP (``normals``
+    by sample count, in the order mf_normals gives them): what the fidelity
+    rule and the believer lie read, computed alike in every arm of a
+    comparison."""
+
+    def __init__(self, model, params, dtype, normals):
+        self.name, self.model, self.params = model.name, model, params
+        self.dtype, self.normals = dtype, normals
+
+    @torch.no_grad()
+    def predict_f(self, X, S=1, fidelity=None):
+        from dgp_tpu_torch.models import cokriging
+        from dgp_tpu_torch.models import mf_dgp as tmf
+
+        X = torch.as_tensor(np.asarray(X), dtype=self.dtype, device=DEVICE)
+        if self.name == "ar1":
+            data = tuple(tuple(t.to(self.dtype) for t in ts)
+                         for ts in self.model.train_data)
+            mean, var = cokriging.predict_f(self.params, data, X, fidelity)
+            return mean[None], var[None]
+        return tmf.predict_f(self.params, X, S, fidelity=fidelity,
+                             noise=[z.to(self.dtype) for z in self.normals[S]])
+
+
+def compare_mf_bo(tag, bo, st):
+    """The fidelity rule's sigma_f and the believer lie's value at every
+    fidelity, over MFBO_ROWS rows of the box, through MF_BO's own
+    _fidelity_sigma and _lie_value on a trained batch state's surrogate
+    (FixedDraws): the kernels on (#7, and for the MF-DGP #5 and #8, launched
+    as surrogate_launches reckons the requests) against the plain versions
+    (use_kernels off), and each against the float64 twin (f64_twin,
+    hold_to_f64), both within TOL_REQUEST of scale plus twice the plain
+    versions' own error against float64, that term at most WITNESS_CAP (a
+    sigma is the root of a moment-matched variance that cancels: float32
+    itself is ~1e-3 of scale off float64 there)."""
+    import copy
+
+    from dgp_tpu_torch.config import kernels_scope
+
+    model = st["model"]
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    normals = ({S: mf_normals(model, gen, rows=1, S=S) for S in (64, 100)}
+               if model.name == "mf_dgp" else None)
+    rows = np.linspace(0.0, 1.0, MFBO_ROWS)[:, None]
+
+    def arm(params, dtype):
+        surrogate = FixedDraws(model, params, dtype, normals)
+        state = dict(st, model=surrogate)
+        out = [[bo._fidelity_sigma(surrogate, x[None], 0) for x in rows]]
+        out += [[bo._lie_value(state, x[None], f, "believer") for x in rows]
+                for f in range(bo.n_fid)]
+        return [torch.tensor(v, dtype=torch.float64) for v in out]
+
+    kind = "mf_dgp" if model.name == "mf_dgp" else "ar1"
+    expect = add_counts(*[surrogate_launches(kind, "request", bo.n_fid, f)
+                          for f in (0, *range(bo.n_fid))] * MFBO_ROWS)
+    before = counts()
+    on = arm(model.params, torch.float32)
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    if launched != expect:
+        raise AssertionError(f"[mf_bo] {tag} comparison: launches {launched},"
+                             f" reckoned {expect}")
+    with kernels_scope(False):
+        plain = arm(model.params, torch.float32)
+    with f64_twin():
+        ref = arm(copy.deepcopy(model.params).double(), torch.float64)
+    names = ["sigma_0"] + [f"lie at fidelity {f}" for f in range(bo.n_fid)]
+    report = []
+    for name, a, b, r in zip(names, on, plain, ref):
+        err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+        own = float((b - r).abs().max()) / (float(r.abs().max()) or 1.0)
+        limit = TOL_REQUEST + min(2 * own, WITNESS_CAP)
+        report.append(f"{name} {err:.2e} (limit {limit:.2e})")
+        if not err <= limit:
+            raise AssertionError(f"[mf_bo] {tag}: {name} differs with the "
+                                 f"kernels off by {err:.2e}, limit {limit:.2e}")
+    log(f"[mf_bo] {tag}: fidelity rule and believer lies over {MFBO_ROWS} "
+        f"rows, kernels on vs off, err / max|off| (tol {TOL_REQUEST} + 2x "
+        f"off's own error against float64, at most {WITNESS_CAP}): "
+        + ", ".join(report))
+    hold_to_f64(f"[mf_bo] {tag}: fidelity rule and believer lies, the kernels "
+                f"vs the plain versions", names, ref, on, plain)
+
+
+def idle_share(what, fn, gpu):
+    """The device's idle share over one run of ``fn`` under torch.profiler
+    (CUDA activity only: an infill makes ~10^5 launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(fn)
+    device = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")
+              and e.self_device_time_total > 0]
+    if not device:
+        log(f"[mf_bo] {what}: the profiler saw no device time: idle share "
+            f"not measured")
+        return
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    launches = sum(e.count for e in device)
+    log(f"[mf_bo] {what} under the profiler: wall {1e3 * wall:.1f} ms, device "
+        f"busy {busy:.1f} ms over {launches} device operations, idle "
+        f"{1 - busy / (1e3 * wall):.1%} ({gpu})")
+
+
+def run_mf_bo(gpu):
+    """The multi-fidelity BO driver through the entry points a user calls,
+    MF_BO on the card in float32, on the Forrester pair (DoE MFBO_DOE, seed
+    MFBO_SEED) with the default AR(1) surrogate cut to MFBO_STEPS steps:
+    three infills (the third by suggest() and observe()) and a batch of two
+    with a believer lie; one PoF infill under g(x) = 0.55 - x; one infill
+    each of the NARGP surrogate, of the MF-DGP (a batch of two: the lie's
+    200-step warm refit) and of the EM surrogate on Park_VD 30/6 (the em
+    phase's data, projections x[:, :2]). Each loop as drive() checks it;
+    then compare_mf_bo at the AR(1) and MF-DGP batch states, and the idle
+    share of one AR(1) infill. Returns the path's launches (the
+    comparisons' and the profiled infill's left out)."""
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.bo.mf_bo import MF_BO
+    from dgp_tpu_torch.utils.test_functions import (forrester_high,
+                                                    forrester_low,
+                                                    park_vd_high, park_vd_low)
+
+    fids = [forrester_low, forrester_high]
+    forrester = dict(fidelities=fids, DoE_sizes=MFBO_DOE, d=1,
+                     seed=MFBO_SEED, device=DEVICE)
+    log(f"[mf_bo] the Forrester pair, DoE {MFBO_DOE}, seed {MFBO_SEED}, "
+        f"float32; cut from the bake-off's AR(1) cell: Adam 2,000 -> "
+        f"{MFBO_STEPS} steps (8 starts), DE 300x400 -> "
+        f"{MFBO_RUN['popsize_DE']}x{MFBO_RUN['iterations_DE']}, samples 500 "
+        f"-> {MFBO_RUN['num_samples']}, 10 infills -> 4; the constraint GPR "
+        f"2,000 -> {MFBO_CON['iterations']} Adam steps; the variational "
+        f"schedule (200, 200, 400) -> (20, 10, 10)")
+    bo = MF_BO(model_dic=MFBO_SPECS["ar1"], **forrester)
+
+    def ask_tell():
+        x, f = bo.suggest(**MFBO_RUN)
+        bo.observe(x, fids[f](x), f)
+
+    launches = []
+    launched, states = drive("ar1", bo, [
+        lambda: bo.run(1, **MFBO_RUN), lambda: bo.run(1, **MFBO_RUN),
+        ask_tell, lambda: bo.run(1, batch_size=2, **MFBO_RUN)], gpu,
+        floor=FORRESTER_FLOOR)
+    launches.append(launched)
+    ar1_state = states[-1]
+    bo_c = MF_BO(model_dic=MFBO_SPECS["ar1"], constraints=[forrester_con],
+                 model_C_dic=MFBO_CON, **forrester)
+    launches.append(drive("ar1, PoF under g(x) = 0.55 - x", bo_c, [
+        lambda: bo_c.run(1, constraint_handling="PoF", **MFBO_RUN)], gpu,
+        floor=FORRESTER_FLOOR)[0])
+    bo_n = MF_BO(model_dic=MFBO_SPECS["nargp"], **forrester)
+    launches.append(drive("nargp", bo_n, [lambda: bo_n.run(1, **MFBO_RUN)],
+                          gpu, floor=FORRESTER_FLOOR)[0])
+    bo_m = MF_BO(model_dic=MFBO_SPECS["mf_dgp"], **forrester)
+    launched, states = drive("mf_dgp", bo_m, [
+        lambda: bo_m.run(1, batch_size=2, **MFBO_RUN)], gpu,
+        floor=FORRESTER_FLOOR)
+    launches.append(launched)
+    mf_state = states[-1]
+    X = [lhs(EM_DIN[0], EM_N[0], seed=123), lhs(EM_DIN[1], EM_N[1], seed=0)]
+    bo_e = MF_BO(fidelities=[park_vd_low, park_vd_high], X=X,
+                 Y=[park_vd_low(X[0]), park_vd_high(X[1])],
+                 model_dic=MFBO_SPECS["em"],
+                 projections=[lambda x: np.asarray(x)[:, :EM_DIN[0]]],
+                 seed=MFBO_SEED, device=DEVICE)
+    launches.append(drive(f"em (Park_VD {EM_N[0]}/{EM_N[1]})", bo_e,
+                          [lambda: bo_e.run(1, **MFBO_RUN)], gpu)[0])
+    total = add_counts(*launches)
+    log(f"[mf_bo] launches on the path {COUNTED}: {total} ({gpu})")
+
+    compare_mf_bo("ar1 batch state", bo, ar1_state)
+    compare_mf_bo("mf_dgp batch state", bo_m, mf_state)
+    bo_p = MF_BO(model_dic=MFBO_SPECS["ar1"], **forrester)
+    idle_share("one AR(1) infill", lambda: bo_p.run(1, **MFBO_RUN), gpu)
+    return total
+
+
+# -- phase 10 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -3448,6 +3883,7 @@ def main():
     paths.append(launched)
     compare_em(model_em)
     paths.append(run_exact_mf(gpu, model_mf, model_em))
+    paths.append(run_mf_bo(gpu))
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 

@@ -56,7 +56,8 @@ def test_no_jax_imports_in_port():
             "../compat_torch/validate_mf_dgp.py", "models/mf_dgp_em.py",
             "../compat_torch/validate_mf_dgp_em.py", "models/cokriging.py",
             "models/nargp.py",
-            "../compat_torch/validate_mf_bo_bakeoff_fit.py"} <= rel
+            "../compat_torch/validate_mf_bo_bakeoff_fit.py", "bo/mf_bo.py",
+            "../compat_torch/validate_mf_bo.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -123,6 +124,13 @@ for cls in (AR1CoKriging, NARGP):
     assert m_s.shape[1:] == (3, 1) and bool(torch.isfinite(v_s).all())
 from dgp_tpu_torch.bo.acquisition import EI
 assert EI(0.0, 2).run(exact, Xa[1], num_samples=3).shape == (3, 1)
+from dgp_tpu_torch.bo import MF_BO
+from dgp_tpu_torch.utils.test_functions import forrester_high, forrester_low
+mf_bo = MF_BO(fidelities=[forrester_low, forrester_high], DoE_sizes=(6, 3),
+              d=1, model_dic={"type": "ar1", "n_starts": 2, "iterations": 3},
+              seed=0, device="cpu")
+assert len(mf_bo.run(1, popsize_DE=8, iterations_DE=3, num_samples=3,
+                     verbose=False)) == 2
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")

@@ -198,7 +198,27 @@ Phases, each of which raises (exit code 1) on any fault:
              fidelity rule's sigma and the believer lies with the kernels on
              and off and against float64; the device idle share of one
              AR(1) infill (torch.profiler).
-10. timing — CUDA-event times of every kernel and of its plain version at
+10. mo      — the multi-objective deep GP through the port's
+             MultiObjDeepGP on the card (compat/validate_mo_dgp.py's
+             multi_obj_1D_4: 10 LHS points, x and both objectives
+             normalized, the default Z, loop 2, S = 10, float32; layers of
+             D = 1, M = 10 through #5-#8): #5/#6 at its shapes (M = 10 by
+             n = 100, 500, 1,000 and 250,000) with the repeat and NaN runs,
+             #7/#8 on its Kuu stacks ([1, 10, 10], [2, 10, 10]) against
+             their float64 twins; optimize_nat_adam(restarts=1) for
+             10 + 10 + 20 steps (cut from the default run's 200 / 300 /
+             800), a fresh model's optimize_adam for 10 + 10 + 10, one
+             predict of 1,000 rows at 250 samples, held as the mf phase
+             (mo_moves: q is not checked under natural gradients, whose
+             steps from this init mostly leave the natural-parameter cone);
+             launches as mo_expected_counts reckons them, the guard's
+             evaluations counted; one optimize_nat_adam(restarts="auto",
+             max_restarts=2): a second schedule where the first's fit
+             score is below 0.9, the kept parameters bit for bit the best
+             candidate's, the launches reckoned per schedule; the request
+             and the loss gradient (layer 0's z and z_left's nonzero) with
+             the kernels on and off (the witness rule) and against float64.
+11. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -220,8 +240,8 @@ Phases, each of which raises (exit code 1) on any fault:
              wall time per Adam step and per Adam+natural-gradient step
              (whitened RBF) and per Adam step (non-whitened, RBF + Linear);
              the device time by kernel over one request and over three Adam
-             steps of each of the three models (torch.profiler); the MF
-             and EM models' ms per loss-and-gradient evaluation and per
+             steps of each of the three models (torch.profiler); the MF,
+             EM and MO models' ms per loss-and-gradient evaluation and per
              1,000-row predict, and their device idle share over three Adam
              steps.
 
@@ -365,6 +385,22 @@ MFBO_RUN = dict(popsize_DE=60, iterations_DE=40, num_samples=100,
 # may lie below it
 FORRESTER_FLOOR = -6.0208
 MFBO_ROWS = 21               # rows of the fidelity rule's and lies' checks
+# the multi-objective configuration (compat/validate_mo_dgp.py, the notebook
+# nb_modgp): multi_obj_1D_4 at 10 LHS points (seed 0), x and both objectives
+# normalized, the default Z ([X, Y_1] and X), loop 2, S 10, float32;
+# requests of 1,000 rows (lhs seed 7, normalized as x) at 250 samples;
+# training cut from the default run's 200 / 300 / 800 natural-gradient
+# steps to 10 / 10 / 20 (restarts=1, the published single run) and Adam to
+# 10 / 10 / 10; one restarts="auto" run of at most MO_RESTARTS schedules
+MO_N, MO_LOOP, MO_S = 10, 2, 10
+MO_REQUEST, MO_PREDICT_S = 1_000, 250
+MO_NAT, MO_ADAM, MO_RESTARTS = (10, 10, 20), (10, 10, 10), 2
+MO_THRESHOLD = 0.9           # optimize_nat_adam's restart_threshold
+# its quadform shapes (D, M, n), D = 1 and M = 10 on both layers: 10 x 10
+# points (a loss's conditionals), 50 x 10 (Z_right in a loss or request, and
+# the restart score's conditionals), 100 x 10 (Z_right at init) and
+# 250 x 1,000 (a request)
+MO_QUADFORM = [(1, 10, 100), (1, 10, 500), (1, 10, 1_000), (1, 10, 250_000)]
 DEVICE = "cuda"
 
 
@@ -1868,22 +1904,23 @@ def check_mf_training(what, seen, losses, nat, window=10, moves=mf_moves,
 
 
 def run_staged(tag, build, nat_steps, adam_steps, rows, expected, describe,
-               gpu, lr_adam, **check):
-    """A multi-fidelity path through the entry points a user calls: build
-    the model, optimize_nat_adam(lr_adam) for ``nat_steps``, a fresh
-    model's optimize_adam for ``adam_steps``, then one predict of ``rows``
-    at 250 samples (moment-matched). Checks each phase's frozen tensors
-    and the losses (check_mf_training), the prediction's shapes and
-    finiteness, and the launches of #5-#8 against ``expected(built=,
-    losses=, requests=)``; ``check`` goes to check_mf_training. Returns
-    (counts(), the trained model)."""
+               gpu, lr_adam, nat_options=None, **check):
+    """A multi-fidelity (or multi-objective) path through the entry points
+    a user calls: build the model, optimize_nat_adam(lr_adam,
+    **nat_options) for ``nat_steps``, a fresh model's optimize_adam for
+    ``adam_steps``, then one predict of ``rows`` at 250 samples
+    (moment-matched). Checks each phase's frozen tensors and the losses
+    (check_mf_training), the prediction's shapes and finiteness, and the
+    launches of #5-#8 against ``expected(built=, losses=, requests=)``;
+    ``check`` goes to check_mf_training. Returns (counts(), the trained
+    model)."""
     zero_counts()
     model, dt_build = timed(build)
     n1, n2, n3 = nat_steps
     with phase_snapshots() as seen:
         losses, dt_nat = timed(lambda: model.optimize_nat_adam(
             lr_adam=lr_adam, iterations1=n1, iterations2=n2, iterations3=n3,
-            messages=0))
+            messages=0, **(nat_options or {})))
     check_mf_training(f"optimize_nat_adam {n1} + {n2} + {n3} steps", seen,
                       losses, nat=True, tag=tag, **check)
     fresh = build(seed=1)
@@ -3143,7 +3180,262 @@ def run_mf_bo(gpu):
     return total
 
 
-# -- phase 10 -------------------------------------------------------------------
+# -- phase 10: the multi-objective deep GP ----------------------------------------
+
+
+def mo_data():
+    """multi_obj_1D_4's DoE as compat/validate_mo_dgp.py draws it (MO_N LHS
+    points, seed 0), x and both objectives normalized: (X list, Y list,
+    (mean, sd) of the raw x)."""
+    from dgp_tpu_torch.bo.doe import lhs
+    from dgp_tpu_torch.bo.problems import multi_obj_1D_4
+
+    problem = multi_obj_1D_4()
+    X_ = lhs(problem.dim, MO_N, seed=0)
+    F = np.array([np.ravel(problem.fun(x)) for x in X_])
+    norm = lambda a: (a - a.mean(0)) / a.std(0)
+    X = norm(X_)
+    return ([X, X.copy()], [norm(F[:, :1]), norm(F[:, 1:])],
+            (X_.mean(0), X_.std(0)))
+
+
+def mo_model(seed=0):
+    """The multi_obj_1D_4 configuration (MO_*) as a MultiObjDeepGP on the
+    card in float32."""
+    from dgp_tpu_torch.models.mo_dgp import MultiObjDeepGP
+
+    X, Y, _ = mo_data()
+    return MultiObjDeepGP(X, Y, loop=MO_LOOP, num_samples=MO_S, seed=seed,
+                          device=DEVICE, dtype=torch.float32)
+
+
+def mo_request_rows():
+    from dgp_tpu_torch.bo.doe import lhs
+
+    mean, sd = mo_data()[2]
+    return (lhs(1, MO_REQUEST, seed=7) - mean) / sd
+
+
+def mo_kuu():
+    """[(name, (A, A64))]: the MO model's own Kuu stacks, each with its
+    float64 twin (kuu_twins): [1, 10, 10] (layer 0 at its Z, as each
+    Z_right factors it) and [2, 10, 10] (both layers at the recomputed
+    inducing inputs: the stack each loss, propagation and KL factors)."""
+    from dgp_tpu_torch.models.mf_dgp import compute_full_zs
+
+    params = mo_model().params
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    with torch.no_grad():
+        zs = compute_full_zs(params.layers, gen, pad_cols=1)
+    return [("MO layer 0", kuu_twins([params.layers[0]], [zs[0]])),
+            ("MO layers 0 and 1", kuu_twins(list(params.layers), zs))]
+
+
+def check_mo_kernels():
+    """#5 and #6 at the MO model's shapes (MO_QUADFORM), with and without
+    t1, with the repeat and NaN runs; #7 and #8 on its Kuu stacks
+    (mo_kuu), held to their float64 twins. Returns the largest errors
+    [#5, #6, #7, #8]."""
+    err = [0.0] * 4
+    for seed, (D, Mi, n) in enumerate(MO_QUADFORM):
+        for with_t1 in (False, True):
+            err[0] = max(err[0], check_quadform(D, Mi, n, with_t1, 280 + seed))
+            err[1] = max(err[1], check_quadform_backward(D, Mi, n, with_t1,
+                                                         380 + seed))
+    for name, stack in mo_kuu():
+        for inverse in (False, True):
+            err[2 + inverse] = max(err[2 + inverse], check_cholesky(
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack))
+    return err
+
+
+def mo_expected_counts(built=0, losses=0, requests=0, guards=0, scores=0):
+    """counts() reckoned for the MO model at loop MO_LOOP (layers of D = 1,
+    M = 10, both non-whitened, one (M, white) group), each propagation
+    recomputing its own Z_right and applying c = 2·loop + 2 conditionals
+    (3 at loop 0). Building it: #7 per layer (the initial q_sqrt) and
+    init_layers_mf's Z_right (layer 0 at 100 x 10 points: #8 for its
+    projection, #5). A loss evaluation with its gradient: the ELBO's own
+    Z_right (#8, #5 at 50 x 10 points) and the KLs' projections (#8), then
+    per objective a propagation: its Z_right (#8, #5), the layers'
+    projections (#8) and c conditionals (#5 each); the backward runs #6
+    and its phase B once per #5 but one: objective 0's data term does not
+    read its propagation's last conditional (objective 1's), so no
+    gradient reaches that #5. A guard evaluation (the natural-gradient
+    step's loss at its candidate, no gradient): the same forward. A
+    request: one propagation. A restart score ("fit"): one propagation per
+    objective."""
+    c = 2 * MO_LOOP + 2 + (MO_LOOP == 0)
+    per_loss = (1 + 2 * (1 + c), 2 + 2 * 2)
+    c5 = built + per_loss[0] * (losses + guards) + (1 + c) * (
+        requests + 2 * scores)
+    c6 = (per_loss[0] - 1) * losses
+    c8 = built + per_loss[1] * (losses + guards) + 2 * (requests + 2 * scores)
+    return (0, 0, 0, 0, c5, c6, 2 * built, c8, 0, 0, c6)
+
+
+def mo_moves(name, nat):
+    """The phase from which the MO model's tensor ``name`` moves: as the MF
+    model's (mf_moves), layer 0's z and layer 1's z_left from phase 2 and
+    the likelihood in phase 3, and q in Adam's phase 3; but None for q
+    under natural gradients. From this init (q_sqrt scaled 1e-2 against
+    the 1e-6 White anchor) most natural-gradient steps leave the
+    natural-parameter cone and natgrad_step_multi keeps that layer's q: in
+    a float32 CPU rehearsal of the cut schedule, layer 0's q_mu moved in 1
+    of 20 steps and layer 1's in 12, and in float64 at 3 samples no q moved
+    in the first 4 steps."""
+    if nat and name.split(".")[-1] in ("q_mu", "q_sqrt"):
+        return None
+    return mf_moves(name, nat)
+
+
+@contextlib.contextmanager
+def guard_evaluations():
+    """Count, in a one-element list, the loss evaluations that the
+    natural-gradient steps' guard makes inside the scope (at the candidate,
+    without a gradient: their number depends on how many steps it rejects,
+    each rejection one more)."""
+    from dgp_tpu_torch.models import training
+
+    count = [0]
+    step = training.natgrad_step_multi
+
+    def counted(qs, loss_fn, *args, **kwargs):
+        def loss(candidate):
+            count[0] += not torch.is_grad_enabled()
+            return loss_fn(candidate)
+        return step(qs, loss, *args, **kwargs)
+
+    training.natgrad_step_multi = counted
+    try:
+        yield count
+    finally:
+        training.natgrad_step_multi = step
+
+
+def run_mo(gpu):
+    """The multi-objective path (run_staged): the multi_obj_1D_4 model,
+    optimize_nat_adam(restarts=1) for MO_NAT steps, optimize_adam for
+    MO_ADAM, a predict of MO_REQUEST rows; launches as mo_expected_counts
+    reckons them, the guard's evaluations counted as they happen."""
+    with guard_evaluations() as guards:
+        return run_staged(
+            "mo", mo_model, MO_NAT, MO_ADAM, mo_request_rows(),
+            lambda **kw: mo_expected_counts(guards=guards[0], **kw),
+            f"multi_obj_1D_4 (N {MO_N}, Z default, loop {MO_LOOP}, S {MO_S}, "
+            f"float32)", gpu, lr_adam=0.01, nat_options={"restarts": 1},
+            moves=mo_moves, moved="z and z_left moved from phase 2, the "
+            "likelihood and q in phase 3")
+
+
+def run_mo_restarts(gpu):
+    """One optimize_nat_adam(restarts="auto", max_restarts=MO_RESTARTS) at
+    MO_NAT: every candidate's fit score recorded with its parameters; one
+    schedule if the first scores at least MO_THRESHOLD, else MO_RESTARTS;
+    the kept parameters bit for bit those of the best finite score; the
+    launches reckoned as that many schedules and scores (mo_expected_counts).
+    Returns the path's launches."""
+    from dgp_tpu_torch.models.mo_dgp import MultiObjDeepGP
+
+    zero_counts()
+    model = mo_model()
+    seen = []
+    score = MultiObjDeepGP._restart_score
+
+    def recording(self, criterion, eval_key):
+        s = score(self, criterion, eval_key)
+        seen.append((s, {k: v.clone() for k, v in
+                         self.params.state_dict().items()}))
+        return s
+
+    n1, n2, n3 = MO_NAT
+    MultiObjDeepGP._restart_score = recording
+    try:
+        with guard_evaluations() as guards:
+            losses, dt = timed(lambda: model.optimize_nat_adam(
+                iterations1=n1, iterations2=n2, iterations3=n3, messages=0,
+                restarts="auto", max_restarts=MO_RESTARTS,
+                restart_threshold=MO_THRESHOLD))
+    finally:
+        MultiObjDeepGP._restart_score = score
+    scores = [s for s, _ in seen]
+    runs = 1 if scores[0] >= MO_THRESHOLD else MO_RESTARTS
+    if len(scores) != runs or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"[mo] restarts: scores {scores}, {runs} runs "
+                             f"expected; losses {losses}")
+    best = None
+    for i, s in enumerate(scores):
+        if best is None or (math.isfinite(s) and (
+                not math.isfinite(scores[best]) or s > scores[best])):
+            best = i
+    kept = model.params.state_dict()
+    if not all(torch.equal(kept[k], v) for k, v in seen[best][1].items()):
+        raise AssertionError(f"[mo] restarts: the kept parameters are not "
+                             f"those of candidate {best} (scores {scores})")
+    launched = counts()
+    expect = mo_expected_counts(built=1, losses=runs * (n1 + n2 + 2 * n3),
+                                guards=guards[0], scores=runs)
+    log(f"[mo] optimize_nat_adam(restarts=\"auto\", max_restarts="
+        f"{MO_RESTARTS}) {n1} + {n2} + {n3} steps: {runs} schedules in "
+        f"{dt:.2f} s, fit scores (worst train r2) "
+        f"{', '.join(f'{s:.4f}' for s in scores)}, kept candidate {best} bit "
+        f"for bit; {guards[0]} guard evaluations; launches {COUNTED} "
+        f"{launched}, reckoned {expect} ({gpu})")
+    if launched != expect:
+        raise AssertionError(f"[mo] restarts: launches {launched}, reckoned "
+                             f"{expect}")
+    return launched
+
+
+def mo_normals(model, gen, rows=None, S=MO_S):
+    """Fixed unit normals in the order the MO functions draw them: for a
+    request of ``rows`` rows, one propagation's (its Z_right [50, M_1, 1],
+    the seed column [rows, 1], then one [S, rows, 1] per conditional) or,
+    with ``rows`` None, the ELBO's (its own Z_right, then one propagation's
+    at each objective's N_f rows)."""
+    M1 = model.params.layers[1].z_left.shape[0]
+    c = 2 * model.loop + 2 + (model.loop == 0)
+    propagation = lambda n: [(50, M1, 1), (n, 1)] + [(S, n, 1)] * c
+    if rows is None:
+        shapes = [(50, M1, 1)] + [shape for x in model._X
+                                  for shape in propagation(x.shape[0])]
+    else:
+        shapes = propagation(rows)
+    return [torch.randn(shape, generator=gen, device=DEVICE)
+            for shape in shapes]
+
+
+def compare_mo(model):
+    """compare_on_off for the MO model at its trained state: a 1,000-row
+    request at 250 samples and a loss, the gradients of layer 0's z and
+    layer 1's z_left nonzero. The 1e-6 White anchor of objective 0 makes
+    the loss stiff (its initial value ~1e8), so float32 is itself far from
+    float64 in the gradients: they are held by the witness rule
+    (``gradient_witness``), as EM's."""
+    from dgp_tpu_torch.models import mo_dgp as tmo
+
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    zr = mo_normals(model, gen, rows=MO_REQUEST, S=MO_PREDICT_S)
+    zl = mo_normals(model, gen)
+    cast = lambda xs, dtype: [x.to(dtype) for x in xs]
+    compare_on_off(
+        "mo", model, mo_request_rows(),
+        lambda params, X, dtype: tmo.predict_y(
+            params, X, MO_PREDICT_S, loop=model.loop, noise=cast(zr, dtype)),
+        lambda params, dtype: tmo.elbo(
+            params, cast(model._X, dtype), cast(model._Y, dtype), MO_S,
+            loop=model.loop, noise=cast(zl, dtype)),
+        mo_expected_counts(requests=1), mo_expected_counts(losses=1),
+        ["layers.0.z", "layers.1.z_left"], gradient_witness=True)
+
+
+def time_mo(model, gpu):
+    time_staged(f"MO (multi_obj_1D_4, N {MO_N}, loop {MO_LOOP}, S {MO_S})",
+                model, mo_request_rows(), gpu)
+
+
+# -- phase 11 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -3884,6 +4176,13 @@ def main():
     compare_em(model_em)
     paths.append(run_exact_mf(gpu, model_mf, model_em))
     paths.append(run_mf_bo(gpu))
+    mo_err = check_mo_kernels()
+    err_qf, err_qf_bwd = max(err_qf, mo_err[0]), max(err_qf_bwd, mo_err[1])
+    err_chol = [max(err_chol[0], mo_err[2]), max(err_chol[1], mo_err[3])]
+    launched, model_mo = run_mo(gpu)
+    paths.append(launched)
+    paths.append(run_mo_restarts(gpu))
+    compare_mo(model_mo)
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
@@ -3940,6 +4239,7 @@ def main():
         iterations=3, messages=0, shrink_inner=False), gpu)
     time_mf(model_mf, gpu)
     time_em(model_em, gpu)
+    time_mo(model_mo, gpu)
     time_engine(gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"

@@ -17,6 +17,7 @@ from .config import (  # noqa: F401
 _EXPORTS = {
     "AR1CoKriging": ("dgp_tpu_torch.models.cokriging", "AR1CoKriging"),
     "NARGP": ("dgp_tpu_torch.models.nargp", "NARGP"),
+    "MultiObjDeepGP": ("dgp_tpu_torch.models.mo_dgp", "MultiObjDeepGP"),
 }
 
 

@@ -8,8 +8,9 @@ that tree of numpy arrays, so both packages compute from the same numbers.
 :func:`numpy_tree_from_port` gives the same tree for the port's own
 ``DGPParams``, so parameters trained in both packages can be compared. A
 multi-fidelity deep GP's ``MFDGPParams`` (:func:`mf_dgp_from_numpy`), its
-Embedded Mapping variant's ``MFDGPEMParams`` (:func:`mf_dgp_em_from_numpy`)
-an exact GP's ``GPRParams`` (:func:`gpr_from_numpy`), AR(1) co-kriging's
+Embedded Mapping variant's ``MFDGPEMParams`` (:func:`mf_dgp_em_from_numpy`),
+the multi-objective deep GP's ``MODGPParams`` (:func:`mo_dgp_from_numpy`,
+the same tree as MF-DGP's), an exact GP's ``GPRParams`` (:func:`gpr_from_numpy`), AR(1) co-kriging's
 ``AR1Params`` (:func:`ar1_from_numpy`) and NARGP's tuple of per-level
 ``GPRParams`` (:func:`nargp_from_numpy`) go the same way.
 
@@ -20,9 +21,10 @@ The tree is plain data::
                  "num_outputs": D, "white": bool, "input_prop_dim": int|None}],
      "likelihood": {"type": "Gaussian", "variance_raw": []}}
 
-where an augmented layer (the multi-fidelity models') holds ``"z_left":
-[M, D_left]`` in place of ``"z"``, and an ``MFDGPEMParams`` adds
-``"layers_red"`` (a list of layers) and ``"likelihood_projection"``.
+where an augmented layer (the multi-fidelity and multi-objective models')
+holds ``"z_left": [M, D_left]`` in place of ``"z"``, and an
+``MFDGPEMParams`` adds ``"layers_red"`` (a list of layers) and
+``"likelihood_projection"``.
 
 with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "lengthscales_raw", "active_dims"}, {"type": "Linear" | "White",
@@ -51,6 +53,7 @@ from .models.cokriging import AR1Params
 from .models.gpr import GPRParams
 from .models.mf_dgp import MFDGPParams
 from .models.mf_dgp_em import MFDGPEMParams
+from .models.mo_dgp import MODGPParams
 from .ops import kernels as K
 from .ops import likelihoods, means
 
@@ -198,20 +201,30 @@ def _layer(t, device, dtype):
     )
 
 
+def _layered(cls, tree, device, dtype):
+    """``cls(layers, likelihood)`` from a tree of numpy arrays."""
+    device = torch.device(device)
+    return cls([_layer(t, device, dtype) for t in tree["layers"]],
+               _likelihood(tree["likelihood"], device, dtype))
+
+
 def dgp_from_numpy(tree: dict, device, dtype) -> DGPParams:
     """The port's ``DGPParams`` from a tree of numpy arrays, on ``device``
     in ``dtype``."""
-    device = torch.device(device)
-    return DGPParams([_layer(t, device, dtype) for t in tree["layers"]],
-                     _likelihood(tree["likelihood"], device, dtype))
+    return _layered(DGPParams, tree, device, dtype)
 
 
 def mf_dgp_from_numpy(tree: dict, device, dtype) -> MFDGPParams:
     """The port's ``MFDGPParams`` (layer 0 plain, the others augmented) from
     a tree of numpy arrays, on ``device`` in ``dtype``."""
-    device = torch.device(device)
-    return MFDGPParams([_layer(t, device, dtype) for t in tree["layers"]],
-                       _likelihood(tree["likelihood"], device, dtype))
+    return _layered(MFDGPParams, tree, device, dtype)
+
+
+def mo_dgp_from_numpy(tree: dict, device, dtype) -> MODGPParams:
+    """The port's ``MODGPParams`` from a tree of numpy arrays (MF-DGP's
+    layout: layer 0 plain, the others augmented), on ``device`` in
+    ``dtype``."""
+    return _layered(MODGPParams, tree, device, dtype)
 
 
 def mf_dgp_em_from_numpy(tree: dict, device, dtype) -> MFDGPEMParams:

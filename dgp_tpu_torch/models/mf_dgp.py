@@ -274,28 +274,42 @@ def minibatch_loss(num_samples: int, batch_sizes: tuple, train_upto: int = -1):
 # -- construction -------------------------------------------------------------
 
 
+def coupled_kernel(Din: int, add_linear=True, dtype=None, device=None):
+    """k_corr * (k_prev + Linear) + k_in on [x, f]: RBFs on x's Din
+    columns (k_corr, k_in) and on the previous output's column Din
+    (k_prev, Linear); without ``add_linear``, k_corr * k_prev + k_in."""
+    f = dict(dtype=dtype, device=device)
+    d_in = tuple(range(Din))
+    d_prev = (Din,)
+    k_corr = K.RBF.create(variance=1.0, active_dims=d_in, **f)
+    k_prev = K.RBF.create(variance=1.0, active_dims=d_prev, **f)
+    k_in = K.RBF.create(variance=1.0, active_dims=d_in, **f)
+    if add_linear:
+        return k_corr * (k_prev + K.Linear.create(
+            variance=1.0, active_dims=d_prev, **f)) + k_in
+    return k_corr * k_prev + k_in
+
+
+def with_white(kernels, variance=1e-6, dtype=None, device=None):
+    """White(variance) added to every kernel but the last (the inner
+    layers' likelihood noise)."""
+    return [kern + K.White.create(variance=variance, dtype=dtype,
+                                  device=device)
+            if i < len(kernels) - 1 else kern
+            for i, kern in enumerate(kernels)]
+
+
 def make_mf_kernels(Din: int, n_fidelities: int, add_linear=True, dtype=None,
                     device=None):
-    """The multi-fidelity composite kernel stack."""
+    """The multi-fidelity composite kernel stack: an ARD RBF on x for
+    fidelity 0, the coupled kernel for the others, White on all but the
+    last."""
     f = dict(dtype=dtype, device=device)
     kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * Din,
                             active_dims=list(range(Din)), **f)]
-    for _ in range(1, n_fidelities):
-        d_in = tuple(range(Din))
-        d_prev = (Din,)
-        k_corr = K.RBF.create(variance=1.0, active_dims=d_in, **f)
-        k_prev = K.RBF.create(variance=1.0, active_dims=d_prev, **f)
-        k_in = K.RBF.create(variance=1.0, active_dims=d_in, **f)
-        if add_linear:
-            k_l = k_corr * (k_prev + K.Linear.create(
-                variance=1.0, active_dims=d_prev, **f)) + k_in
-        else:
-            k_l = k_corr * k_prev + k_in
-        kernels.append(k_l)
-    # White on all but the last layer (inner-fidelity noise)
-    return [kern + K.White.create(variance=1e-6, **f)
-            if i < n_fidelities - 1 else kern
-            for i, kern in enumerate(kernels)]
+    kernels += [coupled_kernel(Din, add_linear, **f)
+                for _ in range(1, n_fidelities)]
+    return with_white(kernels, **f)
 
 
 @ieee_fp32()
@@ -330,6 +344,35 @@ def init_layers_mf(Z: List, kernels, num_outputs=1, generator=None,
                                       dtype=dtype, device=device))
         zs_full.append(z_full)
     return layers
+
+
+@torch.no_grad()
+def init_variational(params, Ys, q_sqrt_scale=1e-2):
+    """The q init recipe, in place: each layer's q_mu <- its Y where the
+    shapes agree (else zeros stay: a custom Z), q_sqrt scaled by
+    ``q_sqrt_scale`` times the population variance of that Y; the
+    likelihood variance <- var(Y_last) * 1e-2."""
+    for layer, y in zip(params.layers, Ys):
+        if layer.q_mu.shape == y.shape:
+            layer.q_mu.copy_(y)
+        layer.q_sqrt.mul_(q_sqrt_scale * torch.var(y, correction=0))
+    set_variance(params.likelihood,
+                 float(torch.var(Ys[-1], correction=0)) * 1e-2)
+
+
+def phase_masks(params):
+    """Frozen sets per training phase: (1) the kernels alone; (2) and the
+    inducing inputs; (3) everything but q (which the natural gradient
+    takes)."""
+    q = {"q_mu", "q_sqrt"}
+    z = {"z", "z_left"}
+    lik = {"likelihood"}
+    m1 = training.make_mask(params, frozen_fields=lik | z,
+                            frozen_layer_fields={"all": q})
+    m2 = training.make_mask(params, frozen_fields=lik,
+                            frozen_layer_fields={"all": q})
+    m3 = training.make_mask(params, frozen_layer_fields={"all": q})
+    return m1, m2, m3
 
 
 # -- stateful wrapper ---------------------------------------------------------
@@ -467,28 +510,10 @@ class MultiFidelityDeepGP:
         """q init recipe: q_mu <- Y_f where the shapes agree, q_sqrt scaled
         by the population variance of Y_f; likelihood variance <-
         var(Y_last) * 1e-2."""
-        for layer, y in zip(self.params.layers, self._Y):
-            if layer.q_mu.shape == y.shape:
-                layer.q_mu.copy_(y)
-            # else (custom Z): keep zeros
-            layer.q_sqrt.mul_(q_sqrt_scale * torch.var(y, correction=0))
-        set_variance(self.params.likelihood,
-                     float(torch.var(self._Y[-1], correction=0)) * 1e-2)
+        init_variational(self.params, self._Y, q_sqrt_scale)
 
     def _phase_masks(self):
-        """Frozen sets per phase: (1) the kernels alone; (2) and the
-        inducing inputs; (3) everything but q (which the natural gradient
-        takes)."""
-        q = {"q_mu", "q_sqrt"}
-        z = {"z", "z_left"}
-        lik = {"likelihood"}
-        m1 = training.make_mask(self.params, frozen_fields=lik | z,
-                                frozen_layer_fields={"all": q})
-        m2 = training.make_mask(self.params, frozen_fields=lik,
-                                frozen_layer_fields={"all": q})
-        m3 = training.make_mask(self.params,
-                                frozen_layer_fields={"all": q})
-        return m1, m2, m3
+        return phase_masks(self.params)
 
     def _checkpoint_fn(self, checkpoint_path):
         return (training.make_checkpoint_fn(checkpoint_path)

@@ -54,7 +54,9 @@ from .mf_dgp import (
     _source,
     _weighted_data_term,
     _white_variance,
+    coupled_kernel,
     set_variance,
+    with_white,
 )
 
 
@@ -345,22 +347,9 @@ def make_mf_em_kernels(X: Sequence, add_linear=True, dtype=None, device=None):
     Din0 = np.asarray(X[0]).shape[1]
     kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * Din0,
                             active_dims=list(range(Din0)), **f)]
-    for l in range(1, n_fidelities):
-        Din = np.asarray(X[l]).shape[1]
-        d_in = tuple(range(Din))
-        d_prev = (Din,)
-        k_corr = K.RBF.create(variance=1.0, active_dims=d_in, **f)
-        k_prev = K.RBF.create(variance=1.0, active_dims=d_prev, **f)
-        k_in = K.RBF.create(variance=1.0, active_dims=d_in, **f)
-        if add_linear:
-            k_l = k_corr * (k_prev + K.Linear.create(
-                variance=1.0, active_dims=d_prev, **f)) + k_in
-        else:
-            k_l = k_corr * k_prev + k_in
-        kernels.append(k_l)
-    kernels = [kern + K.White.create(variance=1e-6, **f)
-               if i < n_fidelities - 1 else kern
-               for i, kern in enumerate(kernels)]
+    kernels += [coupled_kernel(np.asarray(X[l]).shape[1], add_linear, **f)
+                for l in range(1, n_fidelities)]
+    kernels = with_white(kernels, **f)
     kernels_red = [
         K.RBF.create(variance=1.0,
                      lengthscales=[1.0] * np.asarray(X[-(l + 1)]).shape[1],

@@ -846,6 +846,44 @@ def test_em_dgp_goes_through_the_kernels(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", chip_smoke.MO_QUADFORM)
+def test_quadform_kernels_at_the_mo_shapes(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 at the multi-objective model's shapes (D = 1,
+    M = 10, n from 100 to 250,000), held as in
+    test_quadform_kernels_match_plain."""
+    chip_smoke.check_quadform(D, M, n, with_t1, M + n % 97)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, M + n % 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cholesky_kernels_on_the_mo_kuu(cuda, inverse):
+    """Kernels #7 and #8 on the MO model's own Kuu stacks ([1, 10, 10] and
+    [2, 10, 10], layer 1's at the recomputed augmented Z), held to their
+    float64 twins under the float32 jitter."""
+    for name, stack in chip_smoke.mo_kuu():
+        assert chip_smoke.check_cholesky(stack[0].shape[0],
+                                         stack[0].shape[-1], 0, inverse,
+                                         kuu=name, stack=stack) < 1.0
+
+
+@pytest.mark.cuda
+def test_mo_dgp_loss_and_gradient_kernels_on_vs_off(cuda):
+    """The MO model (multi_obj_1D_4, loop 2) on the card: built with #7 per
+    layer and one Z_right; one loss and its gradient on fixed normals
+    launches #5 fifteen times, #6 fourteen, #8 six (mo_expected_counts)
+    and equals the kernels-off loss and gradient under the witness rule;
+    a request likewise, held to float64 (chip_smoke.compare_mo), off the
+    prior (_init_variational, as training starts)."""
+    chip_smoke.zero_counts()
+    model = chip_smoke.mo_model()
+    assert chip_smoke.counts() == chip_smoke.mo_expected_counts(built=1)
+    model._init_variational()
+    chip_smoke.compare_mo(model)
+
+
+@pytest.mark.cuda
 def test_cholesky_kernel_on_the_exact_mf_grams(cuda):
     """Kernel #7 on the Gram stacks the exact surrogates' multi-start engine
     factors at its first step (8 starts: the borehole pair's AR(1) joint

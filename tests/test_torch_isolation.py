@@ -18,6 +18,7 @@ from dgp_tpu_torch.models import gpr as TGPR
 from dgp_tpu_torch.models.cokriging import AR1CoKriging
 from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
 from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
+from dgp_tpu_torch.models.mo_dgp import MultiObjDeepGP
 from dgp_tpu_torch.models.nargp import NARGP
 from dgp_tpu_torch.ops import conditional_fused as TCF
 from dgp_tpu_torch.ops import conditionals as TC
@@ -57,7 +58,8 @@ def test_no_jax_imports_in_port():
             "../compat_torch/validate_mf_dgp_em.py", "models/cokriging.py",
             "models/nargp.py",
             "../compat_torch/validate_mf_bo_bakeoff_fit.py", "bo/mf_bo.py",
-            "../compat_torch/validate_mf_bo.py"} <= rel
+            "../compat_torch/validate_mf_bo.py", "models/mo_dgp.py",
+            "bo/problems.py", "../compat_torch/validate_mo_dgp.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -131,6 +133,13 @@ mf_bo = MF_BO(fidelities=[forrester_low, forrester_high], DoE_sizes=(6, 3),
               seed=0, device="cpu")
 assert len(mf_bo.run(1, popsize_DE=8, iterations_DE=3, num_samples=3,
                      verbose=False)) == 2
+from dgp_tpu_torch import MultiObjDeepGP
+from dgp_tpu_torch.bo.problems import multi_obj_1D_4
+Xo = rng.uniform(size=(5, 1))
+Fo = np.array([np.ravel(multi_obj_1D_4().fun(x)) for x in Xo])
+mo = MultiObjDeepGP([Xo, Xo.copy()], [Fo[:, :1], Fo[:, 1:]], loop=1,
+                    num_samples=2, device="cpu")
+assert bool(torch.isfinite(mo.ELBO()))
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -179,6 +188,11 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
     em = MultiFidelityDeepGP_EM(Xe, Ym, [Xe[1][:, :1]], dtype=torch.float64,
                                 device="cpu")
     assert em.params.layers_red[0].z.device == torch.device("cpu")
+    Xo, Yo = [X, X.copy()], [X, np.sin(X)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiObjDeepGP(Xo, Yo, dtype=torch.float64)
+    mo = MultiObjDeepGP(Xo, Yo, dtype=torch.float64, device="cpu")
+    assert mo.params.layers[1].z_left.device == torch.device("cpu")
     for cls in (AR1CoKriging, NARGP):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls((Xm, Ym), dtype=torch.float64)

@@ -529,9 +529,10 @@ def test_init_variational_matches_reference():
         close(got[lik]["variance_raw"], want[lik]["variance_raw"])
 
 
-def staged(monkeypatch, model, method, training_module, empty):
+def staged(monkeypatch, model, method, training_module, empty, **options):
     """(mask, names of the natural gradient's q pairs) of each phase of
-    ``method``, with the training loops stubbed to return at once."""
+    ``method`` (called with ``options``), with the training loops stubbed
+    to return at once."""
     seen = []
 
     def adam_run(loss_fn, params, mask, *args, **kwargs):
@@ -544,7 +545,7 @@ def staged(monkeypatch, model, method, training_module, empty):
 
     monkeypatch.setattr(training_module, "adam_run", adam_run)
     monkeypatch.setattr(training_module, "nat_adam_run", nat_adam_run)
-    getattr(model, method)(messages=0)
+    getattr(model, method)(messages=0, **options)
     return seen
 
 

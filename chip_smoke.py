@@ -218,7 +218,37 @@ Phases, each of which raises (exit code 1) on any fault:
              candidate's, the launches reckoned per schedule; the request
              and the loss gradient (layer 0's z and z_left's nonzero) with
              the kernels on and off (the witness rule) and against float64.
-11. timing — CUDA-event times of every kernel and of its plain version at
+11. mo_bo   — the multi-objective BO driver through the port's MO_BO on
+             the card in float32 (multi_obj_1D_4 at 10 LHS points, seed 0,
+             n_bucket 8): #5/#6 at its shapes (D = 1, M = 16 by n = 80,
+             200, 800, 1,600, 12,000 and 300,000) with the repeat and NaN
+             runs, #7/#8 on its stacks (the coupled model's Kuu [1, 16, 16]
+             and [2, 16, 16], a DGP's [2, 16, 16], a GPR's padded Gram
+             [1, 16, 16]) against their float64 twins; the native Pareto
+             sweep built and its front on a 4,096-row archive the numpy
+             loop's, in its order both ways; the default GPR pair cut to 300 Adam steps, DE 60 x 40
+             then 50 Adam steps at S 200: three infills (the second a batch
+             of two, the third by suggest() and observe()), a save and a
+             load, and one more infill of the loaded loop bit for bit the
+             unsaved loop's; one constrained infill on bnh (EHVI x PoF, its
+             constraint GPRs cut to 300 steps) and one on an all-infeasible
+             srn DoE (the PoF-only bootstrap); one infill of the coupled
+             MO-DGP (schedule (20, 0, 0), restarts=1) and a batch of two of
+             the DGP pair (schedule (20, 0); the lie's 200-step warm refit).
+             Each infill's seconds split into surrogate fit, constraint
+             fits, DE, Adam and lies; the archives real evaluations only,
+             the hypervolume never falling and ending above its start (the
+             GPR pair); the launches of #5-#8 equal to those reckoned from
+             the loop's recorded operations (recorded_mo_loop,
+             reckon_mo_loop); at four batch states EHVI of 1,000 fixed rows
+             on fixed unit normals by each estimator (and, constrained,
+             -(EHVI x PoF)) with the kernels on and off and against float64
+             (the plain versions' term capped at 1e-2, the GPR pair's at
+             5e-2);
+             the ms of one EHVI evaluation of 300 rows at S 1,000 of each
+             form; the device idle share of one GPR pair infill; one uncut
+             default infill (2,000 Adam steps, DE 300 x 400, Adam 1,000).
+12. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -401,6 +431,40 @@ MO_THRESHOLD = 0.9           # optimize_nat_adam's restart_threshold
 # the restart score's conditionals), 100 x 10 (Z_right at init) and
 # 250 x 1,000 (a request)
 MO_QUADFORM = [(1, 10, 100), (1, 10, 500), (1, 10, 1_000), (1, 10, 250_000)]
+# the multi-objective BO driver (phase 11): MO_BO on multi_obj_1D_4 at 10
+# LHS points (seed 0, n_bucket 8); its default GPR pair cut from 2,000 Adam
+# steps to 300 (the constraint GPRs on bnh too), the search from DE
+# 300 x 400 (S 1,000) to DE 60 x 40 then 50 Adam steps at S 200; the
+# coupled MO-DGP (no 'type': loop 2, 5 samples) at schedule (20, 0, 0)
+# (default (100, 0, 0)) with restarts=1; the DGP pair (one hidden layer,
+# 5 samples) at (20, 0) (default (100, 0)), its lies' warm refit at the
+# default 200 steps
+MOBO_N, MOBO_SEED, MOBO_STEPS = 10, 0, 300
+MOBO_GPR = {"type": "independent", "num_layers": 0, "kernels": "rbf",
+            "iterations": MOBO_STEPS}
+MOBO_CON = {"kernels": "rbf", "iterations": MOBO_STEPS}
+MOBO_COUPLED = {"schedule": (20, 0, 0), "restarts": 1}
+MOBO_DGP = {"type": "independent", "num_layers": 1, "kernels": "rbf",
+            "schedule": (20, 0)}
+MOBO_RUN = dict(method="DE+Adam", popsize_DE=60, iterations_DE=40,
+                iterations_adam=50, S=200, verbose=False)
+MOBO_UNCUT = dict(method="DE+Adam", popsize_DE=300, iterations_DE=400,
+                  iterations_adam=1000, S=1000, verbose=False)
+MOBO_ROWS, MOBO_EHVI_S = 1_000, 200   # the on-vs-off checks' rows, samples
+# the cap on the plain versions' term of the GPR pair's EHVI checks: near
+# the archive's rows a GPR's posterior variance is ~1e-4 and its Gram's
+# condition number ~1e5, so float32 EHVI is itself ~1e-2 of the largest
+# value off float64 whichever factorization runs (1.06e-2 on an H100, the
+# kernels on vs off 1.12e-2); WITNESS_CAP for every other state
+MOBO_GPR_CAP = 5e-2
+MOBO_ESTIMATORS = [("None", False), ("Gaussian", False), ("Gaussian", True),
+                   ("KDE", False)]
+# its quadform shapes (D, M, n), D = 1 and M = 16 (the padded inducing
+# rows): a training loss (5 samples x 16 rows), an Adam step's EHVI
+# (200 x 1), a Z_right (50 x 16) and the init's (100 x 16), a DE
+# generation's EHVI (200 x 60) and the uncut one's (1,000 x 300)
+MOBO_QUADFORM = [(1, 16, 80), (1, 16, 200), (1, 16, 800), (1, 16, 1_600),
+                 (1, 16, 12_000), (1, 16, 300_000)]
 DEVICE = "cuda"
 
 
@@ -1438,10 +1502,11 @@ def compare_factorizations(model, gradients=False):
                        f"library", names, ref, arms["kernels"], arms["plain"])
 
 
-def hold_to_f64(what, names, ref, kernels, library):
+def hold_to_f64(what, names, ref, kernels, library, cap=WITNESS_CAP):
     """Each output of the kernels' arm within TOL_REQUEST of its float64
     reference's scale plus twice the library arm's own error (the witness
-    rule of the #3 checks), that second term capped at WITNESS_CAP; returns
+    rule of the #3 checks), that second term capped at ``cap``
+    (WITNESS_CAP unless a caller's state needs another); returns
     the largest error of the kernels' arm. The reference is the same
     function: computed under f64_twin, with the float32 jitter."""
     worst, report = 0.0, []
@@ -1449,14 +1514,14 @@ def hold_to_f64(what, names, ref, kernels, library):
         scale = float(r.abs().max()) or 1.0
         ek = float((k.double() - r).abs().max()) / scale
         ep = float((p.double() - r).abs().max()) / scale
-        limit = TOL_REQUEST + min(2 * ep, WITNESS_CAP)
+        limit = TOL_REQUEST + min(2 * ep, cap)
         report.append(f"{name} {ek:.2e} (library {ep:.2e})")
         if not ek <= limit:
             raise AssertionError(f"{what}: {name} off float64 by {ek:.2e} of "
                                  f"scale, limit {limit:.2e}")
         worst = max(worst, ek)
     log(f"{what}, err / max|f64| (limit {TOL_REQUEST} + 2x the library's, "
-        f"at most {WITNESS_CAP}): {', '.join(report)}")
+        f"at most {cap}): {', '.join(report)}")
     return worst
 
 
@@ -2836,16 +2901,50 @@ def surrogate_launches(kind, op, n_fid=2, f=0, steps=0):
 
 
 @contextlib.contextmanager
+def wrap_methods(rec, targets):
+    """While the scope lasts, each (owner, name, fn, key) of ``targets`` puts
+    ``fn`` (None: the original) in owner.name, its seconds added to
+    rec["s"][key] where a key is given; on exit an instance's wrapper is
+    deleted and a module's function put back. Yields ``rec``."""
+    saved = [(owner, name, vars(owner).get(name, _UNSET))
+             for owner, name, _, _ in targets]
+
+    def timed_as(fn, key):
+        def run(*args, **kwargs):
+            out, dt = timed(lambda: fn(*args, **kwargs))
+            rec["s"][key] += dt
+            return out
+        return run
+
+    for owner, name, fn, key in targets:
+        fn = fn or getattr(owner, name)
+        setattr(owner, name, fn if key is None else timed_as(fn, key))
+    try:
+        yield rec
+    finally:
+        for owner, name, old in saved:
+            if old is _UNSET:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+
+
+_UNSET = object()
+
+
 def recorded_loop(bo):
     """Record what the loop ``bo`` does while the scope lasts: ``ops``, the
     operations the launch reckoning counts ((what, kind, fidelity, steps)),
     the seconds of its steps (``s``: surrogate fit, constraint fits,
     fidelity rule, lies; the acquisition is the rest of an infill) and each
     fresh batch state (``states``). The instance's methods are wrapped and
-    restored on exit."""
+    restored on exit (wrap_methods)."""
     kind = bo.model_dic.get("type", "mf_dgp")
     rec = {"ops": [], "s": dict(fit=0.0, con=0.0, rule=0.0, lie=0.0),
            "states": []}
+    methods = {name: getattr(bo, name) for name in (
+        "_fit_model", "_make_train_con_models", "_fidelity_sigma",
+        "_select_fidelity", "_lie_value", "_lie_at", "_fresh_batch_state")}
 
     def fit(Ys_n, seed):
         if kind in ("ar1", "nargp"):
@@ -2887,28 +2986,13 @@ def recorded_loop(bo):
         rec["states"].append(st)
         return st
 
-    wrappers = {"_fit_model": (fit, "fit"),
-                "_make_train_con_models": (con_fits, "con"),
-                "_fidelity_sigma": (sigma, None),
-                "_select_fidelity": (select, "rule"),
-                "_lie_value": (lie_value, None), "_lie_at": (lie_at, "lie"),
-                "_fresh_batch_state": (fresh, None)}
-    methods = {name: getattr(bo, name) for name in wrappers}
-
-    def timed_as(fn, key):
-        def run(*args, **kwargs):
-            out, dt = timed(lambda: fn(*args, **kwargs))
-            rec["s"][key] += dt
-            return out
-        return run
-
-    for name, (fn, key) in wrappers.items():
-        setattr(bo, name, fn if key is None else timed_as(fn, key))
-    try:
-        yield rec
-    finally:
-        for name in wrappers:
-            delattr(bo, name)
+    return wrap_methods(rec, [
+        (bo, "_fit_model", fit, "fit"),
+        (bo, "_make_train_con_models", con_fits, "con"),
+        (bo, "_fidelity_sigma", sigma, None),
+        (bo, "_select_fidelity", select, "rule"),
+        (bo, "_lie_value", lie_value, None), (bo, "_lie_at", lie_at, "lie"),
+        (bo, "_fresh_batch_state", fresh, None)])
 
 
 def reckon_loop(bo, ops):
@@ -2955,48 +3039,69 @@ def check_archives(tag, bo, n0):
                              f"{[len(x) for x in bo.X]} from {n0}")
 
 
-def infill(tag, bo, rec, step, gpu):
-    """One infill of ``bo`` by ``step()``, logged: its seconds split into
-    surrogate fit, constraint fits, acquisition, fidelity rule and lies
-    (recorded_loop), its #7 launches, its fidelities and the best value."""
-    before, s0, k0 = counts(), dict(rec["s"]), len(bo.fidelity_choices)
-    _, dt = timed(step)
-    part = {k: rec["s"][k] - s0[k] for k in s0}
-    acquisition = dt - sum(part.values())
-    log(f"[mf_bo] {tag}: {dt:.3f} s: surrogate fit {part['fit']:.3f}, "
-        f"constraint fits {part['con']:.3f}, acquisition {acquisition:.3f}, "
-        f"fidelity rule {part['rule']:.3f}, lies {part['lie']:.3f}; #7 "
-        f"launches {counts()[6] - before[6]}; fidelities "
-        f"{bo.fidelity_choices[k0:]}, best {bo.best_trace[-1]:.6f}, cost "
-        f"{bo.cost_spent:.2f} ({gpu})")
+def drive_loop(phase, tag, bo, steps, gpu, record, note, reckon, check, used,
+               summary):
+    """Drive ``bo`` through ``steps`` (one callable an infill) inside
+    ``record(bo)`` (the loop's recorder: it yields rec, the loop's operations
+    and the seconds of its steps), with the launches zeroed just before and
+    read just after. ``note(bo)``, called before an infill, returns the
+    function that words its log line from (seconds, the split of rec["s"],
+    #7 launches); then ``check()`` holds the loop's bookkeeping, the
+    launches must equal ``reckon(rec)`` and those of the kernels
+    ``used(rec)`` none be zero; ``summary()`` words the loop's result.
+    Returns (the launches, rec)."""
+    zero_counts()
+    with record(bo) as rec:
+        for j, step in enumerate(steps):
+            before, s0, line = counts(), dict(rec["s"]), note(bo)
+            _, dt = timed(step)
+            part = {k: rec["s"][k] - s0[k] for k in s0}
+            log(f"[{phase}] {tag} infill {j}: "
+                f"{line(dt, part, counts()[6] - before[6])} ({gpu})")
+    launched, expect = counts(), reckon(rec)
+    check()
+    log(f"[{phase}] {tag}: {summary()}; launches {COUNTED} {launched}, "
+        f"reckoned {expect} ({gpu})")
+    if launched != expect or min(launched[k] for k in used(rec)) < 1:
+        raise AssertionError(f"[{phase}] {tag}: launches {launched}, reckoned "
+                             f"{expect}")
+    return launched, rec
 
 
 def drive(tag, bo, steps, gpu, floor=None):
-    """Drive ``bo`` through ``steps`` (one callable an infill) with its
-    launches zeroed just before and read just after: bookkeeping as
-    check_archives, the best trace at or above ``floor``, the launches equal
-    to those reckoned from the loop (reckon_loop) and those of the kernels
-    its surrogate runs nonzero (#7 for every kind, #5, #6 and #8 for the
-    variational ones). Returns (the launches, the loop's batch states)."""
+    """drive_loop for an MF_BO loop: each infill's seconds split into
+    surrogate fit, constraint fits, acquisition, fidelity rule and lies
+    (recorded_loop), with its #7 launches, fidelities and best value;
+    bookkeeping as check_archives, the best trace at or above ``floor``, the
+    launches equal to those reckoned from the loop (reckon_loop) and those
+    of the kernels its surrogate runs nonzero (#7 for every kind, #5, #6 and
+    #8 for the variational ones). Returns (the launches, the loop's batch
+    states)."""
     kind = bo.model_dic.get("type", "mf_dgp")
     n0 = [len(x) for x in bo.X]
-    zero_counts()
-    with recorded_loop(bo) as rec:
-        for j, step in enumerate(steps):
-            infill(f"{tag} infill {j}", bo, rec, step, gpu)
-    launched, expect = counts(), reckon_loop(bo, rec["ops"])
-    check_archives(tag, bo, n0)
-    if floor is not None and not min(bo.best_trace) >= floor:
-        raise AssertionError(f"[mf_bo] {tag}: best {bo.best_trace} below "
-                             f"the minimum {floor}")
+
+    def note(bo):
+        k0 = len(bo.fidelity_choices)
+        return lambda dt, part, n7: (
+            f"{dt:.3f} s: surrogate fit {part['fit']:.3f}, constraint fits "
+            f"{part['con']:.3f}, acquisition {dt - sum(part.values()):.3f}, "
+            f"fidelity rule {part['rule']:.3f}, lies {part['lie']:.3f}; #7 "
+            f"launches {n7}; fidelities {bo.fidelity_choices[k0:]}, best "
+            f"{bo.best_trace[-1]:.6f}, cost {bo.cost_spent:.2f}")
+
+    def check():
+        check_archives(tag, bo, n0)
+        if floor is not None and not min(bo.best_trace) >= floor:
+            raise AssertionError(f"[mf_bo] {tag}: best {bo.best_trace} below "
+                                 f"the minimum {floor}")
+
     used = (6,) if kind in ("ar1", "nargp") else (4, 5, 6, 7, 10)
-    log(f"[mf_bo] {tag}: best trace "
-        f"{np.array2string(np.asarray(bo.best_trace), precision=6)}, "
-        f"fidelities {bo.fidelity_choices}, cost {bo.cost_spent:.2f}; "
-        f"launches {COUNTED} {launched}, reckoned {expect} ({gpu})")
-    if launched != expect or min(launched[k] for k in used) < 1:
-        raise AssertionError(f"[mf_bo] {tag}: launches {launched}, reckoned "
-                             f"{expect}")
+    launched, rec = drive_loop(
+        "mf_bo", tag, bo, steps, gpu, recorded_loop, note,
+        lambda rec: reckon_loop(bo, rec["ops"]), check, lambda rec: used,
+        lambda: (f"best trace "
+                 f"{np.array2string(np.asarray(bo.best_trace), precision=6)}, "
+                 f"fidelities {bo.fidelity_choices}, cost {bo.cost_spent:.2f}"))
     return launched, rec["states"]
 
 
@@ -3069,26 +3174,34 @@ def compare_mf_bo(tag, bo, st):
     with f64_twin():
         ref = arm(copy.deepcopy(model.params).double(), torch.float64)
     names = ["sigma_0"] + [f"lie at fidelity {f}" for f in range(bo.n_fid)]
-    report = []
-    for name, a, b, r in zip(names, on, plain, ref):
-        err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
-        own = float((b - r).abs().max()) / (float(r.abs().max()) or 1.0)
-        limit = TOL_REQUEST + min(2 * own, WITNESS_CAP)
-        report.append(f"{name} {err:.2e} (limit {limit:.2e})")
-        if not err <= limit:
-            raise AssertionError(f"[mf_bo] {tag}: {name} differs with the "
-                                 f"kernels off by {err:.2e}, limit {limit:.2e}")
-    log(f"[mf_bo] {tag}: fidelity rule and believer lies over {MFBO_ROWS} "
-        f"rows, kernels on vs off, err / max|off| (tol {TOL_REQUEST} + 2x "
-        f"off's own error against float64, at most {WITNESS_CAP}): "
-        + ", ".join(report))
+    hold_on_vs_off(f"[mf_bo] {tag}: fidelity rule and believer lies over "
+                   f"{MFBO_ROWS} rows", names, on, plain, ref)
     hold_to_f64(f"[mf_bo] {tag}: fidelity rule and believer lies, the kernels "
                 f"vs the plain versions", names, ref, on, plain)
 
 
-def idle_share(what, fn, gpu):
+def hold_on_vs_off(what, names, on, plain, ref, cap=WITNESS_CAP):
+    """Each output with the kernels on finite and within TOL_REQUEST of the
+    plain versions' largest |value| plus twice the plain versions' own
+    error against the float64 twin ``ref``, that term at most ``cap``."""
+    report = []
+    for name, a, b, r in zip(names, on, plain, ref):
+        err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+        own = float((b - r).abs().max()) / (float(r.abs().max()) or 1.0)
+        limit = TOL_REQUEST + min(2 * own, cap)
+        report.append(f"{name} {err:.2e} (limit {limit:.2e})")
+        if not (err <= limit and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"{what}: {name} differs with the kernels "
+                                 f"off by {err:.2e}, limit {limit:.2e}")
+    log(f"{what}, kernels on vs off, err / max|off| (tol {TOL_REQUEST} + 2x "
+        f"off's own error against float64, at most {cap}): "
+        + ", ".join(report))
+
+
+def idle_share(what, fn, gpu, tag="mf_bo"):
     """The device's idle share over one run of ``fn`` under torch.profiler
-    (CUDA activity only: an infill makes ~10^5 launches)."""
+    (CUDA activity only: an infill makes ~10^5 launches), logged under
+    ``tag``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3097,12 +3210,12 @@ def idle_share(what, fn, gpu):
               if str(e.device_type).endswith("CUDA")
               and e.self_device_time_total > 0]
     if not device:
-        log(f"[mf_bo] {what}: the profiler saw no device time: idle share "
+        log(f"[{tag}] {what}: the profiler saw no device time: idle share "
             f"not measured")
         return
     busy = sum(e.self_device_time_total for e in device) / 1e3
     launches = sum(e.count for e in device)
-    log(f"[mf_bo] {what} under the profiler: wall {1e3 * wall:.1f} ms, device "
+    log(f"[{tag}] {what} under the profiler: wall {1e3 * wall:.1f} ms, device "
         f"busy {busy:.1f} ms over {launches} device operations, idle "
         f"{1 - busy / (1e3 * wall):.1%} ({gpu})")
 
@@ -3435,7 +3548,582 @@ def time_mo(model, gpu):
                 model, mo_request_rows(), gpu)
 
 
-# -- phase 11 -------------------------------------------------------------------
+# -- phase 11: the multi-objective BO driver ----------------------------------------
+
+
+def mo_bo_models():
+    """Untrained surrogates of the mo_bo phase's three forms, as MO_BO builds
+    them on the multi_obj_1D_4 DoE (MOBO_N points, seed MOBO_SEED, bucket
+    8): the coupled MultiObjDeepGP (Z padded from 10 to 16 rows), the DGP
+    pair (Z = X padded to 16) and the GPR pair (rows padded to 16)."""
+    from dgp_tpu_torch.bo.mo_bo import MO_BO
+    from dgp_tpu_torch.bo.problems import get
+
+    out = {}
+    for name, spec in (("mo_dgp", MOBO_COUPLED), ("two_dgp", MOBO_DGP),
+                       ("two_gpr", MOBO_GPR)):
+        bo = MO_BO(problem=get("multi_obj_1D_4"), DoE_size=MOBO_N,
+                   model_dic=spec, seed=MOBO_SEED, device=DEVICE)
+        out[name] = bo.make_model(*bo._normalized()[:2], seed=0)
+    return out
+
+
+def gpr_gram_twins(model):
+    """(A, A64): a GPR's noise-augmented padded Gram [1, n_pad, n_pad] at
+    its train_data, and its float64 twin under the float32 jitter."""
+    import copy
+
+    from dgp_tpu_torch.models import gpr
+
+    X, _, w = model.train_data
+    with torch.no_grad():
+        A = gpr._masked_gram(model.params, X, w)[None]
+        with f64_twin():
+            A64 = gpr._masked_gram(copy.deepcopy(model.params).double(),
+                                   X.double(), w.double())[None]
+    return A, A64
+
+
+def mo_bo_stacks():
+    """[(name, (A, A64), inverses)]: the mo_bo path's stacks with their
+    float64 twins (kuu_twins, gpr_gram_twins), and which of #7 (False) and
+    #8 (True) factor each: the coupled model's Kuu [1, 16, 16] (layer 0, as
+    each Z_right factors it) and [2, 16, 16] (both layers at the recomputed
+    inducing inputs), a DGP's Kuu [2, 16, 16] (#7 builds each layer's
+    q_sqrt, #8 projects both) and a GPR's padded Gram [1, 16, 16] (#7)."""
+    from dgp_tpu_torch.models.mf_dgp import compute_full_zs
+
+    models = mo_bo_models()
+    params = models["mo_dgp"].params
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    with torch.no_grad():
+        zs = compute_full_zs(params.layers, gen, pad_cols=1)
+    dgp = models["two_dgp"][0].params.layers
+    both = (False, True)
+    return [("MO_BO coupled layer 0",
+             kuu_twins([params.layers[0]], [zs[0]]), both),
+            ("MO_BO coupled layers 0 and 1",
+             kuu_twins(list(params.layers), zs), both),
+            ("MO_BO DGP", kuu_twins(list(dgp), [l.z for l in dgp]), both),
+            ("MO_BO GPR Gram", gpr_gram_twins(models["two_gpr"][0]),
+             (False,))]
+
+
+def check_mo_bo_kernels():
+    """#5 and #6 at the path's shapes (MOBO_QUADFORM: D = 1 and M = 16, the
+    padded inducing rows), with and without t1, with the repeat and NaN
+    runs; #7 and #8 on its stacks (mo_bo_stacks), held to their float64
+    twins. Returns the largest errors [#5, #6, #7, #8]."""
+    err = [0.0] * 4
+    for seed, (D, Mi, n) in enumerate(MOBO_QUADFORM):
+        for with_t1 in (False, True):
+            err[0] = max(err[0], check_quadform(D, Mi, n, with_t1, 430 + seed))
+            err[1] = max(err[1], check_quadform_backward(D, Mi, n, with_t1,
+                                                         480 + seed))
+    for name, stack, inverses in mo_bo_stacks():
+        for inverse in inverses:
+            err[2 + inverse] = max(err[2 + inverse], check_cholesky(
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack))
+    return err
+
+
+def mobo_launches(kind, op, steps=0):
+    """counts() of one operation of an MO_BO surrogate: ``kind`` "gpr" (one
+    exact GPR), "dgp" (one DGP of two non-whitened layers of M = 16, one
+    (M, white) group) or "mo_dgp" (the coupled model at loop MO_LOOP,
+    mo_expected_counts). ``op``: "fit", built and trained for ``steps``
+    losses with their gradient (a GPR factors its Gram once a step; a DGP
+    is built through #7 per layer, and a loss runs #8 once, #5 and #6 per
+    layer); "loss", one loss with its gradient (a lie's warm refit step);
+    "request", one prediction (an EHVI evaluation's moments, a believer
+    mean); "grad request", one with the gradient in x (an Adam step's
+    evaluation: #6 once per conditional on x, none for the coupled model's
+    Z_right, which x does not reach)."""
+    if kind == "gpr":
+        return launch_vector(c7=steps if op == "fit" else 1)
+    if kind == "dgp":
+        n = steps if op == "fit" else 1
+        grad = op != "request"
+        return launch_vector(c5=2 * n, c6=2 * n if grad else 0,
+                             c7=2 if op == "fit" else 0, c8=n)
+    if op == "fit":
+        return mo_expected_counts(built=1, losses=steps)
+    if op == "loss":
+        return mo_expected_counts(losses=1)
+    c = 2 * MO_LOOP + 2 + (MO_LOOP == 0)
+    request = mo_expected_counts(requests=1)
+    return add_counts(request, launch_vector(c6=c)) if op == "grad request" \
+        else request
+
+
+def ehvi_evaluation(kind, n_con, grad=False, front=True):
+    """counts() of one acquisition evaluation: the form's moments (two_gpr:
+    two GPR requests, two_dgp: two DGP requests, mo_dgp: one coupled
+    request; none for the PoF-only bootstrap, ``front`` false) and one
+    predict_y of each constraint GPR."""
+    op = "grad request" if grad else "request"
+    parts = [mobo_launches("gpr", "request")] * n_con
+    if front:
+        if kind == "mo_dgp":
+            parts.append(mobo_launches("mo_dgp", op))
+        else:
+            parts += [mobo_launches(kind[4:], op)] * 2
+    return add_counts(*parts) if parts else launch_vector()
+
+
+@contextlib.contextmanager
+def recorded_mo_loop(bo):
+    """Record what the MO_BO loop ``bo`` does while the scope lasts: ``ops``,
+    the operations the launch reckoning counts (("fit", kind, steps),
+    ("loss" | "request", kind, count), ("pick", form, front, n_con, DE
+    evaluations, Adam evaluations with the gradient, without)); ``s``, the
+    seconds of its steps (surrogate fit, constraint fits, DE, Adam, lies;
+    the rest of an infill is the host's bookkeeping); ``states``, each fresh
+    batch state; ``guards``, the natural-gradient guard's evaluations
+    (guard_evaluations). The instance's methods, MO_BO's optimize_EHVI and
+    DE's minimize and adam_refine are wrapped and restored on exit
+    (wrap_methods)."""
+    from dgp_tpu_torch.bo import de
+    from dgp_tpu_torch.bo import mo_bo as mo_bo_mod
+    from dgp_tpu_torch.bo.ehvi import _mo_model_state
+
+    rec = {"ops": [], "s": dict(fit=0.0, con=0.0, de=0.0, adam=0.0, lie=0.0),
+           "states": []}
+    methods = {name: getattr(bo, name) for name in (
+        "_train_model", "_make_train_con_models", "_fantasy_objectives",
+        "_lie_at", "_fresh_batch_state")}
+    optimize_EHVI = mo_bo_mod.optimize_EHVI
+
+    def train(model, sched, restarts):
+        if isinstance(model, list):
+            for m in model:
+                if m.name == "gpr":
+                    steps = int(bo.model_dic.get("iterations", 2000))
+                else:
+                    if sched[1]:
+                        raise AssertionError("[mo_bo] the DGP pair's launches "
+                                             "are reckoned for Adam alone")
+                    steps = sched[0]
+                rec["ops"].append(("fit", m.name, steps))
+        else:
+            n1, n2, n3 = sched
+            rec["ops"].append(("fit", "mo_dgp", n1 + n2 + 2 * n3))
+        return methods["_train_model"](model, sched, restarts)
+
+    def con_fits(Xn):
+        if bo.n_con:
+            steps = int(bo.model_C_dic.get("iterations", 2000))
+            rec["ops"] += [("fit", "gpr", steps)] * bo.n_con
+        return methods["_make_train_con_models"](Xn)
+
+    def believer(model, x_n):
+        if isinstance(model, list):
+            rec["ops"] += [("request", m.name, 1) for m in model]
+        else:
+            rec["ops"].append(("request", "mo_dgp", 2))
+        return methods["_fantasy_objectives"](model, x_n)
+
+    def lie_at(st, x_n, lie_train_iterations):
+        model = st["model"]
+        if isinstance(model, list) and model[0].name == "dgp":
+            steps = 200 if lie_train_iterations is None else lie_train_iterations
+            rec["ops"].append(("loss", "dgp", 2 * steps))
+        # each constraint's believer mean: the feasibility row and the lie
+        rec["ops"].append(("request", "gpr", 2 * bo.n_con))
+        return methods["_lie_at"](st, x_n, lie_train_iterations)
+
+    def fresh(it):
+        st = methods["_fresh_batch_state"](it)
+        rec["states"].append(st)
+        return st
+
+    def optimize(model, YND, **kw):
+        method = kw.get("method", "DE")
+        de_evals = 1 + kw["iterations_DE"] if "DE" in method else 0
+        adam = kw["iterations_adam"] if "Adam" in method else 0
+        rec["ops"].append(("pick", _mo_model_state(model)[0], YND is not None,
+                           len(kw.get("model_C") or ()), de_evals, adam,
+                           1 if adam else 0))
+        return optimize_EHVI(model, YND, **kw)
+
+    with guard_evaluations() as rec["guards"], wrap_methods(rec, [
+            (bo, "make_model", None, "fit"), (bo, "_train_model", train, "fit"),
+            (bo, "_make_train_con_models", con_fits, "con"),
+            (bo, "_fantasy_objectives", believer, None),
+            (bo, "_lie_at", lie_at, "lie"),
+            (bo, "_fresh_batch_state", fresh, None),
+            (mo_bo_mod, "optimize_EHVI", optimize, None),
+            (de, "minimize", None, "de"), (de, "adam_refine", None, "adam")]):
+        yield rec
+
+
+def reckon_mo_loop(ops, guards=0):
+    """counts() reckoned from an MO_BO loop's recorded operations: each
+    fit, loss and request as mobo_launches counts it, each pick's
+    evaluations as ehvi_evaluation counts them, and the coupled model's
+    natural-gradient guard evaluations (mo_expected_counts)."""
+    total = mo_expected_counts(guards=guards)
+    for op in ops:
+        if op[0] == "pick":
+            _, form, front, n_con, de_evals, grad, nograd = op
+            one = ehvi_evaluation(form, n_con, front=front)
+            with_grad = ehvi_evaluation(form, n_con, grad=True, front=front)
+            part = add_counts(*[tuple((de_evals + nograd) * c for c in one),
+                                tuple(grad * c for c in with_grad)])
+        elif op[0] == "fit":
+            part = mobo_launches(op[1], "fit", op[2])
+        else:
+            part = tuple(op[2] * c for c in mobo_launches(op[1], op[0]))
+        total = add_counts(total, part)
+    return total
+
+
+def mo_objectives(problem, X):
+    """The two objective columns of ``problem`` at the rows of X."""
+    rows = [problem.fun(x) for x in np.asarray(X)]
+    return [np.asarray([np.reshape(r[i], ()) for r in rows]) for i in (0, 1)]
+
+
+def check_mo_archive(tag, bo, grows=False):
+    """The archive holds real evaluations only (every F and C row is the
+    problem's value at its X row: no lie reached it), every evaluated row
+    lies in the box, one hypervolume per evaluation, finite and never
+    falling (and, with ``grows``, ending above its start)."""
+    trace = np.asarray(bo.hv_trace, dtype=float)
+    F = mo_objectives(bo.problem, bo.X)
+    n0 = len(bo.X) - len(bo.added_points)
+    ok = len(trace) == len(bo.added_points) + 1
+    ok &= all(np.allclose(bo.F[i][:, 0], F[i], rtol=1e-12, atol=1e-12)
+              for i in (0, 1))
+    if bo.n_con:
+        ok &= bool(np.allclose(bo.C, bo._evaluate_cons(bo.X), rtol=1e-12,
+                               atol=1e-12))
+    ok &= bool(np.all((bo.X[n0:] >= 0) & (bo.X[n0:] <= 1)))
+    ok &= bool(np.all(np.isfinite(trace)) and np.all(np.diff(trace) >= -1e-12))
+    if grows:
+        ok &= bool(trace[-1] > trace[0])
+    if not ok:
+        raise AssertionError(f"[mo_bo] {tag}: bookkeeping: hypervolume "
+                             f"{trace}, {len(bo.X)} rows from {n0}")
+
+
+def mo_drive(tag, bo, steps, gpu, grows=False):
+    """drive_loop for an MO_BO loop: each infill's seconds split into
+    surrogate fit, constraint fits, DE, Adam and lies (recorded_mo_loop),
+    with its hypervolume; the archive as check_mo_archive checks it; the
+    launches equal to those reckoned from the loop's recorded operations
+    (reckon_mo_loop) and, of the kernels its surrogate runs (#7 for the GPR
+    pair, #5-#8 for the deep forms), none zero. Returns (the launches, the
+    recorded loop)."""
+    def note(bo):
+        k0 = len(bo.hv_trace)
+        return lambda dt, part, n7: (
+            f"{dt:.3f} s: surrogate fit {part['fit']:.3f}, constraint fits "
+            f"{part['con']:.3f}, DE {part['de']:.3f}, Adam {part['adam']:.3f}, "
+            f"lies {part['lie']:.3f}, the rest {dt - sum(part.values()):.3f}; "
+            f"#7 launches {n7}; hypervolume "
+            f"{', '.join(f'{v:.5f}' for v in bo.hv_trace[k0:])}")
+
+    def used(rec):
+        deep = any(op[0] == "fit" and op[1] != "gpr" for op in rec["ops"])
+        return (4, 5, 6, 7, 10) if deep else (6,)
+
+    return drive_loop(
+        "mo_bo", tag, bo, steps, gpu, recorded_mo_loop, note,
+        lambda rec: reckon_mo_loop(rec["ops"], rec["guards"][0]),
+        lambda: check_mo_archive(tag, bo, grows), used,
+        lambda: (f"hypervolume "
+                 f"{np.array2string(np.asarray(bo.hv_trace), precision=5)}"))
+
+
+def mobo_front(bo, st):
+    """The padded front a batch state hands the acquisition (as _propose
+    builds it)."""
+    from dgp_tpu_torch.bo.ehvi import NDC, Y_ND, pad_front
+
+    NDT = NDC(st["F_fant"], st["C_fant"], obj1_ascending=False)
+    Fn = [(st["F_fant"][i] - st["mu"][i]) / st["sd"][i] for i in (0, 1)]
+    return pad_front(Y_ND(Fn, NDT, nadir=st["nadir"], ideal=st["ideal"]),
+                     bo.n_bucket)
+
+
+def gpr_state(model, dtype):
+    """(params, train_data) of a GPR: the float32 model's own, or float64
+    copies."""
+    import copy
+
+    if dtype == torch.float32:
+        return model.params, model.train_data
+    return (copy.deepcopy(model.params).double(),
+            tuple(None if t is None else t.double() for t in model.train_data))
+
+
+def mobo_state(model, dtype):
+    """(form, loop, state) of an MO_BO surrogate in ``dtype``: the float32
+    model's own, or float64 copies (the GPRs' train_data cast too)."""
+    import copy
+
+    from dgp_tpu_torch.bo.ehvi import _mo_model_state
+
+    kind, loop, state = _mo_model_state(model)
+    if dtype == torch.float32:
+        return kind, loop, state
+    if kind == "two_gpr":
+        state = sum((gpr_state(m, dtype) for m in model), ())
+    elif kind == "two_dgp":
+        state = tuple(copy.deepcopy(p).double() for p in state)
+    else:
+        state = copy.deepcopy(state).double()
+    return kind, loop, state
+
+
+def mobo_normals(model, gen, rows, samples):
+    """Fixed unit normals for one evaluation of ``model`` at ``rows`` rows
+    and ``samples`` samples: the GPR pair's two [S, rows] draws, each DGP's
+    per-layer [S, rows, 1], the coupled model's (mo_normals)."""
+    if not isinstance(model, list):
+        return mo_normals(model, gen, rows=rows, S=samples)
+    if model[0].name == "gpr":
+        return [torch.randn((samples, rows), generator=gen, device=DEVICE)
+                for _ in model]
+    return [[torch.randn((samples, rows, 1), generator=gen, device=DEVICE)
+             for _ in m.params.layers] for m in model]
+
+
+def compare_mo_bo(tag, bo, st, cap=WITNESS_CAP):
+    """EHVI of a trained batch state's surrogate at MOBO_ROWS fixed rows of
+    its search box on fixed unit normals (MOBO_EHVI_S samples), by each
+    estimator (exact, Gaussian without and with the sample covariance,
+    KDE), and, for a constrained state, the loss -(EHVI * PoF) by each: the
+    kernels on (launched as ehvi_evaluation reckons) against the plain
+    versions (use_kernels off, hold_on_vs_off), and each against the
+    float64 twin (hold_to_f64), within TOL_REQUEST of the largest |value|
+    plus twice the plain versions' own error against the twin, that term
+    at most ``cap`` (MOBO_GPR_CAP for an unconstrained GPR pair's state)."""
+    from dgp_tpu_torch.bo import ehvi as tehvi
+    from dgp_tpu_torch.config import kernels_scope
+
+    model, model_C = st["model"], st["model_C"]
+    rng = np.random.default_rng(23)
+    lw, up = (np.broadcast_to(np.asarray(b, dtype=float), (bo.d,))
+              for b in (st["lw_n"], st["up_n"]))
+    rows = lw + (up - lw) * rng.uniform(size=(MOBO_ROWS, bo.d))
+    gen = torch.Generator(device=DEVICE).manual_seed(29)
+    normals = mobo_normals(model, gen, MOBO_ROWS, MOBO_EHVI_S)
+    YND = mobo_front(bo, st)
+    n_con = len(model_C or ())
+
+    def cast(z, dtype):
+        return [cast(x, dtype) for x in z] if isinstance(z, list) \
+            else z.to(dtype)
+
+    @torch.no_grad()
+    def arm(dtype):
+        kind, loop, state = mobo_state(model, dtype)
+        X = torch.as_tensor(rows, dtype=dtype, device=DEVICE)
+        Y0, Y1 = tehvi._front(YND, dtype, DEVICE)
+        key = cast(normals, dtype)
+        out = [tehvi._ehvi_pure(kind, loop, corr, approx, MOBO_EHVI_S, state,
+                                X, Y0, Y1, key).reshape(-1)
+               for approx, corr in MOBO_ESTIMATORS]
+        if n_con:
+            cstates = tuple(gpr_state(m, dtype) for m in model_C)
+            zn = torch.as_tensor(st["zero_n"], dtype=dtype, device=DEVICE)
+            out += [tehvi._neg_ehvi_pof_loss(
+                kind, loop, corr, approx, MOBO_EHVI_S)(
+                    X, (state, Y0, Y1, cstates, zn, key))
+                    for approx, corr in MOBO_ESTIMATORS]
+        return [o.double() for o in out]
+
+    form = mobo_state(model, torch.float32)[0]
+    n_est = len(MOBO_ESTIMATORS)
+    expect = add_counts(*[ehvi_evaluation(form, 0)] * n_est,
+                        *[ehvi_evaluation(form, n_con)] * (n_est if n_con
+                                                           else 0))
+    before = counts()
+    on = arm(torch.float32)
+    launched = tuple(a - b for a, b in zip(counts(), before))
+    if launched != expect:
+        raise AssertionError(f"[mo_bo] {tag} comparison: launches {launched},"
+                             f" reckoned {expect}")
+    with kernels_scope(False):
+        plain = arm(torch.float32)
+    with f64_twin():
+        ref = arm(torch.float64)
+    names = [f"EHVI {approx}{' corr' if corr else ''}"
+             for approx, corr in MOBO_ESTIMATORS]
+    if n_con:
+        names += [f"-(EHVI x PoF) {approx}{' corr' if corr else ''}"
+                  for approx, corr in MOBO_ESTIMATORS]
+    hold_on_vs_off(f"[mo_bo] {tag}: {MOBO_ROWS} rows at S = {MOBO_EHVI_S}",
+                   names, on, plain, ref, cap)
+    hold_to_f64(f"[mo_bo] {tag}: EHVI, the kernels vs the plain versions",
+                names, ref, on, plain, cap)
+
+
+def time_ehvi_evaluation(tag, bo, st, gpu, reps=5):
+    """Wall ms of one -EHVI evaluation (exact estimator, MOBO_UNCUT's S) of
+    a 300-row population in the state's search box: the DE generation's
+    call, median of ``reps`` after one warm-up."""
+    from dgp_tpu_torch.bo import ehvi as tehvi
+
+    kind, loop, state = mobo_state(st["model"], torch.float32)
+    lw, up = (np.broadcast_to(np.asarray(b, dtype=float), (bo.d,))
+              for b in (st["lw_n"], st["up_n"]))
+    X = torch.as_tensor(lw + (up - lw) * np.random.default_rng(31).uniform(
+        size=(MOBO_UNCUT["popsize_DE"], bo.d)), dtype=torch.float32,
+        device=DEVICE)
+    Y0, Y1 = tehvi._front(mobo_front(bo, st), torch.float32, DEVICE)
+    loss = tehvi._neg_ehvi_loss(kind, loop, False, "None", MOBO_UNCUT["S"])
+    with torch.no_grad():
+        loss(X, (state, Y0, Y1, 7))
+        times = [timed(lambda: loss(X, (state, Y0, Y1, 7)))[1]
+                 for _ in range(reps)]
+    log(f"[mo_bo] {tag}: one EHVI evaluation of {X.shape[0]} rows at S = "
+        f"{MOBO_UNCUT['S']}: median {1e3 * float(np.median(times)):.2f} ms "
+        f"(min {1e3 * min(times):.2f}, max {1e3 * max(times):.2f}) ({gpu})")
+
+
+def run_mo_bo(gpu):
+    """The multi-objective BO driver through the entry points a user calls,
+    MO_BO on the card in float32: the default GPR pair on multi_obj_1D_4
+    (MOBO_N points, seed MOBO_SEED) cut to MOBO_STEPS Adam steps and
+    MOBO_RUN's search, three infills (the second a batch of two, the third
+    by suggest() and observe()), then a save and a load, and one more infill
+    of the loaded loop bit for bit equal to the same infill of the unsaved
+    one (whose hypervolume must then stand above its start); one
+    constrained infill on bnh (EHVI x PoF) and one on an all-infeasible srn
+    DoE (the PoF-only bootstrap); one infill of the coupled MO-DGP
+    (MOBO_COUPLED) and a batch of two of the DGP pair (MOBO_DGP: the lie's
+    warm refit). Each loop as mo_drive checks it; then compare_mo_bo at the
+    GPR pair's, bnh's, the coupled model's and the DGP pair's batch states,
+    the ms of one EHVI evaluation of each form, the idle share of one GPR
+    pair infill and one uncut default infill. Returns the path's launches
+    (the comparisons', the timings' and the profiled and uncut infills'
+    left out)."""
+    from dgp_tpu_torch import _build, native
+    from dgp_tpu_torch.bo.ehvi import NDC, _ndc_numpy
+    from dgp_tpu_torch.bo.mo_bo import MO_BO
+    from dgp_tpu_torch.bo.problems import get
+
+    if not native.available():
+        raise AssertionError("[mo_bo] the native Pareto sweep did not build")
+    rng = np.random.default_rng(3)
+    Y = [rng.normal(size=(4_096, 1)), rng.normal(size=(4_096, 1))]
+    C = np.where(rng.uniform(size=(4_096, 1)) < 0.2, 1.0, -1.0)
+    (nd_native, t_native), (nd_numpy, t_numpy) = (
+        timed(lambda: NDC(Y, C)), timed(lambda: _ndc_numpy(Y, C)))
+    # the same indices in the same order, objective 1 ascending and
+    # descending (_ndc_numpy's descending front is its ascending one reversed)
+    if (nd_native != nd_numpy
+            or NDC(Y, C, obj1_ascending=False) != nd_numpy[::-1]):
+        raise AssertionError("[mo_bo] the native sweep's front differs from "
+                             "the numpy loop's on a 4,096-row archive")
+    log(f"[mo_bo] native Pareto sweep on a 4,096-row archive: the numpy "
+        f"loop's front ({len(nd_numpy)} rows, in its order both ways) in "
+        f"{1e3 * t_native:.2f} ms, "
+        f"numpy {1e3 * t_numpy:.1f} ms")
+
+    problem = get("multi_obj_1D_4")
+    one = dict(problem=problem, DoE_size=MOBO_N, seed=MOBO_SEED,
+               device=DEVICE)
+    log(f"[mo_bo] multi_obj_1D_4, DoE {MOBO_N}, seed {MOBO_SEED}, float32; "
+        f"cut from MO_BO's defaults: GPR Adam 2,000 -> {MOBO_STEPS} steps "
+        f"(the constraint GPRs too), DE 300x400 -> {MOBO_RUN['popsize_DE']}x"
+        f"{MOBO_RUN['iterations_DE']}, Adam 1,000 -> "
+        f"{MOBO_RUN['iterations_adam']}, S 1,000 -> {MOBO_RUN['S']}; the "
+        f"coupled schedule (100, 0, 0) -> {MOBO_COUPLED['schedule']}, the "
+        f"DGP pair's (100, 0) -> {MOBO_DGP['schedule']}")
+    bo = MO_BO(model_dic=MOBO_GPR, **one)
+    ask = {k: v for k, v in MOBO_RUN.items() if k != "verbose"}
+
+    def ask_tell():
+        X = bo.suggest(**ask)
+        bo.observe(X, mo_objectives(problem, X))
+
+    launches = []
+    launched, rec = mo_drive("gpr pair", bo, [
+        lambda: bo.run(1, **MOBO_RUN),
+        lambda: bo.run(1, batch_size=2, **MOBO_RUN), ask_tell], gpu)
+    launches.append(launched)
+    gpr_state = rec["states"][-1]
+    path = os.path.join(_build.BUILD_DIR, "mo_bo_smoke.npz")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    bo.save(path)
+    bo2 = MO_BO.load(path, problem, device=DEVICE)
+    os.remove(path)
+    launches.append(mo_drive("gpr pair, loaded", bo2,
+                             [lambda: bo2.run(1, **MOBO_RUN)], gpu)[0])
+    launches.append(mo_drive("gpr pair, not saved", bo,
+                             [lambda: bo.run(1, **MOBO_RUN)], gpu)[0])
+    check_mo_archive("gpr pair, all infills", bo, grows=True)
+    if not (np.array_equal(bo.X, bo2.X) and bo.hv_trace == bo2.hv_trace
+            and bo._run_key == bo2._run_key):
+        raise AssertionError(f"[mo_bo] the loaded loop's infill differs: "
+                             f"{bo2.X[-1]} vs {bo.X[-1]}")
+    log(f"[mo_bo] save / load: the loaded loop's infill bit for bit the "
+        f"unsaved loop's (x {bo.X[-1]})")
+
+    bo_c = MO_BO(problem=get("bnh"), DoE_size=12, seed=MOBO_SEED,
+                 model_dic=MOBO_GPR, model_C_dic=MOBO_CON, device=DEVICE)
+    launched, rec = mo_drive("bnh, EHVI x PoF", bo_c,
+                             [lambda: bo_c.run(1, **MOBO_RUN)], gpu)
+    launches.append(launched)
+    con_state = rec["states"][-1]
+    srn = get("srn")
+    X = np.column_stack([rng.uniform(0.95, 1.0, 8), rng.uniform(0.0, 0.05, 8)])
+    bo_s = MO_BO(problem=srn, X=X, F=[f[:, None] for f in
+                                      mo_objectives(srn, X)],
+                 seed=MOBO_SEED, model_dic=MOBO_GPR, model_C_dic=MOBO_CON,
+                 device=DEVICE)
+    if bo_s.hv_trace != [0.0] or not (bo_s.C[:, 0] > 0).all():
+        raise AssertionError("[mo_bo] the srn DoE is not all infeasible")
+    launched, rec = mo_drive("srn, all infeasible: the PoF bootstrap", bo_s,
+                             [lambda: bo_s.run(1, **MOBO_RUN)], gpu)
+    launches.append(launched)
+    if [op[2] for op in rec["ops"] if op[0] == "pick"] != [False]:
+        raise AssertionError("[mo_bo] the bootstrap pick had a front")
+    bo_m = MO_BO(model_dic=MOBO_COUPLED, **one)
+    launched, rec = mo_drive("coupled MO-DGP", bo_m,
+                             [lambda: bo_m.run(1, **MOBO_RUN)], gpu)
+    launches.append(launched)
+    mo_state = rec["states"][-1]
+    bo_d = MO_BO(model_dic=MOBO_DGP, **one)
+    launched, rec = mo_drive("DGP pair", bo_d, [
+        lambda: bo_d.run(1, batch_size=2, **MOBO_RUN)], gpu)
+    launches.append(launched)
+    dgp_state = rec["states"][-1]
+    total = add_counts(*launches)
+    log(f"[mo_bo] launches on the path {COUNTED}: {total} ({gpu})")
+
+    for tag, loop_, st in (("gpr pair", bo, gpr_state),
+                           ("bnh", bo_c, con_state),
+                           ("coupled MO-DGP", bo_m, mo_state),
+                           ("DGP pair", bo_d, dgp_state)):
+        compare_mo_bo(f"{tag} batch state", loop_, st,
+                      MOBO_GPR_CAP if tag == "gpr pair" else WITNESS_CAP)
+    for tag, loop_, st in (("gpr pair", bo, gpr_state),
+                           ("coupled MO-DGP", bo_m, mo_state),
+                           ("DGP pair", bo_d, dgp_state)):
+        time_ehvi_evaluation(tag, loop_, st, gpu)
+    bo_p = MO_BO(model_dic=MOBO_GPR, **one)
+    idle_share("one GPR pair infill", lambda: bo_p.run(1, **MOBO_RUN), gpu,
+               tag="mo_bo")
+    bo_u = MO_BO(**one)
+    with recorded_mo_loop(bo_u) as rec:
+        _, dt = timed(lambda: bo_u.run(1, **MOBO_UNCUT))
+    s = rec["s"]
+    log(f"[mo_bo] one uncut default infill (GPR pair, 2,000 Adam steps "
+        f"each, DE {MOBO_UNCUT['popsize_DE']}x{MOBO_UNCUT['iterations_DE']}, "
+        f"Adam {MOBO_UNCUT['iterations_adam']}, S {MOBO_UNCUT['S']}): "
+        f"{dt:.3f} s: surrogate fit {s['fit']:.3f}, DE {s['de']:.3f}, Adam "
+        f"{s['adam']:.3f}; hypervolume {bo_u.hv_trace[0]:.5f} -> "
+        f"{bo_u.hv_trace[-1]:.5f} ({gpu})")
+    return total
+
+
+# -- phase 12 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -4183,6 +4871,10 @@ def main():
     paths.append(launched)
     paths.append(run_mo_restarts(gpu))
     compare_mo(model_mo)
+    mo_bo_err = check_mo_bo_kernels()
+    err_qf, err_qf_bwd = max(err_qf, mo_bo_err[0]), max(err_qf_bwd, mo_bo_err[1])
+    err_chol = [max(err_chol[0], mo_bo_err[2]), max(err_chol[1], mo_bo_err[3])]
+    paths.append(run_mo_bo(gpu))
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 

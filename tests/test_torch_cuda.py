@@ -884,6 +884,50 @@ def test_mo_dgp_loss_and_gradient_kernels_on_vs_off(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", chip_smoke.MOBO_QUADFORM)
+def test_quadform_kernels_at_the_mo_bo_shapes(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 at MO_BO's shapes (D = 1, M = 16: the padded
+    inducing rows; n from a training loss's 80 to an uncut DE generation's
+    300,000), held as in test_quadform_kernels_match_plain."""
+    chip_smoke.check_quadform(D, M, n, with_t1, M + n % 97)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, M + n % 97)
+
+
+@pytest.mark.cuda
+def test_cholesky_kernels_on_the_mo_bo_stacks(cuda):
+    """Kernels #7 and #8 on MO_BO's stacks: the coupled model's Kuu
+    [1, 16, 16] and [2, 16, 16], a DGP's [2, 16, 16] and a GPR's padded
+    Gram [1, 16, 16], held to their float64 twins under the float32 jitter
+    (chip_smoke.mo_bo_stacks)."""
+    for name, stack, inverses in chip_smoke.mo_bo_stacks():
+        for inverse in inverses:
+            assert chip_smoke.check_cholesky(
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", ["MOBO_GPR", "MOBO_COUPLED", "MOBO_DGP"])
+def test_mo_bo_ehvi_kernels_on_vs_off(cuda, spec):
+    """A trained MO_BO batch state of each surrogate form (the mo_bo
+    phase's cut specs): EHVI of 1,000 fixed rows on fixed normals by each
+    estimator with the kernels on (launched as reckoned) and off, and
+    against float64 (chip_smoke.compare_mo_bo, the GPR pair's plain term
+    capped at MOBO_GPR_CAP, the others' at WITNESS_CAP)."""
+    from dgp_tpu_torch.bo.mo_bo import MO_BO
+    from dgp_tpu_torch.bo.problems import get
+
+    bo = MO_BO(problem=get("multi_obj_1D_4"), DoE_size=chip_smoke.MOBO_N,
+               model_dic=getattr(chip_smoke, spec), seed=chip_smoke.MOBO_SEED,
+               device="cuda")
+    chip_smoke.compare_mo_bo(
+        f"card test {spec}", bo, bo._fresh_batch_state(0),
+        chip_smoke.MOBO_GPR_CAP if spec == "MOBO_GPR"
+        else chip_smoke.WITNESS_CAP)
+
+
+@pytest.mark.cuda
 def test_cholesky_kernel_on_the_exact_mf_grams(cuda):
     """Kernel #7 on the Gram stacks the exact surrogates' multi-start engine
     factors at its first step (8 starts: the borehole pair's AR(1) joint

@@ -12,6 +12,8 @@ import torch
 
 import dgp_tpu_torch
 from dgp_tpu_torch.config import ieee_fp32
+from dgp_tpu_torch.bo.mo_bo import MO_BO
+from dgp_tpu_torch.bo.problems import get as get_problem
 from dgp_tpu_torch.bo.so_bo import SO_BO, make_single_model
 from dgp_tpu_torch.models import dgp as tdgp
 from dgp_tpu_torch.models import gpr as TGPR
@@ -59,7 +61,9 @@ def test_no_jax_imports_in_port():
             "models/nargp.py",
             "../compat_torch/validate_mf_bo_bakeoff_fit.py", "bo/mf_bo.py",
             "../compat_torch/validate_mf_bo.py", "models/mo_dgp.py",
-            "bo/problems.py", "../compat_torch/validate_mo_dgp.py"} <= rel
+            "bo/problems.py", "../compat_torch/validate_mo_dgp.py",
+            "bo/ehvi.py", "bo/mo_bo.py", "native/__init__.py",
+            "../compat_torch/validate_mo_bo_loop.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -140,6 +144,14 @@ Fo = np.array([np.ravel(multi_obj_1D_4().fun(x)) for x in Xo])
 mo = MultiObjDeepGP([Xo, Xo.copy()], [Fo[:, :1], Fo[:, 1:]], loop=1,
                     num_samples=2, device="cpu")
 assert bool(torch.isfinite(mo.ELBO()))
+from dgp_tpu_torch.bo import MO_BO
+from dgp_tpu_torch.bo.problems import get
+from dgp_tpu_torch import native
+mo_bo = MO_BO(problem=get("multi_obj_1D_4"), DoE_size=6, seed=0,
+              model_dic={"type": "independent", "num_layers": 0,
+                         "kernels": "rbf", "iterations": 3}, device="cpu")
+trace = mo_bo.run(1, S=5, popsize_DE=6, iterations_DE=2, verbose=False)
+assert len(trace) == 2 and trace[1] >= trace[0] and native.available()
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
@@ -193,6 +205,11 @@ def test_entry_points_need_a_device_without_a_card(monkeypatch):
         MultiObjDeepGP(Xo, Yo, dtype=torch.float64)
     mo = MultiObjDeepGP(Xo, Yo, dtype=torch.float64, device="cpu")
     assert mo.params.layers[1].z_left.device == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MO_BO(problem=get_problem("multi_obj_1D_4"), DoE_size=4)
+    mo_bo = MO_BO(problem=get_problem("multi_obj_1D_4"), DoE_size=4,
+                  device="cpu")
+    assert mo_bo.device == torch.device("cpu")
     for cls in (AR1CoKriging, NARGP):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls((Xm, Ym), dtype=torch.float64)

@@ -12,6 +12,7 @@ which XLA folds.
 """
 
 import functools
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -40,6 +41,8 @@ from test_torch_training import path_name
 F64 = torch.float64
 RTOL, GRAD_RTOL = 1e-10, 1e-8
 S = 3
+# these tiny programs run in microseconds: spend no compile time on them
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 
 def recorded(fn):
@@ -75,24 +78,104 @@ def data(n_fidelities):
     return X, [f(X[0]) + 0.3, f(X[1]) + 0.1 * X[1][:, :1], f(X[2])]
 
 
+def init_program(n_fidelities):
+    """The reference's init on a key: its init_layers_mf (recorded) and the
+    init's z_full (compute_full_zs on the same key with init's 100 samples
+    repeats its key splits)."""
+    X, _ = data(n_fidelities)
+    kernels = jmf.make_mf_kernels(X[0].shape[1], n_fidelities)
+
+    def init(key):
+        (layers, draws) = recorded(jmf.init_layers_mf)(X, kernels, key=key)
+        return layers, draws, jmf.compute_full_zs(layers, key, 100)
+
+    return init
+
+
+def elbo_program(n_fidelities):
+    """The reference's ELBO and its gradient, with the draws, as one
+    program of (params, key, row_weights, num_data): the plain full batch
+    is unit weights and the true sizes, a scale of exactly 1
+    (tests/test_mf_dgp.py::test_mf_weighted_scale_identity), so both cases
+    share the program."""
+    X, Y = data(n_fidelities)
+    Xs, Ys = tuple(map(jnp.asarray, X)), tuple(map(jnp.asarray, Y))
+
+    def run(p, key, w, n):
+        return (*jax.value_and_grad(recorded(
+            lambda q: jmf.elbo(q, Xs, Ys, key, S, row_weights=w,
+                               num_data=n)), has_aux=True)(p),
+            recorded(jmf.compute_full_zs)(p.layers, key))
+
+    return run
+
+
+def outputs_program():
+    """The Park pair's other outputs the tests compare, {name: (value,
+    draws)}: the ELBO of fidelity 0 alone, propagate (diagonal and full
+    covariance), predict_f (fidelity 0 and the last) and predict_y at the
+    last fidelity's inputs."""
+    X, Y = data(2)
+    Xs, Ys = tuple(map(jnp.asarray, X)), tuple(map(jnp.asarray, Y))
+    Xn = Xs[-1]
+
+    def run(p, key):
+        out = {}
+        out["elbo_upto0"] = recorded(jmf.elbo)(p, Xs, Ys, key, S,
+                                               train_upto_fidelity=0)
+        out["propagate"] = recorded(jmf.propagate)(p, Xn, key, S)
+        out["propagate_full_cov"] = recorded(jmf.propagate)(
+            p, Xn, key, S, full_cov=True)
+        out["predict_f"] = recorded(jmf.predict_f)(p, Xn, key, S)
+        out["predict_f0"] = recorded(jmf.predict_f)(p, Xn, key, S, 0)
+        out["predict_y"] = recorded(jmf.predict_y)(p, Xn, key, S)
+        return out
+
+    return run
+
+
+def unit_weights(X):
+    return (tuple(jnp.ones(x.shape[0]) for x in X),
+            tuple(jnp.asarray(float(len(x))) for x in X))
+
+
+@functools.lru_cache(maxsize=None)
+def programs():
+    """The reference programs, compiled: each is traced and lowered in turn
+    (the recording patches are process-wide), the costliest (the
+    3-fidelity ELBO gradient) first, and handed to one of two threads to
+    compile, at XLA's lowest backend optimization level, while the next is
+    traced. The ELBO and output programs are lowered at the init's output
+    shapes, which _init_variational keeps."""
+    key = jax.random.PRNGKey(0)
+    compiled = {}
+    with ThreadPoolExecutor(2) as pool:
+        def compile_(name, fn, *args):
+            lowered = jax.jit(fn).lower(*args)
+            compiled[name] = pool.submit(lowered.compile, FAST_COMPILE)
+            return lowered
+
+        for n in (3, 2):
+            layers = compile_(f"init{n}", init_program(n), key).out_info[0]
+            params = jmf.MFDGPParams(layers=tuple(layers),
+                                     likelihood=jlik.Gaussian.create(1.0))
+            compile_(f"elbo{n}", elbo_program(n), params, key,
+                     *unit_weights(data(n)[0]))
+        compile_("outputs", outputs_program(), params, key)
+        return {name: c.result() for name, c in compiled.items()}
+
+
 @functools.lru_cache(maxsize=None)
 def reference(n_fidelities):
     """dgp_tpu's model, built by its init_layers_mf on PRNGKey(0) (recorded),
     as a MultiFidelityDeepGP before and after _init_variational (q_mu <-
     Y_f, q_sqrt scaled: off the prior, where the ELBO would not depend on
-    Z_left); and the init's z_full (compute_full_zs on the same key with
-    init's 100 samples repeats its key splits). The wrapper is assembled
-    around the jitted init: its constructor would run the init op by op,
-    which XLA compiles one op at a time, slower than the whole program."""
+    Z_left); and the init's z_full. The wrapper is assembled around the
+    compiled init: its constructor would run the init op by op, which XLA
+    compiles one op at a time, slower than the whole program."""
     X, Y = data(n_fidelities)
-    kernels = jmf.make_mf_kernels(X[0].shape[1], n_fidelities)
-
-    @jax.jit
-    def init(key):
-        (layers, draws) = recorded(jmf.init_layers_mf)(X, kernels, key=key)
-        return layers, draws, jmf.compute_full_zs(layers, key, 100)
-
-    layers, draws, z_full = init(jax.random.PRNGKey(0))
+    layers, draws, z_full = programs()[f"init{n_fidelities}"](
+        jax.random.PRNGKey(0))
     jm = jmf.MultiFidelityDeepGP.__new__(jmf.MultiFidelityDeepGP)
     jm._key = jax.random.PRNGKey(2)
     jm._X = [jnp.asarray(x) for x in X]
@@ -114,66 +197,26 @@ def weights(X):
 
 
 @functools.lru_cache(maxsize=None)
-def elbo_program(n_fidelities):
-    """The reference's ELBO and its gradient, with the draws, as one
-    compiled program of (params, key, row_weights, num_data): the plain full
-    batch is unit weights and the true sizes, a scale of exactly 1
-    (tests/test_mf_dgp.py::test_mf_weighted_scale_identity), so both cases
-    share the program."""
-    ref = reference(n_fidelities)
-    Xs = tuple(jnp.asarray(x) for x in ref["X"])
-    Ys = tuple(jnp.asarray(y) for y in ref["Y"])
-
-    @jax.jit
-    def run(p, key, w, n):
-        return (*jax.value_and_grad(recorded(
-            lambda q: jmf.elbo(q, Xs, Ys, key, S, row_weights=w,
-                               num_data=n)), has_aux=True)(p),
-            recorded(jmf.compute_full_zs)(p.layers, key))
-
-    return run
-
-
-@functools.lru_cache(maxsize=None)
 def elbo_reference(n_fidelities, weighted):
     """((value, draws), gradients, (compute_full_zs, its draws)) of the
     reference's ELBO on PRNGKey(1)."""
     X = reference(n_fidelities)["X"]
     if weighted:
         ws, nd = weights(X)
+        ws = tuple(map(jnp.asarray, ws))
+        nd = tuple(jnp.asarray(v) for v in nd)
     else:
-        ws, nd = [np.ones(x.shape[0]) for x in X], [float(len(x)) for x in X]
-    return elbo_program(n_fidelities)(
-        reference(n_fidelities)["jm"].params, jax.random.PRNGKey(1),
-        tuple(map(jnp.asarray, ws)), tuple(map(jnp.asarray, nd)))
+        ws, nd = unit_weights(X)
+    return programs()[f"elbo{n_fidelities}"](
+        reference(n_fidelities)["jm"].params, jax.random.PRNGKey(1), ws, nd)
 
 
 @functools.lru_cache(maxsize=None)
 def outputs():
-    """The Park pair's other reference outputs the tests compare, {name:
-    (value, draws)}, from one compiled program on PRNGKey(1): the ELBO of
-    fidelity 0 alone, propagate (diagonal and full covariance), predict_f
-    (fidelity 0 and the last) and predict_y at the last fidelity's
-    inputs."""
-    ref = reference(2)
-    Xs = tuple(jnp.asarray(x) for x in ref["X"])
-    Ys = tuple(jnp.asarray(y) for y in ref["Y"])
-    Xn = Xs[-1]
-
-    @jax.jit
-    def run(p, key):
-        out = {}
-        out["elbo_upto0"] = recorded(jmf.elbo)(p, Xs, Ys, key, S,
-                                               train_upto_fidelity=0)
-        out["propagate"] = recorded(jmf.propagate)(p, Xn, key, S)
-        out["propagate_full_cov"] = recorded(jmf.propagate)(
-            p, Xn, key, S, full_cov=True)
-        out["predict_f"] = recorded(jmf.predict_f)(p, Xn, key, S)
-        out["predict_f0"] = recorded(jmf.predict_f)(p, Xn, key, S, 0)
-        out["predict_y"] = recorded(jmf.predict_y)(p, Xn, key, S)
-        return out
-
-    return run(ref["jm"].params, jax.random.PRNGKey(1))
+    """The Park pair's other reference outputs (outputs_program) on
+    PRNGKey(1)."""
+    return programs()["outputs"](reference(2)["jm"].params,
+                                 jax.random.PRNGKey(1))
 
 
 def port_of(params):

@@ -58,6 +58,8 @@ from test_torch_training import path_name
 F64 = torch.float64
 RTOL, GRAD_RTOL = 1e-10, 1e-8
 S = 3
+# these tiny programs run in microseconds: spend no compile time on them
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 # the 4-D rows project() is held at: off the reduction layer's inducing
 # inputs W = X[1], where its posterior variance is the jitter alone and
 # cancels to f64 rounding of the prior's
@@ -224,15 +226,17 @@ def programs():
     patches are process-wide) and handed to one of two threads to compile
     while the next is traced: XLA compiles a program on one core and
     releases the GIL, and the 3-fidelity gradient's compile alone takes
-    about as long as the other three's. The Park_VD programs are lowered at
-    the init's output shapes, which _init_variational keeps."""
+    about as long as the other three's. Each compiles at XLA's lowest
+    backend optimization level (FAST_COMPILE): they run in microseconds.
+    The Park_VD programs are lowered at the init's output shapes, which
+    _init_variational keeps."""
     key = jax.random.PRNGKey(0)
     params3 = reference_of(port_model(3, init=True).params)
     compiled = {}
     with ThreadPoolExecutor(2) as pool:
         def compile_(name, fn, *args):
             lowered = jax.jit(fn).lower(*args)
-            compiled[name] = pool.submit(lowered.compile)
+            compiled[name] = pool.submit(lowered.compile, FAST_COMPILE)
             return lowered
 
         compile_("elbo3", elbo_program(3), params3, key, *weight_args(3, False))

@@ -248,7 +248,33 @@ Phases, each of which raises (exit code 1) on any fault:
              the ms of one EHVI evaluation of 300 rows at S 1,000 of each
              form; the device idle share of one GPR pair infill; one uncut
              default infill (2,000 Adam steps, DE 300 x 400, Adam 1,000).
-12. timing — CUDA-event times of every kernel and of its plain version at
+12. cls     — the non-conjugate heads (Gauss-Hermite quadrature) through
+             the port's DGP on the card in float32: #5/#6 at the shapes
+             below (CLS_QUADFORM: the classifier's D = 2 and 1 at M = 30,
+             n = 600 and 20,000; the Student-t model's D = 1, M = 20,
+             n = 240 and 6,000; compat_torch/validate_dgp_regression.py's
+             D = 1, M = 25, n = 500) with the repeat and NaN runs, #7/#8 on
+             the three models' Kuu stacks ([2, 30, 30], [2, 20, 20],
+             [3, 25, 25]) against their float64 twins; the classifier of
+             compat_torch/validate_classification.py (120 rows in 2-D,
+             Z = X[::4], hidden width 2, non-whitened, Bernoulli, S 5):
+             optimize_adam for 100 steps (cut from 800), predict and
+             predict_density of the 200 held-out rows at 100 samples
+             (probabilities in [0, 1]); a fresh classifier through
+             optimize_nat_adam for 10 + 10 steps (natural gradients on
+             both layers' q under the non-conjugate head, each q_mu
+             moving); the classifier whitened, 10 Adam steps and a request
+             through #1/#2; the Student-t model of
+             compat_torch/validate_robust_regression.py (60 rows with 10 %
+             outliers, Z = X[::3], S 4) through optimize_nat_adam for
+             20 + 30 steps (cut from 300 + 700, natural gradients on the
+             last layer) and a predict of its rows. Losses finite and
+             falling; the launches of #1-#8 after each step as
+             cls_expected_counts reckons them; each trained model's request
+             and loss gradient on fixed unit normals with the kernels on
+             and off (the witness rule for the gradients) and the request
+             against float64.
+13. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -272,8 +298,9 @@ Phases, each of which raises (exit code 1) on any fault:
              the device time by kernel over one request and over three Adam
              steps of each of the three models (torch.profiler); the MF,
              EM and MO models' ms per loss-and-gradient evaluation and per
-             1,000-row predict, and their device idle share over three Adam
-             steps.
+             1,000-row predict, the cls phase's three models' per
+             loss-and-gradient and per request at 100 samples, and their
+             device idle share over three Adam steps.
 
 The line before the last is one JSON object listing every ported kernel
 (and, as entries of their own, the phase B of #2 and of #4; #6's phase B
@@ -465,6 +492,26 @@ MOBO_ESTIMATORS = [("None", False), ("Gaussian", False), ("Gaussian", True),
 # generation's EHVI (200 x 60) and the uncut one's (1,000 x 300)
 MOBO_QUADFORM = [(1, 16, 80), (1, 16, 200), (1, 16, 800), (1, 16, 1_600),
                  (1, 16, 12_000), (1, 16, 300_000)]
+# the classification configuration (compat_torch/validate_classification.py):
+# 120 training and 200 held-out rows (seeds 0 and 1) of two bands in 2-D,
+# Z = X[::4] (M = 30), two RBF layers (hidden width 2, non-whitened), the
+# probit Bernoulli head, S 5, Adam at lr 0.02 cut from 800 steps to 100;
+# requests of the held-out rows at 100 samples; natural gradients 10 + 10
+# steps on a fresh classifier; the classifier whitened (#1/#2), 10 Adam
+# steps and a request. The Student-t configuration
+# (compat_torch/validate_robust_regression.py): 60 rows with 10 % outliers,
+# Z = X[::3] (M = 20), hidden width 1, S 4, optimize_nat_adam cut from
+# 300 + 700 steps to 20 + 30, a predict of its rows at 100 samples
+CLS_N, CLS_TEST, CLS_S, CLS_SAMPLES = 120, 200, 5, 100
+CLS_ADAM, CLS_NAT, CLS_WHITE_ADAM = 100, (10, 10), 10
+T_N, T_S, T_NAT = 60, 4, (20, 30)
+# their quadform shapes (D, M, n): the classifier's layers (D = 2 and 1,
+# M = 30) at 5 x 120 points (a loss) and 100 x 200 (a request); the
+# Student-t model's (D = 1, M = 20) at 4 x 60 and 100 x 60; the
+# nb_DGP_regression model of compat_torch/validate_dgp_regression.py
+# (D = 1, M = 25) at 10 x 50
+CLS_QUADFORM = [(2, 30, 600), (2, 30, 20_000), (1, 30, 600), (1, 30, 20_000),
+                (1, 20, 240), (1, 20, 6_000), (1, 25, 500)]
 DEVICE = "cuda"
 
 
@@ -2041,11 +2088,12 @@ def mf_normals(model, gen, rows=None, S=MF_S):
 
 
 def compare_on_off(tag, model, rows, predict, elbo, expect_request,
-                   expect_loss, nonzero, gradient_witness=False):
+                   expect_loss, nonzero, gradient_witness=False, vector=False):
     """One request of ``rows`` (``predict(params, X, dtype)``, then
     moment-matched) and one loss (-``elbo(params, dtype)``) with its
     gradients, on the fixed unit normals the two closures hold: the
-    quadform kernels on against off (both arms factor Kuu through #7/#8, as
+    conditional kernels (the quadform's, or #1-#4 on whitened layers) on
+    against off (both arms factor Kuu through #7/#8, as
     compare_paths) within TOL_REQUEST / TOL_GRAD of scale, the launches of
     the kernels' arm as ``expect_request`` / ``expect_loss``, the gradients
     of ``nonzero`` nonzero and finite; then the request with every kernel
@@ -2055,7 +2103,12 @@ def compare_on_off(tag, model, rows, predict, elbo, expect_request,
     float32 loss gradient is itself ill-conditioned, each gradient of the
     kernels' arm is held to the plain arm's within TOL_GRAD plus twice the
     plain arm's own distance from the float64 twin's, that second term
-    capped at WITNESS_CAP (the witness rule of hold_to_f64)."""
+    capped at WITNESS_CAP (the witness rule of hold_to_f64). With
+    ``vector`` (a trained model, some of whose gradients vanish while the
+    terms they sum do not), every gradient is held as one vector, as
+    compare_exact holds one: each error, and each witness, is taken against
+    the largest |gradient| of all the parameters (the loss against its
+    own)."""
     import copy
 
     from dgp_tpu_torch.config import ieee_fp32, kernels_scope
@@ -2088,25 +2141,33 @@ def compare_on_off(tag, model, rows, predict, elbo, expect_request,
             raise AssertionError(f"[{tag}] {what}: launches {launched}, "
                                  f"expected {expect}")
         witness = what != "request" and gradient_witness
+
+        def scales(outs):
+            s = [float(o.abs().max()) or 1.0 for o in outs]
+            if vector and what != "request":
+                s[1:] = [max(s[1:])] * (len(s) - 1)
+            return s
+
         limits = [tol] * len(labels)
         if witness:
             double = copy.deepcopy(model.params).double()
             with f64_twin():
                 ref = fn(double, torch.float64)
-            limits = [tol + min(2 * float((b.double() - r).abs().max())
-                                / (float(r.abs().max()) or 1.0), WITNESS_CAP)
-                      for b, r in zip(off, ref)]
+            limits = [tol + min(2 * float((b.double() - r).abs().max()) / sr,
+                                WITNESS_CAP)
+                      for b, r, sr in zip(off, ref, scales(ref))]
         report = []
-        for name, a, b, limit in zip(labels, on, off, limits):
-            err = float((a - b).abs().max()) / (float(b.abs().max()) or 1.0)
+        for name, a, b, limit, sb in zip(labels, on, off, limits, scales(off)):
+            err = float((a - b).abs().max()) / sb
             report.append(f"{name} {err:.2e}"
                           + (f" (limit {limit:.2e})" if witness else ""))
             if not err <= limit:
                 raise AssertionError(f"[{tag}] {what}: {name} differs with the "
-                                     f"quadform kernels off by {err:.2e}, "
+                                     f"conditional kernels off by {err:.2e}, "
                                      f"limit {limit:.2e}")
-        log(f"[{tag}] {what}: quadform kernels on vs off on fixed normals, "
-            f"err / max|off| (tol {tol}"
+        log(f"[{tag}] {what}: conditional kernels on vs off on fixed normals, "
+            f"err / max|off|{' of all gradients' if vector and witness else ''} "
+            f"(tol {tol}"
             + (f" + 2x off's own error against float64, at most "
                f"{WITNESS_CAP}" if witness else "")
             + f"): {', '.join(report)}")
@@ -2156,11 +2217,14 @@ def compare_mf(model):
         [f"layers.{i}.z_left" for i in range(1, len(model.params.layers))])
 
 
-def time_staged(label, model, rows, gpu, steps=10, rounds=3):
-    """Wall ms per loss-and-gradient evaluation of a multi-fidelity model
-    (host clock around ``steps`` evaluations, ``rounds`` rounds) and per
-    predict of ``rows``; the device's idle share over three Adam steps
-    (torch.profiler)."""
+def time_staged(label, model, rows, gpu, steps=10, rounds=3, samples=250,
+                predict=None):
+    """Wall ms per loss-and-gradient evaluation of a model (host clock
+    around ``steps`` evaluations, ``rounds`` rounds) and per predict of
+    ``rows`` (``predict``, by default the multi-fidelity models'
+    ``model.predict(rows)`` at 250 samples); the device's idle share over
+    three Adam steps (torch.profiler)."""
+    predict = predict or (lambda: model.predict(rows))
     from dgp_tpu_torch.config import ieee_fp32
     from dgp_tpu_torch.models import training
 
@@ -2179,9 +2243,9 @@ def time_staged(label, model, rows, gpu, steps=10, rounds=3):
         f"{steps}, {rounds} rounds: {', '.join(f'{t:.2f}' for t in ms)} "
         f"({gpu})")
     name = label.split(" ")[0]
-    model.predict(rows)
-    ms = [1e3 * timed(lambda: model.predict(rows))[1] for _ in range(rounds)]
-    log(f"[timing] {name} predict, {len(rows)} rows at 250 samples "
+    predict()
+    ms = [1e3 * timed(predict)[1] for _ in range(rounds)]
+    log(f"[timing] {name} predict, {len(rows)} rows at {samples} samples "
         f"(moment-matched, to the host), ms per request, {rounds} rounds: "
         f"{', '.join(f'{t:.2f}' for t in ms)} ({gpu})")
     mask = training.make_mask(model.params)
@@ -4123,7 +4187,267 @@ def run_mo_bo(gpu):
     return total
 
 
-# -- phase 12 -------------------------------------------------------------------
+# -- phase 12: classification and Student-t regression ------------------------------
+
+
+def cls_rows():
+    """(X, Y, Xt, Yt): the classification configuration's training and
+    held-out rows (compat_torch/validate_classification.make_data)."""
+    from compat_torch.validate_classification import make_data
+
+    return (*make_data(CLS_N, seed=0), *make_data(CLS_TEST, seed=1))
+
+
+def cls_model(white=False):
+    """The classifier of compat_torch/validate_classification.py on the card
+    in float32 (non-whitened unless ``white``)."""
+    from compat_torch.validate_classification import classifier
+
+    X, Y, _, _ = cls_rows()
+    return classifier(X, Y, white=white, device=DEVICE, dtype=torch.float32)
+
+
+def t_model():
+    """The Student-t model of compat_torch/validate_robust_regression.py on
+    the card in float32."""
+    from compat_torch import validate_robust_regression as robust
+
+    return robust.model("t", DEVICE, torch.float32)
+
+
+def nb_model():
+    """compat_torch/validate_dgp_regression.py's model (nb_DGP_regression:
+    3 non-whitened layers, D = 1, M = 25) on the card in float32."""
+    from compat_torch import validate_dgp_regression as regression
+
+    return regression.model(DEVICE, torch.float32)
+
+
+def cls_expected_counts(path="nonwhite", built=0, losses=0, requests=0,
+                        last_layer=0):
+    """counts() reckoned for a 2-layer model of ``path`` whose layers share
+    one (M, white) group (expected_counts): ``losses`` loss evaluations
+    with the gradient of every layer and ``requests`` requests; building it
+    runs #7 once per non-whitened layer (its initial q_sqrt). A
+    non-whitened natural-gradient evaluation of the last layer's q alone
+    (``last_layer``; ng_all=False) runs both layers' #5 and #8 but only the
+    last layer's #6: no gradient reaches layer 0's conditional."""
+    c = add_counts(expected_counts(path, losses, 2, loss=True),
+                   expected_counts(path, requests, 2),
+                   launch_vector(c5=2 * last_layer, c6=last_layer,
+                                 c8=last_layer))
+    return add_counts(c, launch_vector(c7=2 * built * (path == "nonwhite")))
+
+
+def cls_kuu():
+    """[(name, (A, A64))]: the Kuu stacks of the classifier ([2, 30, 30]),
+    the Student-t model ([2, 20, 20]) and the nb_DGP_regression model
+    ([3, 25, 25]) at their inducing inputs, each one (M, white) group
+    factored by #8 per evaluation, with their float64 twins (kuu_twins)."""
+    return [(name, kuu_twins(list(m.params.layers),
+                             [l.z for l in m.params.layers]))
+            for name, m in (("classifier", cls_model()),
+                            ("Student-t", t_model()),
+                            ("nb_DGP_regression", nb_model()))]
+
+
+def check_cls_kernels():
+    """#5 and #6 at the classification, Student-t and nb_DGP_regression
+    models' shapes (CLS_QUADFORM), with and without t1, with the repeat
+    and NaN runs; #7 and #8 on their Kuu stacks (cls_kuu), held to their
+    float64 twins, L too by the witness rule: the classifier's Kuu (30
+    points in 2-D at lengthscale 0.5) puts float32's own L 1.21e-4 of
+    scale off its twin (an H100 reading of the library's factor). Returns
+    the largest errors [#5, #6, #7, #8]."""
+    err = [0.0] * 4
+    for seed, (D, Mi, n) in enumerate(CLS_QUADFORM):
+        for with_t1 in (False, True):
+            err[0] = max(err[0], check_quadform(D, Mi, n, with_t1, 420 + seed))
+            err[1] = max(err[1], check_quadform_backward(D, Mi, n, with_t1,
+                                                         520 + seed))
+    for name, stack in cls_kuu():
+        for inverse in (False, True):
+            err[2 + inverse] = max(err[2 + inverse], check_cholesky(
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack, witness=True))
+    return err
+
+
+def check_launches(tag, what, expect):
+    if counts() != expect:
+        raise AssertionError(f"[{tag}] {what}: launches {counts()}, reckoned "
+                             f"{expect}")
+
+
+def check_losses(tag, what, losses, n):
+    losses = losses.cpu().numpy()
+    if losses.shape != (n,) or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] {what}: bad losses {losses}")
+    if not losses[-5:].mean() < losses[:5].mean():
+        raise AssertionError(f"[{tag}] {what}: the loss did not fall: {losses}")
+    return losses
+
+
+def run_cls(gpu):
+    """The non-conjugate heads through the entry points a user calls, on
+    the card in float32. The classifier (CLS_*): built, optimize_adam for
+    CLS_ADAM steps at lr 0.02, then predict and predict_density of the
+    held-out rows at CLS_SAMPLES samples (probabilities in [0, 1], the
+    accuracy and mean log-density shown); a fresh classifier through
+    optimize_nat_adam for CLS_NAT steps (natural gradients on both layers'
+    q under the quadrature head: each layer's q_mu moves); the classifier
+    whitened, CLS_WHITE_ADAM Adam steps and a request through #1/#2. The
+    Student-t model (T_*): optimize_nat_adam for T_NAT steps, a predict of
+    its rows. Losses finite and falling; the launches of #1-#8 after each
+    step equal to those reckoned (cls_expected_counts). Returns
+    (counts(), (classifier, whitened classifier, Student-t model))."""
+    zero_counts()
+    X, Y, Xt, Yt = cls_rows()
+    model, dt = timed(cls_model)
+    expect = cls_expected_counts(built=1)
+    check_launches("cls", "built", expect)
+    losses, dt_adam = timed(lambda: model.optimize_adam(
+        iterations=CLS_ADAM, lr=0.02, messages=0))
+    losses = check_losses("cls", "optimize_adam", losses, CLS_ADAM)
+    expect = add_counts(expect, cls_expected_counts(losses=CLS_ADAM))
+    check_launches("cls", "optimize_adam", expect)
+    (p, v), dt_p = timed(lambda: model.predict(Xt, CLS_SAMPLES))
+    logd, dt_d = timed(lambda: model.predict_density(Xt, Yt, CLS_SAMPLES))
+    logd = logd.cpu().numpy()
+    if not (p.shape == v.shape == Yt.shape and np.all(p >= 0)
+            and np.all(p <= 1) and np.all(v >= 0)
+            and logd.shape == Yt.shape and np.all(np.isfinite(logd))):
+        raise AssertionError("[cls] requests: bad output")
+    expect = add_counts(expect, cls_expected_counts(requests=2))
+    check_launches("cls", "requests", expect)
+    log(f"[cls] classifier (N {CLS_N}, M 30, hidden width 2, non-whitened, "
+        f"Bernoulli, S {CLS_S}, float32): built in {dt:.2f} s; "
+        f"optimize_adam {CLS_ADAM} steps (cut from 800) {dt_adam:.2f} s, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; predict and predict_density of "
+        f"{CLS_TEST} held-out rows at {CLS_SAMPLES} samples {1e3 * dt_p:.1f} "
+        f"and {1e3 * dt_d:.1f} ms (first use): accuracy "
+        f"{np.mean((p > 0.5) == (Yt > 0.5)):.3f}, mean log-density "
+        f"{logd.mean():.3f}; launches {COUNTED} {counts()} ({gpu})")
+
+    nat = cls_model()
+    start = {k: v.clone() for k, v in nat.params.state_dict().items()}
+    n1, n2 = CLS_NAT
+    losses, dt = timed(lambda: nat.optimize_nat_adam(
+        iterations1=n1, iterations2=n2, lr_adam=0.02, lr_gamma=0.1,
+        messages=0))
+    losses = check_losses("cls", "optimize_nat_adam", losses, n1 + n2)
+    still = [k for k in ("layers.0.q_mu", "layers.1.q_mu")
+             if torch.equal(nat.params.state_dict()[k], start[k])]
+    if still:
+        raise AssertionError(f"[cls] natural gradients did not move {still}")
+    expect = add_counts(expect, cls_expected_counts(
+        built=1, losses=n1 + 2 * n2))
+    check_launches("cls", "optimize_nat_adam", expect)
+    log(f"[cls] a fresh classifier, optimize_nat_adam {n1} + {n2} steps "
+        f"(natural gradients on both layers' q): {dt:.2f} s, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; launches {counts()}")
+
+    white = cls_model(white=True)
+    losses, dt = timed(lambda: white.optimize_adam(
+        iterations=CLS_WHITE_ADAM, lr=0.02, messages=0))
+    losses = check_losses("cls", "whitened optimize_adam", losses,
+                          CLS_WHITE_ADAM)
+    (p, _), dt_p = timed(lambda: white.predict(Xt, CLS_SAMPLES))
+    if not (np.all(p >= 0) and np.all(p <= 1)):
+        raise AssertionError("[cls] whitened request: bad output")
+    expect = add_counts(expect, cls_expected_counts(
+        "stationary", losses=CLS_WHITE_ADAM, requests=1))
+    check_launches("cls", "whitened classifier", expect)
+    log(f"[cls] the classifier whitened: optimize_adam {CLS_WHITE_ADAM} "
+        f"steps {dt:.2f} s, loss {losses[0]:.3f} -> {losses[-1]:.3f}; a "
+        f"request {1e3 * dt_p:.1f} ms; launches {counts()}")
+
+    robust, dt = timed(t_model)
+    n1, n2 = T_NAT
+    losses, dt_nat = timed(lambda: robust.optimize_nat_adam(
+        iterations1=n1, iterations2=n2, lr_adam=0.02, lr_gamma=0.05,
+        ng_all=False, messages=0))
+    losses = check_losses("cls", "Student-t optimize_nat_adam", losses,
+                          n1 + n2)
+    rows = robust.data[0].cpu().numpy()
+    (mean, var), dt_p = timed(lambda: robust.predict(rows, CLS_SAMPLES))
+    if not (mean.shape == var.shape == (T_N, 1) and np.all(np.isfinite(mean))
+            and np.all(var > 0)):
+        raise AssertionError("[cls] Student-t predict: bad output")
+    expect = add_counts(expect, cls_expected_counts(
+        built=1, losses=n1 + n2, requests=1, last_layer=n2))
+    check_launches("cls", "Student-t model", expect)
+    log(f"[cls] Student-t model (N {T_N}, M 20, hidden width 1, S {T_S}, "
+        f"scale 0.1, df 3, float32): built in {dt:.2f} s; optimize_nat_adam "
+        f"{n1} + {n2} steps (cut from 300 + 700) {dt_nat:.2f} s, loss "
+        f"{losses[0]:.3f} -> {losses[-1]:.3f}; a predict of its {T_N} rows "
+        f"at {CLS_SAMPLES} samples {1e3 * dt_p:.1f} ms; launches {COUNTED} "
+        f"{counts()}, reckoned {expect} ({gpu})")
+    return counts(), (model, white, robust)
+
+
+def compare_head(tag, model, rows, S, samples, seed, vector=False):
+    """compare_on_off for a 2-layer DGP with a quadrature head: a request
+    of ``rows`` at ``samples`` samples (predict_y, moment-matched) and a
+    loss over its training rows at S samples, each on fixed unit normals,
+    the kernels on and off (the gradients by the witness rule, as one
+    vector with ``vector``) and the request against float64; every layer's
+    z and the kernel variances' gradients nonzero."""
+    from dgp_tpu_torch.models import dgp as tdgp
+
+    X, Y = model.data
+    layers = model.params.layers
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    zr = [torch.randn((samples, len(rows), l.num_outputs), generator=gen,
+                      device=DEVICE) for l in layers]
+    zl = [torch.randn((S, X.shape[0], l.num_outputs), generator=gen,
+                      device=DEVICE) for l in layers]
+    path = path_of(model)
+    compare_on_off(
+        tag, model, rows,
+        lambda params, Xr, dtype: tdgp.predict_y(
+            params, Xr, samples, zs=[z.to(dtype) for z in zr]),
+        lambda params, dtype: tdgp.elbo(
+            params, X.to(dtype), Y.to(dtype), S,
+            zs=[z.to(dtype) for z in zl]),
+        expected_counts(path, 1, 2), expected_counts(path, 1, 2, loss=True),
+        [f"layers.{i}.{name}" for i in range(2)
+         for name in ("z", "kernel.variance_raw")], gradient_witness=True,
+        vector=vector)
+
+
+def compare_cls(model, white, robust):
+    """compare_head for the trained classifier (non-whitened: #5/#6; and
+    whitened: #1/#2, under the quadrature head) on the held-out rows at
+    CLS_SAMPLES samples, and for the trained Student-t model on its rows,
+    whose gradients are held as one vector: at its trained state layer 0's
+    kernel gradients nearly vanish (|g| ~0.6 where layer 1's z reads ~100)
+    and float32 alone puts them 4e-2 to 4e-1 off float64 (an H100 reading
+    of the plain versions), beyond any per-entry witness's cap."""
+    Xt = cls_rows()[2]
+    compare_head("cls", model, Xt, CLS_S, CLS_SAMPLES, 13)
+    compare_head("cls whitened", white, Xt, CLS_S, CLS_SAMPLES, 14)
+    compare_head("cls Student-t", robust, robust.data[0].cpu().numpy(), T_S,
+                 CLS_SAMPLES, 15, vector=True)
+
+
+def time_cls(models, gpu):
+    """time_staged for the classifier (non-whitened and whitened) and the
+    Student-t model: ms per loss-and-gradient and per request of the
+    held-out rows (its own rows) at CLS_SAMPLES samples, and the device
+    idle share over three Adam steps."""
+    model, white, robust = models
+    Xt = cls_rows()[2]
+    for label, m, rows in (
+            (f"cls (classifier, N {CLS_N}, S {CLS_S})", model, Xt),
+            (f"cls-whitened (classifier, N {CLS_N}, S {CLS_S})", white, Xt),
+            (f"Student-t (N {T_N}, S {T_S})", robust,
+             robust.data[0].cpu().numpy())):
+        time_staged(label, m, rows, gpu, samples=CLS_SAMPLES,
+                    predict=lambda m=m, rows=rows: m.predict(rows, CLS_SAMPLES))
+
+
+# -- phase 13 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -4875,6 +5199,12 @@ def main():
     err_qf, err_qf_bwd = max(err_qf, mo_bo_err[0]), max(err_qf_bwd, mo_bo_err[1])
     err_chol = [max(err_chol[0], mo_bo_err[2]), max(err_chol[1], mo_bo_err[3])]
     paths.append(run_mo_bo(gpu))
+    cls_err = check_cls_kernels()
+    err_qf, err_qf_bwd = max(err_qf, cls_err[0]), max(err_qf_bwd, cls_err[1])
+    err_chol = [max(err_chol[0], cls_err[2]), max(err_chol[1], cls_err[3])]
+    launched, cls_models = run_cls(gpu)
+    paths.append(launched)
+    compare_cls(*cls_models)
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 
@@ -4932,6 +5262,7 @@ def main():
     time_mf(model_mf, gpu)
     time_em(model_em, gpu)
     time_mo(model_mo, gpu)
+    time_cls(cls_models, gpu)
     time_engine(gpu)
 
     source = "dgp_tpu_torch/csrc/conditional_fused_rbf.cu"

@@ -19,7 +19,7 @@ The tree is plain data::
     {"layers": [{"kernel": K, "z": [M, Din], "q_mu": [M, D],
                  "q_sqrt": [D, M, M], "mean_function": F,
                  "num_outputs": D, "white": bool, "input_prop_dim": int|None}],
-     "likelihood": {"type": "Gaussian", "variance_raw": []}}
+     "likelihood": L}
 
 where an augmented layer (the multi-fidelity and multi-objective models')
 holds ``"z_left": [M, D_left]`` in place of ``"z"``, and an
@@ -30,7 +30,9 @@ with K = {"type": "RBF" | "Matern32" | "Matern52", "variance_raw",
 "lengthscales_raw", "active_dims"}, {"type": "Linear" | "White",
 "variance_raw", "active_dims"} or {"type": "Sum" | "Product", "kernels":
 [K, ...]}, and F = {"type": "Zero", "num_outputs"}, {"type": "Identity"} or
-{"type": "LinearMean", "W": [Din, D]}. A ``GPRParams`` gives
+{"type": "LinearMean", "W": [Din, D]}, and L = {"type": "Gaussian",
+"variance_raw": []}, {"type": "Bernoulli", "num_gh": int} or {"type":
+"StudentT", "scale_raw": [], "df": float, "num_gh": int}. A ``GPRParams`` gives
 ``{"kernel": K, "likelihood": {...}}``, an ``AR1Params`` ``{"kernels":
 [K, ...], "rho": [L-1], "likelihoods": [{...}, ...]}`` and NARGP's levels
 ``{"levels": [{"kernel": K, "likelihood": {...}}, ...]}``. Raw values are
@@ -96,9 +98,15 @@ def _mean_tree(mf):
 
 
 def _likelihood_tree(lik):
-    if type(lik).__name__ != "Gaussian":
-        raise TypeError(f"no port of likelihood {type(lik).__name__}")
-    return {"type": "Gaussian", "variance_raw": _np(lik.variance_raw)}
+    name = type(lik).__name__
+    if name == "Gaussian":
+        return {"type": name, "variance_raw": _np(lik.variance_raw)}
+    if name == "Bernoulli":
+        return {"type": name, "num_gh": int(lik.num_gh)}
+    if name == "StudentT":
+        return {"type": name, "scale_raw": _np(lik.scale_raw),
+                "df": float(lik.df), "num_gh": int(lik.num_gh)}
+    raise TypeError(f"no port of likelihood {name}")
 
 
 def numpy_tree_from_reference(params) -> dict:
@@ -240,9 +248,15 @@ def mf_dgp_em_from_numpy(tree: dict, device, dtype) -> MFDGPEMParams:
 
 
 def _likelihood(tree, device, dtype):
-    if tree["type"] != "Gaussian":
-        raise TypeError(f"no port of likelihood {tree['type']}")
-    return likelihoods.Gaussian(_tensor(tree["variance_raw"], device, dtype))
+    name = tree["type"]
+    if name == "Gaussian":
+        return likelihoods.Gaussian(_tensor(tree["variance_raw"], device, dtype))
+    if name == "Bernoulli":
+        return likelihoods.Bernoulli(tree["num_gh"])
+    if name == "StudentT":
+        return likelihoods.StudentT(_tensor(tree["scale_raw"], device, dtype),
+                                    tree["df"], tree["num_gh"])
+    raise TypeError(f"no port of likelihood {name}")
 
 
 def gpr_from_numpy(tree: dict, device, dtype) -> GPRParams:

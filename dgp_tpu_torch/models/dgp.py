@@ -20,12 +20,12 @@ from torch import nn
 from ..config import default_float, ieee_fp32, resolve_device
 from ..layers.initializations import init_layers_linear
 from ..layers.svgp import layer_kl, sample_from_conditional, stack_projections
-from ..ops.likelihoods import Gaussian
+from ..ops.likelihoods import Gaussian, Likelihood
 from . import training
 
 
 class DGPParams(nn.Module):
-    def __init__(self, layers, likelihood: Gaussian):
+    def __init__(self, layers, likelihood: Likelihood):
         super().__init__()
         self.layers = nn.ModuleList(layers)
         self.likelihood = likelihood
@@ -205,7 +205,7 @@ class DGP:
     name = "dgp"
 
     def __init__(self, X, Y, Z, kernels, num_units,
-                 likelihood: Optional[Gaussian] = None, num_outputs=None,
+                 likelihood: Optional[Likelihood] = None, num_outputs=None,
                  mean_function=None, white=False, num_samples=1,
                  minibatch_size: Optional[int] = None,
                  n_bucket: Optional[int] = None, seed=0,

@@ -1,1 +1,4 @@
-"""Utilities: checkpointing."""
+"""Utilities: checkpointing and monitoring (``profiling`` is imported on
+its own)."""
+
+from . import checkpoint, monitor  # noqa: F401

@@ -959,3 +959,72 @@ def test_exact_surrogates_go_through_the_cholesky_kernel(cuda, kind):
     rows = np.random.default_rng(2).uniform(size=(1_000, chip_smoke.XMF_D))
     chip_smoke.exact_predictions(f"card test {kind}", model, rows,
                                  chip_smoke.XMF_S, "card test")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_t1", [False, True])
+@pytest.mark.parametrize("D,M,n", chip_smoke.CLS_QUADFORM)
+def test_quadform_kernels_at_the_cls_shapes(cuda, with_t1, D, M, n):
+    """Kernels #5 and #6 at the classifier's (D = 2 and 1, M = 30), the
+    Student-t model's (D = 1, M = 20) and the nb_DGP_regression model's
+    (D = 1, M = 25) shapes, held as in test_quadform_kernels_match_plain."""
+    chip_smoke.check_quadform(D, M, n, with_t1, M + n % 97)
+    chip_smoke.check_quadform_backward(D, M, n, with_t1, M + n % 97)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cholesky_kernels_on_the_cls_kuu(cuda, inverse):
+    """Kernels #7 and #8 on the classifier's [2, 30, 30], the Student-t
+    model's [2, 20, 20] and the nb_DGP_regression model's [3, 25, 25] Kuu
+    stacks, held to their float64 twins under the float32 jitter, L by the
+    witness rule (chip_smoke.check_cls_kernels)."""
+    for name, stack in chip_smoke.cls_kuu():
+        assert chip_smoke.check_cholesky(stack[0].shape[0],
+                                         stack[0].shape[-1], 0, inverse,
+                                         kuu=name, stack=stack,
+                                         witness=True) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["Bernoulli", "StudentT"])
+def test_quadrature_likelihoods_on_the_card(cuda, name):
+    """The quadrature heads on float32 CUDA tensors against the same
+    functions on the CPU in float64, within float32 rounding of scale."""
+    from dgp_tpu_torch.ops import likelihoods as L
+
+    rng = np.random.default_rng(5)
+    Fmu = rng.normal(size=(4, 30, 2))
+    Fvar = rng.uniform(0.0, 2.0, size=(4, 30, 2))
+    Y = rng.normal(size=(30, 2))
+    if name == "Bernoulli":
+        liks = [L.Bernoulli(), L.Bernoulli()]
+        Y = (Y > 0).astype(float)
+    else:
+        liks = [L.StudentT.create(0.3, df=4.0, dtype=dtype, device=device)
+                for dtype, device in ((torch.float32, cuda),
+                                      (torch.float64, "cpu"))]
+    outs = []
+    for lik, dtype, device in zip(liks, (torch.float32, torch.float64),
+                                  (cuda, "cpu")):
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+        outs.append([lik.variational_expectations(t(Fmu), t(Fvar), t(Y)),
+                     lik.predict_density(t(Fmu), t(Fvar), t(Y)),
+                     *lik.predict_mean_and_var(t(Fmu), t(Fvar))])
+    for got, want in zip(*outs):
+        assert got.is_cuda and got.dtype == torch.float32
+        err = float((got.detach().double().cpu() - want.detach()).abs().max())
+        assert err <= 1e-5 * float(want.detach().abs().max()), (name, err)
+
+
+@pytest.mark.cuda
+def test_cls_heads_go_through_the_kernels(cuda):
+    """The smoke run's cls phase: the classifier trained by Adam and served
+    (#5-#8 as reckoned), a fresh one by natural gradients, the whitened
+    classifier through #1/#2 and the Student-t model by Adam + natural
+    gradients (chip_smoke.run_cls); then each trained model's request and
+    loss gradient with the kernels on and off and against float64
+    (chip_smoke.compare_cls)."""
+    launched, models = chip_smoke.run_cls("card test")
+    assert min(launched[:2] + launched[4:8]) > 0
+    chip_smoke.compare_cls(*models)

@@ -63,7 +63,12 @@ def test_no_jax_imports_in_port():
             "../compat_torch/validate_mf_bo.py", "models/mo_dgp.py",
             "bo/problems.py", "../compat_torch/validate_mo_dgp.py",
             "bo/ehvi.py", "bo/mo_bo.py", "native/__init__.py",
-            "../compat_torch/validate_mo_bo_loop.py"} <= rel
+            "../compat_torch/validate_mo_bo_loop.py", "ops/likelihoods.py",
+            "utils/monitor.py", "utils/profiling.py",
+            "../compat_torch/validate_classification.py",
+            "../compat_torch/validate_robust_regression.py",
+            "../compat_torch/validate_dgp_regression.py",
+            "../compat_torch/validate_bo.py"} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -152,6 +157,23 @@ mo_bo = MO_BO(problem=get("multi_obj_1D_4"), DoE_size=6, seed=0,
                          "kernels": "rbf", "iterations": 3}, device="cpu")
 trace = mo_bo.run(1, S=5, popsize_DE=6, iterations_DE=2, verbose=False)
 assert len(trace) == 2 and trace[1] >= trace[0] and native.available()
+from dgp_tpu_torch.ops.likelihoods import Bernoulli, StudentT
+from dgp_tpu_torch.layers.initializations import init_layers_linear
+from dgp_tpu_torch.utils import monitor, profiling
+import compat_torch.validate_classification, compat_torch.validate_bo
+import compat_torch.validate_robust_regression
+import compat_torch.validate_dgp_regression
+Yc = (X[:, :1] > 0.5).astype(float)
+for lik in (Bernoulli(5), StudentT.create(0.2)):
+    layers = init_layers_linear(X, Yc, X[:5], [K.RBF.create(lengthscales=[1.0, 1.0]),
+                                K.RBF.create(lengthscales=[1.0])], [1],
+                                device="cpu")
+    head = DGP.from_layers(X, Yc, layers, likelihood=lik, num_samples=2,
+                           device="cpu")
+    rate, _ = profiling.steps_per_sec(
+        lambda m: (m.optimize_nat_adam(iterations1=1, iterations2=1,
+                                       messages=0), m)[1], head, 1, 0)
+    assert rate > 0 and monitor.summary(head, print_fn=None)
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")

@@ -274,7 +274,23 @@ Phases, each of which raises (exit code 1) on any fault:
              and loss gradient on fixed unit normals with the kernels on
              and off (the witness rule for the gradients) and the request
              against float64.
-13. timing — CUDA-event times of every kernel and of its plain version at
+13. parallel — data parallelism over torch.distributed at full width: a
+             world-size-1 NCCL process group in this process, bench.py's
+             whitened model on its mesh (10 Adam, 3 + 5 Adam+natural-gradient
+             steps, a 100,000-row predict_y_sharded request whole and in
+             chunks of 25,000, held to the unsharded request by a band of
+             its Monte-Carlo error), the non-whitened model, a 128-row GPR
+             (#7), MF, EM and MO: each one sharded loss-and-gradient against
+             the unsharded one on one recorded draw (each rank its rows'
+             share) within PAR_TOL plus twice float32's own error against
+             float64, and one request (the 1-layer and GPR requests held to
+             the unsharded ones within PAR_TOL); then two spawned gloo ranks
+             sharing cuda:0 (the whitened, non-whitened and MF
+             losses-and-gradients, the 1-layer request, 2 Adam steps whose
+             parameters and gradients must be bit-equal across the ranks).
+             Launches as reckoned from each rank's rows; ms per sharded Adam
+             step and request beside the unsharded ones, and profiles.
+14. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -1586,10 +1602,11 @@ def f64_twin():
 # -- phase 4 --------------------------------------------------------------------
 
 
-def training_model(white=True, seed=0, composite=False):
+def training_model(white=True, seed=0, composite=False, mesh=None):
     """bench.py's model and data, built from the seed with numpy; the
     non-whitened model starts from the prior q_sqrt = chol(Kuu). With
-    ``composite`` every layer's kernel is RBF + Linear (composite_kernel)."""
+    ``composite`` every layer's kernel is RBF + Linear (composite_kernel);
+    with ``mesh`` it trains data-parallel on it."""
     from dgp_tpu_torch.models.dgp import DGP
     from dgp_tpu_torch.ops import kernels as K
 
@@ -1605,7 +1622,7 @@ def training_model(white=True, seed=0, composite=False):
         kernels = [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN, **f32),
                    K.RBF.create(variance=1.0, lengthscales=[1.0] * HIDDEN, **f32)]
     return DGP(X, Y, Z, kernels, [HIDDEN], num_samples=S, white=white,
-               device=DEVICE, dtype=torch.float32)
+               mesh=mesh, device=DEVICE, dtype=torch.float32)
 
 
 def train(model, gpu, adam_steps, nat_steps, masked_steps=0):
@@ -1868,16 +1885,17 @@ def run_bo(gpu):
 # -- phase 6: the multi-fidelity deep GP ----------------------------------------
 
 
-def mf_model(seed=0):
+def mf_model(seed=0, mesh=None):
     """The Park configuration (MF_*) as a MultiFidelityDeepGP on the card
-    in float32, its data from the port's own lhs and test functions."""
+    in float32, its data from the port's own lhs and test functions (on
+    ``mesh`` where given)."""
     from dgp_tpu_torch.bo.doe import lhs
     from dgp_tpu_torch.models.mf_dgp import MultiFidelityDeepGP
     from dgp_tpu_torch.utils.test_functions import park_high, park_low
 
     X = [lhs(MF_DIN, MF_N[0], seed=123), lhs(MF_DIN, MF_N[1], seed=124)]
     Y = [park_low(X[0]), park_high(X[1])]
-    return MultiFidelityDeepGP(X, Y, num_samples=MF_S, seed=seed,
+    return MultiFidelityDeepGP(X, Y, num_samples=MF_S, seed=seed, mesh=mesh,
                                device=DEVICE, dtype=torch.float32)
 
 
@@ -2262,10 +2280,10 @@ def time_mf(model, gpu):
 # -- phase 7: the multi-fidelity deep GP with Embedded Mapping ---------------------
 
 
-def em_model(seed=0):
+def em_model(seed=0, mesh=None):
     """The Park_VD configuration (EM_*) as a MultiFidelityDeepGP_EM on the
-    card in float32, its data from the port's own lhs and test
-    functions."""
+    card in float32, its data from the port's own lhs and test functions
+    (on ``mesh`` where given)."""
     from dgp_tpu_torch.bo.doe import lhs
     from dgp_tpu_torch.models.mf_dgp_em import MultiFidelityDeepGP_EM
     from dgp_tpu_torch.utils.test_functions import park_vd_high, park_vd_low
@@ -2273,8 +2291,8 @@ def em_model(seed=0):
     X = [lhs(EM_DIN[0], EM_N[0], seed=123), lhs(EM_DIN[1], EM_N[1], seed=0)]
     Y = [park_vd_low(X[0]), park_vd_high(X[1])]
     return MultiFidelityDeepGP_EM(X, Y, [X[1][:, :EM_DIN[0]]],
-                                  num_samples=EM_S, seed=seed, device=DEVICE,
-                                  dtype=torch.float32)
+                                  num_samples=EM_S, seed=seed, mesh=mesh,
+                                  device=DEVICE, dtype=torch.float32)
 
 
 def em_request_rows():
@@ -3376,14 +3394,14 @@ def mo_data():
             (X_.mean(0), X_.std(0)))
 
 
-def mo_model(seed=0):
+def mo_model(seed=0, mesh=None):
     """The multi_obj_1D_4 configuration (MO_*) as a MultiObjDeepGP on the
-    card in float32."""
+    card in float32 (on ``mesh`` where given)."""
     from dgp_tpu_torch.models.mo_dgp import MultiObjDeepGP
 
     X, Y, _ = mo_data()
     return MultiObjDeepGP(X, Y, loop=MO_LOOP, num_samples=MO_S, seed=seed,
-                          device=DEVICE, dtype=torch.float32)
+                          mesh=mesh, device=DEVICE, dtype=torch.float32)
 
 
 def mo_request_rows():
@@ -4447,7 +4465,519 @@ def time_cls(models, gpu):
                     predict=lambda m=m, rows=rows: m.predict(rows, CLS_SAMPLES))
 
 
-# -- phase 13 -------------------------------------------------------------------
+# -- phase 13: data parallelism over torch.distributed ------------------------
+
+PAR_ADAM, PAR_NAT = 10, (3, 5)   # the whitened mesh model's steps (world 1)
+PAR_CHUNK = 25_000               # the chunked request's chunks
+PAR_TOL = 1e-5                   # sharded vs unsharded, of scale: the
+                                 # float32 reduction order
+PAR_GPR_N = 128                  # the exact GPR's training rows (#7's plan)
+PAR_STEPS = 2                    # Adam steps per rank at world size 2
+PAR_ROUNDS = 3                   # timing rounds, sharded and not in turns
+PAR_TIMED_STEPS = 5              # Adam steps per timing round
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def recorded_draws(fn):
+    """fn()'s result and every unit normal it drew, in order (torch.randn
+    wrapped: every draw of the port's models goes through it)."""
+    real, draws = torch.randn, []
+
+    def randn(*args, **kwargs):
+        z = real(*args, **kwargs)
+        draws.append(z.clone())
+        return z
+
+    torch.randn = randn
+    try:
+        out = fn()
+    finally:
+        torch.randn = real
+    return out, draws
+
+
+def rank_rows(z, axis, block, n_blocks):
+    """This block's rows of ``z`` along ``axis``, the rows zero-padded to a
+    multiple of the blocks first, as pad_shard_batch pads the data."""
+    n = z.shape[axis]
+    b = -(-n // n_blocks)
+    shape = list(z.shape)
+    shape[axis] = b * n_blocks - n
+    return torch.cat([z, z.new_zeros(shape)], dim=axis).narrow(
+        axis, block * b, b)
+
+
+def rank_share(draws, samples, block, n_blocks):
+    """This rank's share of one unsharded evaluation's draws: a layer's
+    [S, N, D] draw and MO's [N, 1] its rows' block; the augmented inducing
+    inputs' [50, M, D] draws whole."""
+    out = []
+    for z in draws:
+        if z.dim() == 3 and z.shape[0] == samples:
+            z = rank_rows(z, 1, block, n_blocks)
+        elif z.dim() == 2:
+            z = rank_rows(z, 0, block, n_blocks)
+        out.append(z)
+    return out
+
+
+def par_elbo(kind):
+    """elbo_of(model, gen=None, noise=None) for a family (the DGP's fixed
+    normals are its zs)."""
+    from dgp_tpu_torch.models import dgp, mf_dgp, mf_dgp_em, mo_dgp
+
+    return {
+        "dgp": lambda m, gen=None, noise=None: dgp.elbo(
+            m.params, *m.data, m.num_samples, gen, zs=noise),
+        "mf": lambda m, gen=None, noise=None: mf_dgp.elbo(
+            m.params, m._X, m._Y, m.num_samples, gen, noise=noise),
+        "em": lambda m, gen=None, noise=None: mf_dgp_em.elbo(
+            m.params, m._X, m._Y, m._X_red, m.num_samples, gen, noise=noise),
+        "mo": lambda m, gen=None, noise=None: mo_dgp.elbo(
+            m.params, m._X, m._Y, m.num_samples, gen, loop=m.loop,
+            noise=noise)}[kind]
+
+
+def f64_model(model):
+    """A float64 copy of what par_elbo reads of a wrapper: its parameters,
+    its data and its sizes (the same function under f64_twin)."""
+    import copy
+    import types
+
+    twin = types.SimpleNamespace(params=copy.deepcopy(model.params).double(),
+                                 num_samples=model.num_samples,
+                                 loop=getattr(model, "loop", None))
+    for attr in ("data", "_X", "_Y", "_X_red"):
+        if hasattr(model, attr):
+            setattr(twin, attr, [t.double() for t in getattr(model, attr)])
+    return twin
+
+
+def hold_sharded(tag, kind, single, sharded, expect):
+    """One sharded loss-and-gradient of ``sharded`` (a model on a mesh, this
+    rank handed its share of one draw) against the unsharded one of
+    ``single`` (the same parameters, the whole draw): the loss and each
+    gradient within PAR_TOL of its scale plus twice the unsharded float32
+    gradient's own error against its float64 twin on the same draw (the
+    witness rule, that term at most WITNESS_CAP): a different order of the
+    sums over rows moves a gradient whose terms cancel by as much as
+    float32 itself is off. The sharded evaluation's launches (zeroed
+    before it, read after) must be ``expect``. Returns (worst error, the
+    reduced gradient, the launches)."""
+    from dgp_tpu_torch.parallel.mesh import block_of
+
+    elbo_of = par_elbo(kind)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    with torch.no_grad():
+        _, draws = recorded_draws(lambda: elbo_of(single, gen=gen))
+    want = -elbo_of(single, noise=draws)
+    names = [n for n, _ in single.params.named_parameters()]
+    want_g = torch.autograd.grad(want, list(single.params.parameters()),
+                                 allow_unused=True)
+    twin = f64_model(single)
+    with f64_twin():
+        ref_g = torch.autograd.grad(
+            -elbo_of(twin, noise=[z.double() for z in draws]),
+            list(twin.params.parameters()), allow_unused=True)
+    loss, batch = sharded._loss_spec()
+    block, n_blocks = block_of(sharded.mesh)
+    share = rank_share(draws, single.num_samples, block, n_blocks)
+    zero_counts()
+    got = loss(sharded.params, sharded.generator, batch,
+               **{"zs" if kind == "dgp" else "noise": share})
+    got_g = loss.reduce_grads(torch.autograd.grad(
+        got, list(sharded.params.parameters()), allow_unused=True))
+    sync()
+    launched = counts()
+    if launched != expect:
+        raise AssertionError(f"[parallel] {tag}: launches {launched}, "
+                             f"expected {expect}")
+    worst = abs(float((got - want).detach())) / abs(float(want.detach()))
+    report, failed = [f"loss {worst:.2e}"], worst > PAR_TOL
+    for name, a, b, r in zip(names, got_g, want_g, ref_g):
+        if b is None or not float(b.abs().max()):
+            continue
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        own = float((b.double() - r).abs().max()) / float(r.abs().max())
+        limit = PAR_TOL + min(2 * own, WITNESS_CAP)
+        worst = max(worst, err)
+        failed |= not err <= limit
+        report.append(f"{name} {err:.2e} (limit {limit:.2e})")
+    log(f"[parallel] {tag}: sharded vs unsharded on one draw, err / scale "
+        f"(limit {PAR_TOL} + 2x float32's own error): {', '.join(report)}")
+    if failed:
+        raise AssertionError(f"[parallel] {tag}: sharded vs unsharded beyond "
+                             f"the limits")
+    return worst, [g.cpu().numpy() for g in got_g if g is not None], launched
+
+
+def one_layer_model(mesh=None):
+    """bench.py's data and inducing points with one whitened RBF layer
+    (D = 1): its request does not depend on the draws."""
+    from dgp_tpu_torch.models.dgp import DGP
+    from dgp_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 1, size=(N_TRAIN, DIN))
+    Y = np.sin(3 * X[:, :1]) + 0.05 * rng.normal(size=(N_TRAIN, 1))
+    Z = X[rng.choice(N_TRAIN, M, replace=False)].copy()
+    model = DGP(X, Y, Z, [K.RBF.create(variance=1.0, lengthscales=[1.0] * DIN,
+                                       dtype=torch.float32, device=DEVICE)],
+                [], num_samples=S, white=True, mesh=mesh, device=DEVICE,
+                dtype=torch.float32)
+    perturb(model, np.random.default_rng(8))
+    return model
+
+
+def gpr_model():
+    """An exact GPR on PAR_GPR_N rows in DIN dimensions, float32 on the card
+    (its Gram factored by #7)."""
+    from dgp_tpu_torch.models.gpr import GPR
+    from dgp_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(4)
+    X = rng.uniform(0, 1, size=(PAR_GPR_N, DIN))
+    Y = np.sin(3 * X[:, :1]) + X[:, 1:2] ** 2
+    return GPR((X, Y), K.RBF.create(lengthscales=[0.7] * DIN,
+                                    dtype=torch.float32, device=DEVICE),
+               noise_variance=1e-3, device=DEVICE, dtype=torch.float32)
+
+
+def hold_request(tag, got, want):
+    """A deterministic request, sharded against unsharded: within PAR_TOL
+    of scale."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"[parallel] {tag}: bad sharded output")
+        worst = max(worst, float((a - b).abs().max()) / float(b.abs().max()))
+    if not worst <= PAR_TOL:
+        raise AssertionError(f"[parallel] {tag}: sharded vs unsharded {worst:.2e}")
+    return worst
+
+
+def moment_band(tag, got, want):
+    """Two requests of a 2-layer model on different streams: per row, the
+    squared difference of the sample means over its Monte-Carlo variance
+    (the two requests' sample variances / S) averages about 1; a row served
+    from another row's block would push it far past 2."""
+    (gm, gv), (wm, wv) = got, want
+    if gm.shape != wm.shape or not (torch.isfinite(gm).all()
+                                    and (gv > 0).all()):
+        raise AssertionError(f"[parallel] {tag}: bad sharded output")
+    S_ = gm.shape[0]
+    z2 = ((gm.mean(0) - wm.mean(0)) ** 2
+          / ((gm.var(0) + wm.var(0)) / S_ + 1e-30))
+    score = float(z2.mean())
+    if not 0.5 <= score <= 2.0:
+        raise AssertionError(f"[parallel] {tag}: mean squared z {score:.3f}")
+    return score
+
+
+def timed_rounds(fns, rounds=PAR_ROUNDS):
+    """{name: [wall ms per call of each round]}, the functions called in
+    turns, each round after a warm-up call."""
+    out = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            _, dt = timed(fn)
+            out[name].append(1e3 * dt)
+    return out
+
+
+def par_family(kind, mesh):
+    """(unsharded model, model on the mesh, request rows, expected
+    launches of one loss-and-gradient, of one request) for MF, EM or
+    MO."""
+    build, rows, reckon = {
+        "mf": (mf_model, mf_request_rows, mf_expected_counts),
+        "em": (em_model, em_request_rows, em_expected_counts),
+        "mo": (mo_model, mo_request_rows, mo_expected_counts)}[kind]
+    single, sharded = build(), build(mesh=mesh)
+    for m in (single, sharded):
+        m._init_variational()
+    return (single, sharded, rows(), reckon(losses=1), reckon(requests=1))
+
+
+def run_parallel_ws1(gpu):
+    """World size 1 under NCCL in this process: bench.py's whitened model
+    trained on a mesh (PAR_ADAM Adam, PAR_NAT Adam + natural-gradient
+    steps) and serving a 100,000-row request whole and in chunks; the
+    non-whitened model, the exact GPR, MF, EM and MO each through one
+    sharded loss-and-gradient and a request. Returns the launches of the
+    sharded path (the unsharded twins' evaluations not counted)."""
+    import torch.distributed as dist
+
+    from dgp_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        return parallel_ws1_body(gpu, make_mesh())
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_ws1_body(gpu, mesh):
+    import torch.distributed as dist
+
+    launched = (0,) * 11
+    add = lambda c: tuple(a + b for a, b in zip(launched, c))
+    log(f"[parallel] world size 1 ({dist.get_backend()}): mesh {mesh}")
+
+    model = training_model(mesh=mesh)
+    launched = add(train(model, gpu, PAR_ADAM, PAR_NAT))
+    log(f"[parallel] whitened model on the mesh trained through the sharded "
+        f"loss: launches {launched}")
+    rng = np.random.default_rng(6)
+    Xr = rng.uniform(0, 1, size=(N_REQUEST, DIN))
+    for chunk in (None, PAR_CHUNK):
+        zero_counts()
+        with torch.no_grad():
+            (mean, var), dt = timed(lambda: model.predict_y_sharded(
+                Xr, S, chunk_size=chunk))
+        n_eval = 1 if chunk is None else N_REQUEST // chunk
+        expect = expected_counts("stationary", n_eval, 2)
+        if counts() != expect or mean.shape != (S, N_REQUEST, 1):
+            raise AssertionError(f"[parallel] request (chunk {chunk}): "
+                                 f"launches {counts()}, expected {expect}")
+        launched = add(counts())
+        log(f"[parallel] predict_y_sharded {N_REQUEST} rows, chunk {chunk}: "
+            f"{1e3 * dt:.2f} ms (first call), launches {counts()}")
+    with torch.no_grad():
+        band = moment_band("2-layer request", (mean, var),
+                           model.predict_y(Xr, S))
+    log(f"[parallel] 2-layer sharded request vs unsharded: mean z^2 "
+        f"{band:.3f} (band 0.5-2)")
+
+    errs = {}
+    for white, tag in ((True, "whitened"), (False, "non-whitened")):
+        single, sharded = training_model(white=white), training_model(
+            white=white, mesh=mesh)
+        for m in (single, sharded):
+            perturb(m, np.random.default_rng(3))
+        path = "stationary" if white else "nonwhite"
+        errs[tag], _, c = hold_sharded(tag, "dgp", single, sharded,
+                                       expected_counts(path, 1, 2, loss=True))
+        launched = add(c)
+        if not white:
+            zero_counts()
+            with torch.no_grad():
+                out = sharded.predict_y_sharded(Xr, S)
+            if counts() != expected_counts(path, 1, 2):
+                raise AssertionError(f"[parallel] non-whitened request: "
+                                     f"launches {counts()}")
+            launched = add(counts())
+    one, one_mesh = one_layer_model(), one_layer_model(mesh)
+    zero_counts()
+    with torch.no_grad():
+        got = one_mesh.predict_y_sharded(Xr, S)
+        launched = add(counts())
+        errs["1-layer request"] = hold_request(
+            "1-layer request", got, one.predict_y(Xr, S))
+    gpr = gpr_model()
+    zero_counts()
+    with torch.no_grad():
+        got = gpr.predict_y_sharded(Xr, mesh)
+        if counts() != (0,) * 6 + (1,) + (0,) * 4:
+            raise AssertionError(f"[parallel] GPR request: launches {counts()}")
+        launched = add(counts())
+        errs["GPR request"] = hold_request("GPR request", got,
+                                           gpr.predict_y(Xr))
+    for kind in ("mf", "em", "mo"):
+        single, sharded, rows, expect_loss, expect_request = par_family(
+            kind, mesh)
+        errs[kind], _, c = hold_sharded(kind, kind, single, sharded,
+                                        expect_loss)
+        launched = add(c)
+        zero_counts()
+        with torch.no_grad():
+            mean, var = sharded.predict_y_sharded(rows, sharded.num_samples)
+        if counts() != expect_request or not torch.isfinite(mean).all():
+            raise AssertionError(f"[parallel] {kind} request: launches "
+                                 f"{counts()}, expected {expect_request}")
+        launched = add(counts())
+    log(f"[parallel] sharded vs unsharded on one draw, err / scale (tol "
+        f"{PAR_TOL}): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    single = training_model()
+    times = timed_rounds({
+        "adam": lambda: single.optimize_adam(
+            iterations=PAR_TIMED_STEPS, messages=0, shrink_inner=False),
+        "adam_sharded": lambda: model.optimize_adam(
+            iterations=PAR_TIMED_STEPS, messages=0, shrink_inner=False),
+        "request": lambda: single.predict_y(Xr, S),
+        "request_sharded": lambda: model.predict_y_sharded(Xr, S)})
+    per_step = {k: [t / PAR_TIMED_STEPS for t in v] if k.startswith("adam")
+                else v for k, v in times.items()}
+    log(f"[parallel] world size 1 ms per Adam step (whitened, N {N_TRAIN}) "
+        f"and per {N_REQUEST}-row request, {PAR_ROUNDS} rounds in turns: "
+        + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                    for k, v in per_step.items()) + f" ({gpu})")
+    for label, m in (("unsharded", single), ("sharded, world size 1", model)):
+        profile_run(f"three {label} whitened Adam steps", lambda m=m:
+                    m.optimize_adam(iterations=3, messages=0,
+                                    shrink_inner=False), gpu)
+    return launched
+
+
+def parallel_rank(rank, world, port, folder):
+    """One rank of the world-size-2 run (both ranks on cuda:0, gloo): the
+    whitened and non-whitened losses-and-gradients and MF's against the
+    unsharded ones on one draw, a 1-layer request against the unsharded
+    one, PAR_STEPS Adam steps, and timed Adam steps and requests. Saves
+    its results for the parent."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from dgp_tpu_torch import _build
+    from dgp_tpu_torch.parallel.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"rank {rank}: no CUDA device")
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        _build.build()   # the parent built the libraries: this loads them
+        out = parallel_rank_body(rank, make_mesh())
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(folder, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def parallel_rank_body(rank, mesh):
+    """parallel_rank's work on ``mesh``; returns its results."""
+    out = {"launched": (0,) * 11, "errs": {}}
+    add = lambda c: tuple(a + b for a, b in zip(out["launched"], c))
+    grads = {}
+    for white, tag in ((True, "whitened"), (False, "non-whitened")):
+        single, sharded = training_model(white=white), training_model(
+            white=white, mesh=mesh)
+        for m in (single, sharded):
+            perturb(m, np.random.default_rng(3))
+        path = "stationary" if white else "nonwhite"
+        out["errs"][tag], grads[tag], c = hold_sharded(
+            tag, "dgp", single, sharded,
+            expected_counts(path, 1, 2, loss=True))
+        out["launched"] = add(c)
+    single, sharded, _, expect_loss, _ = par_family("mf", mesh)
+    out["errs"]["mf"], grads["mf"], c = hold_sharded(
+        "mf", "mf", single, sharded, expect_loss)
+    out["launched"] = add(c)
+    rng = np.random.default_rng(6)
+    Xr = rng.uniform(0, 1, size=(N_REQUEST, DIN))
+    one, one_mesh = one_layer_model(), one_layer_model(mesh)
+    zero_counts()
+    with torch.no_grad():
+        got = one_mesh.predict_y_sharded(Xr, S)
+        out["launched"] = add(counts())
+        out["errs"]["1-layer request"] = hold_request(
+            "1-layer request", got, one.predict_y(Xr, S))
+    model = training_model(mesh=mesh)
+    zero_counts()
+    model.optimize_adam(iterations=PAR_STEPS, messages=0)
+    sync()
+    if counts() != expected_counts("stationary", PAR_STEPS, 2, loss=True):
+        raise AssertionError(f"rank {rank}: Adam launches {counts()}")
+    out["launched"] = add(counts())
+    out["params"] = {k: v.cpu().numpy().copy()
+                     for k, v in model.params.state_dict().items()}
+    out["grads"] = grads
+    times = timed_rounds({
+        "adam_sharded": lambda: model.optimize_adam(
+            iterations=PAR_TIMED_STEPS, messages=0, shrink_inner=False),
+        "request_sharded": lambda: model.predict_y_sharded(Xr, S)})
+    out["times"] = {k: [t / PAR_TIMED_STEPS for t in v]
+                    if k.startswith("adam") else v
+                    for k, v in times.items()}
+    return out
+
+
+def run_parallel_ws2(gpu, world=2):
+    """World size 2 on the one card: two spawned ranks on cuda:0 under gloo
+    (NCCL refuses two ranks on one GPU), started after this process built
+    the kernels (the ranks only load them). Checks their results: each
+    rank's errors within PAR_TOL, its launches as reckoned from its rows,
+    and both ranks' gradients and parameters after the steps bit-equal.
+    Returns the ranks' launches, summed."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "parallel")
+    os.makedirs(folder, exist_ok=True)
+    for r in range(world):
+        if os.path.exists(os.path.join(folder, f"rank{r}.pkl")):
+            os.remove(os.path.join(folder, f"rank{r}.pkl"))
+    ctx = mp.get_context("spawn")
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=parallel_rank, args=(r, world, port, folder))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if [p.exitcode for p in procs] != [0] * world:
+        raise AssertionError(f"[parallel] world size {world}: rank exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    outs = []
+    for r in range(world):
+        with open(os.path.join(folder, f"rank{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    for r, o in enumerate(outs[1:], 1):
+        for tag in o["grads"]:
+            if not all(np.array_equal(a, b) for a, b in
+                       zip(o["grads"][tag], outs[0]["grads"][tag])):
+                raise AssertionError(f"[parallel] rank {r}'s {tag} gradient "
+                                     f"differs from rank 0's")
+        if not all(np.array_equal(o["params"][k], outs[0]["params"][k])
+                   for k in o["params"]):
+            raise AssertionError(f"[parallel] rank {r}'s parameters after "
+                                 f"{PAR_STEPS} Adam steps differ from rank 0's")
+    for r, o in enumerate(outs):
+        log(f"[parallel] world size {world} (gloo, both ranks on cuda:0), "
+            f"rank {r}: sharded vs unsharded err / scale (tol {PAR_TOL}): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in o["errs"].items())
+            + f"; launches {o['launched']}")
+        log(f"[parallel] world size {world}, rank {r}, two processes sharing "
+            f"one card (not scaling): ms per Adam step and per {N_REQUEST}-row "
+            f"request, {PAR_ROUNDS} rounds: "
+            + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                        for k, v in o["times"].items()) + f" ({gpu})")
+    log(f"[parallel] world size {world}: gradients and the parameters after "
+        f"{PAR_STEPS} Adam steps bit-equal across ranks; "
+        f"{time.perf_counter() - t0:.1f} s with the ranks' start")
+    return tuple(sum(o["launched"][k] for o in outs) for k in range(11))
+
+
+def run_parallel(gpu):
+    """The parallel phase: world size 1 (NCCL) here, then world size 2
+    (gloo) in two ranks; returns the launches of both."""
+    t0 = time.perf_counter()
+    ws1 = run_parallel_ws1(gpu)
+    ws2 = run_parallel_ws2(gpu)
+    log(f"[parallel] phase: {time.perf_counter() - t0:.1f} s")
+    return tuple(a + b for a, b in zip(ws1, ws2))
+
+
+# -- phase 14 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -5205,6 +5735,7 @@ def main():
     launched, cls_models = run_cls(gpu)
     paths.append(launched)
     compare_cls(*cls_models)
+    paths.append(run_parallel(gpu))
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 

@@ -83,15 +83,29 @@ def predict_f(params: DGPParams, X, S: int, generator=None, full_cov=False,
     return Fmeans[-1], Fvars[-1]
 
 
+def weighted_data_term(var_exp, w):
+    """(weighted row sum of E_S[var_exp], effective row count): rows of
+    weight 0 are shape padding (training.pad_to_bucket). The elbos'
+    default ``data_term``; on a mesh, ``parallel.data_parallel`` sums both
+    over the ranks."""
+    per_row = torch.mean(var_exp, dim=0)  # [N, D]
+    if w is None:
+        return torch.sum(per_row), per_row.shape[0]
+    return torch.sum(w[:, None] * per_row), torch.sum(w)
+
+
 @ieee_fp32()
 def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None,
-         num_data: Optional[int] = None, row_weights=None):
+         num_data: Optional[int] = None, row_weights=None, data_term=None):
     """Monte-Carlo ELBO: scale * sum_n E_q[log p(y|f)] - sum KL.
 
     :param num_data: full-dataset size when (X, Y) is a minibatch.
     :param row_weights: optional [N] 0/1 weights — rows with weight 0 are
         shape padding (training.pad_to_bucket) and contribute nothing to the
         data term; the effective row count is sum(row_weights).
+    :param data_term: ``(var_exp, row_weights) -> (row sum, row count)``,
+        :func:`weighted_data_term` by default (a sharded loss sums both over
+        the ranks).
     """
     Y = _like(params, Y)
     # one factorization of each Kuu serves the conditionals and the KL
@@ -99,13 +113,7 @@ def elbo(params: DGPParams, X, Y, num_samples: int, generator=None, zs=None,
     Fmean, Fvar = predict_f(params, X, num_samples, generator, zs=zs,
                             projs=projs)
     var_exp = params.likelihood.variational_expectations(Fmean, Fvar, Y)
-    per_row = torch.mean(var_exp, dim=0)  # [N, D]
-    if row_weights is None:
-        L = torch.sum(per_row)
-        denom = Y.shape[0]
-    else:
-        L = torch.sum(row_weights[:, None] * per_row)
-        denom = torch.sum(row_weights)
+    L, denom = (data_term or weighted_data_term)(var_exp, row_weights)
     kl = sum(layer_kl(layer, layer.z, proj.Lu)
              for layer, proj in zip(params.layers, projs))
     scale = 1.0 if num_data is None else num_data / denom
@@ -197,6 +205,11 @@ class DGP:
         draws a uniform random batch and rescales the data term to the full N.
     :param n_bucket: pad (X, Y) to the next multiple of this many rows with
         zero-weight rows, so shapes stay stable while a BO loop grows N.
+    :param mesh: a ``torch.distributed.device_mesh.DeviceMesh``
+        (``parallel.mesh.make_mesh``): training then runs data-parallel,
+        one process per rank, each holding its block of the rows; the
+        parameters start as the mesh's first rank's, and each rank draws
+        from its own generator (``parallel.data_parallel.rank_generator``).
     :param device: where the model lives and runs; the card unless given.
         With no card and no ``device``, construction raises.
     :param dtype: working dtype (default ``config.default_float()``).
@@ -208,7 +221,7 @@ class DGP:
                  likelihood: Optional[Likelihood] = None, num_outputs=None,
                  mean_function=None, white=False, num_samples=1,
                  minibatch_size: Optional[int] = None,
-                 n_bucket: Optional[int] = None, seed=0,
+                 n_bucket: Optional[int] = None, mesh=None, seed=0,
                  device=None, dtype=None):
         device = resolve_device(device)
         dtype = dtype or default_float()
@@ -218,21 +231,21 @@ class DGP:
                 mean_function=mean_function, white=white, dtype=dtype,
                 device=device)
         self._setup(X, Y, layers, likelihood, num_samples, minibatch_size,
-                    n_bucket, seed, device, dtype)
+                    n_bucket, mesh, seed, device, dtype)
 
     @classmethod
     def from_layers(cls, X, Y, layers, likelihood=None, num_samples=1,
-                    minibatch_size=None, n_bucket=None, seed=0,
+                    minibatch_size=None, n_bucket=None, mesh=None, seed=0,
                     device=None, dtype=None):
         """Build a DGP from a custom layer stack."""
         self = cls.__new__(cls)
         self._setup(X, Y, layers, likelihood, num_samples, minibatch_size,
-                    n_bucket, seed, resolve_device(device),
+                    n_bucket, mesh, seed, resolve_device(device),
                     dtype or default_float())
         return self
 
     def _setup(self, X, Y, layers, likelihood, num_samples, minibatch_size,
-               n_bucket, seed, device, dtype):
+               n_bucket, mesh, seed, device, dtype):
         likelihood = likelihood or Gaussian.create(1.0, dtype=dtype)
         self.params = DGPParams(layers, likelihood).to(device=device,
                                                        dtype=dtype)
@@ -244,7 +257,9 @@ class DGP:
             torch.as_tensor(np.asarray(X), dtype=dtype, device=device),
             torch.as_tensor(np.asarray(Y), dtype=dtype, device=device),
         )
+        self.seed = seed
         self.generator = torch.Generator(device=device).manual_seed(seed)
+        self.mesh = training.on_mesh(self, mesh)
 
     def _as_input(self, X):
         return torch.as_tensor(X, dtype=self.dtype, device=self.device)
@@ -255,10 +270,21 @@ class DGP:
         With ``minibatch_size`` set, each evaluation draws a uniform random
         batch and rescales the data term to the full N. With ``n_bucket``
         set, (X, Y) is padded to the next row bucket with zero-weight rows.
-        (Data-parallel training over several cards is not ported yet, so
-        there is no ``mesh``.)"""
+        With ``mesh`` set, the ELBO runs data-parallel: this rank's block of
+        the rows (padded to a multiple of the row ranks with 0/1 weights)
+        and one all-reduce per data term and per gradient — 1-D data
+        meshes, 2-D data x sample meshes and (slice, data) meshes, with
+        ``minibatch_size`` through per-rank unbiased index draws
+        (``parallel.data_parallel``)."""
         X, Y = self.data
         S, B, N = self.num_samples, self.minibatch_size, X.shape[0]
+        if self.mesh is not None:
+            from ..parallel import data_parallel as dp
+
+            batch = dp.pad_shard_batch(self.mesh, X, Y, self.n_bucket)
+            if B is not None and B < N:
+                return dp.sharded_dgp_minibatch_loss(self.mesh, S, B), batch
+            return dp.sharded_dgp_loss(self.mesh, S), batch
         if B is not None and B < N:
             if self.n_bucket:
                 X, Y, _ = training.pad_to_bucket(X, Y, self.n_bucket)
@@ -300,14 +326,31 @@ class DGP:
         mean, var = moment_matched(y_m, y_v)
         return mean.cpu().numpy(), var.cpu().numpy()
 
+    def predict_y_sharded(self, Xnew, num_samples, mesh=None,
+                          chunk_size=None):
+        """Data-parallel batch inference: every rank passes the same
+        ``Xnew``, computes its block of the rows and returns the full
+        ``(mean, var)``, each ``[S, N, D]`` as ``predict_y``
+        (``parallel.serving``).
+
+        :param mesh: 1-D data mesh (default: the model's training mesh).
+        :param chunk_size: optional row chunk, a multiple of the mesh size —
+            bounds the ``[S, chunk, D]`` intermediates of very large
+            prediction sets.
+        """
+        from ..parallel import serving
+
+        return serving.predict_y_sharded(
+            self, lambda m: serving.sharded_predict_y(m, num_samples), Xnew,
+            mesh, chunk_size)
+
     def number_parameters(self, trainable=True):
         mask = training.make_mask(self.params)
         return sum(t.numel() for name, t in training.named_tensors(self.params)
                    if mask[name] or not trainable)
 
     def _checkpoint_fn(self, checkpoint_path):
-        return (training.make_checkpoint_fn(checkpoint_path)
-                if checkpoint_path else None)
+        return training.checkpoint_fn_of(self, checkpoint_path)
 
     def optimize_adam(
         self, iterations=5000, lr=0.01, beta_1=0.9, beta_2=0.999,

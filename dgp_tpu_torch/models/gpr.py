@@ -147,3 +147,19 @@ class GPR:
     @torch.no_grad()
     def predict_y(self, Xnew):
         return predict_y(self.params, self.train_data, self._as_input(Xnew))
+
+    def predict_y_sharded(self, Xnew, mesh, chunk_size=None):
+        """Data-parallel batch inference: every rank passes the same
+        ``Xnew``; the rows split over the mesh's data axis, each rank
+        factors the replicated Gram (#7) and solves for its own rows, and
+        every rank returns the full ``(mean, var)`` [m, D]
+        (``parallel.serving.sharded_gpr_predict_y``). Exact: the result is
+        ``predict_y``'s but for reduction-order rounding."""
+        from ..parallel import serving
+
+        if mesh is None:
+            raise ValueError("predict_y_sharded needs a mesh")
+        return serving.run_sharded(
+            serving.sharded_gpr_predict_y(mesh),
+            (self.params, self.train_data), self._as_input(Xnew), None, mesh,
+            chunk_size, row_axis=0)

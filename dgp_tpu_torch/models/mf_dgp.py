@@ -44,11 +44,14 @@ from ..ops import kernels as K
 from ..ops.likelihoods import Gaussian, fidelity_variational_expectations
 from ..ops.transforms import positive_inverse
 from . import training
-from .dgp import DGPParams, _like, get_qs, moment_matched, set_qs
-
-_NO_MESH = ("data-parallel training and sharded serving are not ported yet "
-            "(ROADMAP queue 1, item 10)")
-
+from .dgp import (
+    DGPParams,
+    _like,
+    get_qs,
+    moment_matched,
+    set_qs,
+    weighted_data_term,
+)
 
 class MFDGPParams(DGPParams):
     """The layers (layer 0 plain, the others augmented) and the
@@ -166,19 +169,10 @@ def set_variance(likelihood: Gaussian, variance: float):
         variance, dtype=likelihood.variance_raw.dtype)))
 
 
-def _weighted_data_term(var_exp, w):
-    """(weighted row sum of E_S[var_exp], effective row count): rows of
-    weight 0 are shape padding (training.pad_to_bucket)."""
-    per_row = torch.mean(var_exp, dim=0)  # [N, D]
-    if w is None:
-        return torch.sum(per_row), per_row.shape[0]
-    return torch.sum(w[:, None] * per_row), torch.sum(w)
-
-
 @ieee_fp32()
 def elbo(params: MFDGPParams, Xs, Ys, num_samples: int, generator=None,
          train_upto_fidelity: int = -1, row_weights=None, num_data=None,
-         noise=None):
+         noise=None, data_term=None):
     """Sum of per-fidelity data terms (the model likelihood on the last
     layer, the White-kernel Gaussian on inner layers) minus the per-layer
     KLs. The augmented inducing inputs are recomputed first; each layer's
@@ -190,7 +184,11 @@ def elbo(params: MFDGPParams, Xs, Ys, num_samples: int, generator=None,
         entries) marking shape padding.
     :param num_data: optional per-fidelity full-dataset sizes; each
         fidelity's data term is then scaled by N_f / batch_f.
+    :param data_term: ``(var_exp, row_weights) -> (row sum, row count)``
+        (``dgp.weighted_data_term`` by default; a sharded loss sums both
+        over the ranks).
     """
+    data_term = data_term or weighted_data_term
     noise = _source(noise)
     zs_full = compute_full_zs(params.layers, generator, noise=noise)
     n_layers = len(params.layers)
@@ -211,7 +209,7 @@ def elbo(params: MFDGPParams, Xs, Ys, num_samples: int, generator=None,
             var_exp = fidelity_variational_expectations(
                 Fmean, Fvar, Y, _white_variance(params.layers[fidelity]))
         w = None if row_weights is None else row_weights[fidelity]
-        term, eff = _weighted_data_term(var_exp, w)
+        term, eff = data_term(var_exp, w)
         scale = 1.0 if num_data is None else num_data[fidelity] / eff
         L = L + term * scale
         KL = KL + layer_kl(params.layers[fidelity], zs_full[fidelity],
@@ -388,8 +386,9 @@ class MultiFidelityDeepGP:
         and scales each data term by N_f / B_f.
     :param n_bucket: pad each fidelity's rows to the next multiple of this
         many with zero-weight rows.
-    :param mesh: data-parallel training is not ported yet: anything but None
-        raises.
+    :param mesh: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh``): every
+        fidelity's rows then shard over its ranks, one process per rank
+        (``parallel.data_parallel.sharded_mf_loss``).
     :param device: where the model lives and runs; the card unless given.
         With no card and no ``device``, construction raises.
     :param dtype: working dtype (default ``config.default_float()``).
@@ -401,8 +400,6 @@ class MultiFidelityDeepGP:
                  num_samples=10, add_linear=True, seed=0,
                  minibatch_size=None, n_bucket=None, mesh=None, device=None,
                  dtype=None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         device = resolve_device(device)
         dtype = dtype or default_float()
         self.device, self.dtype = device, dtype
@@ -414,6 +411,7 @@ class MultiFidelityDeepGP:
             minibatch_size = [minibatch_size] * len(X)
         self.minibatch_size = minibatch_size
         self.n_bucket = n_bucket
+        self.seed = seed
         self.generator = torch.Generator(device=device).manual_seed(seed)
         if Z is None:
             Z = self._make_inducing_points(X, Y)
@@ -427,6 +425,7 @@ class MultiFidelityDeepGP:
                                                           device=device))
         self.n_iter = n_iter
         self.fix_inducing = fix_inducing
+        self.mesh = training.on_mesh(self, mesh)
 
     def _as_input(self, X):
         return torch.as_tensor(X, dtype=self.dtype, device=self.device)
@@ -434,8 +433,22 @@ class MultiFidelityDeepGP:
     def _loss_spec(self, train_upto: int = -1):
         """(loss_fn, batch) for the training loops. With ``minibatch_size``:
         per-fidelity uniform batches and the N_f / B_f scale. With
-        ``n_bucket``: rows padded per fidelity with 0/1 weights."""
+        ``n_bucket``: rows padded per fidelity with 0/1 weights. With
+        ``mesh``: this rank's blocks of every fidelity's rows, padded to a
+        multiple of the ranks (and of ``n_bucket``)."""
         Xs, Ys = list(self._X), list(self._Y)
+        if self.mesh is not None:
+            from ..parallel import data_parallel as dp
+
+            batch = dp.pad_shard_fidelity_batch(self.mesh, Xs, Ys,
+                                                self.n_bucket)
+            if self.minibatch_size is not None:
+                sizes = tuple(min(int(b), x.shape[0])
+                              for b, x in zip(self.minibatch_size, Xs))
+                return (dp.sharded_mf_minibatch_loss(
+                    self.mesh, self.num_samples, sizes, train_upto), batch)
+            return (dp.sharded_mf_loss(self.mesh, self.num_samples,
+                                       train_upto), batch)
         if self.minibatch_size is not None:
             sizes = tuple(min(int(b), x.shape[0])
                           for b, x in zip(self.minibatch_size, Xs))
@@ -488,7 +501,13 @@ class MultiFidelityDeepGP:
 
     def predict_y_sharded(self, Xnew, num_samples, mesh=None,
                           chunk_size=None):
-        raise NotImplementedError(_NO_MESH)
+        """Data-parallel batch inference of the highest fidelity (see
+        ``DGP.predict_y_sharded``)."""
+        from ..parallel import serving
+
+        return serving.predict_y_sharded(
+            self, lambda m: serving.sharded_predict_y_mf(m, num_samples),
+            Xnew, mesh, chunk_size)
 
     @torch.no_grad()
     def predict_density(self, Xnew, Ynew, num_samples):
@@ -516,8 +535,7 @@ class MultiFidelityDeepGP:
         return phase_masks(self.params)
 
     def _checkpoint_fn(self, checkpoint_path):
-        return (training.make_checkpoint_fn(checkpoint_path)
-                if checkpoint_path else None)
+        return training.checkpoint_fn_of(self, checkpoint_path)
 
     def optimize_adam(self, lr=0.01, iterations1=2000, iterations2=5000,
                       iterations3=7500, beta_1=0.9, beta_2=0.999,

@@ -47,12 +47,10 @@ from ..layers.svgp import (
 from ..ops import kernels as K
 from ..ops.likelihoods import Gaussian, fidelity_variational_expectations
 from . import training
-from .dgp import DGPParams, _like, moment_matched
+from .dgp import DGPParams, _like, moment_matched, weighted_data_term
 from .mf_dgp import (
-    _NO_MESH,
     _draw,
     _source,
-    _weighted_data_term,
     _white_variance,
     coupled_kernel,
     set_variance,
@@ -210,7 +208,7 @@ def project(params: MFDGPEMParams, X, S: int, generator=None,
 @ieee_fp32()
 def elbo(params: MFDGPEMParams, Xs, Ys, X_red, num_samples: int,
          generator=None, train_upto_fidelity: int = -1, row_weights=None,
-         num_data=None, noise=None):
+         num_data=None, noise=None, data_term=None):
     """Fidelity data terms + projection data terms - every KL. The
     augmented inducing inputs are recomputed first; each layer's Kuu, the
     reduction layers' too, is then factored once (the projections, whose
@@ -223,7 +221,11 @@ def elbo(params: MFDGPEMParams, Xs, Ys, X_red, num_samples: int,
     :param num_data: optional per-fidelity full-dataset sizes; data terms
         are then scaled N_f / B_f and projection term f by
         (N_{f+1} / B_{f+1}) * (N_{f+1} / N_f).
+    :param data_term: ``(var_exp, row_weights) -> (row sum, row count)``
+        (``dgp.weighted_data_term`` by default; a sharded loss sums both
+        over the ranks).
     """
+    data_term = data_term or weighted_data_term
     noise = _source(noise)
     zs_full = compute_full_zs_em(params, generator, noise=noise)
     n_layers = len(params.layers)
@@ -243,7 +245,7 @@ def elbo(params: MFDGPEMParams, Xs, Ys, X_red, num_samples: int,
             var_exp = fidelity_variational_expectations(
                 Fmean, Fvar, Y, _white_variance(params.layers[fidelity]))
         w = None if row_weights is None else row_weights[fidelity]
-        term, eff = _weighted_data_term(var_exp, w)
+        term, eff = data_term(var_exp, w)
         n_cur = eff if num_data is None else num_data[fidelity]
         L = L + term * (n_cur / eff)
         KL = KL + layer_kl(params.layers[fidelity], zs_full[fidelity],
@@ -257,7 +259,7 @@ def elbo(params: MFDGPEMParams, Xs, Ys, X_red, num_samples: int,
                 Hmeans[fidelity], Hvars[fidelity],
                 _like(params, X_red[fidelity]))
             w_next = None if row_weights is None else row_weights[fidelity + 1]
-            term_red, eff_next = _weighted_data_term(ve_red, w_next)
+            term_red, eff_next = data_term(ve_red, w_next)
             n_next = eff_next if num_data is None else num_data[fidelity + 1]
             # (estimation factor) * (the N_{f+1} / N_f scale, kept)
             L_red = L_red + term_red * ((n_next / eff_next) * (n_next / n_cur))
@@ -420,8 +422,9 @@ class MultiFidelityDeepGP_EM:
     :param n_bucket: pad each fidelity's rows (and the projection targets
         paired with them) to the next multiple of this many with zero-weight
         rows.
-    :param mesh: data-parallel training is not ported yet: anything but None
-        raises.
+    :param mesh: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh``): every
+        fidelity's rows, and the projection targets paired with them, then
+        shard over its ranks (``parallel.data_parallel.sharded_em_loss``).
     :param device: where the model lives and runs; the card unless given.
         With no card and no ``device``, construction raises.
     :param dtype: working dtype (default ``config.default_float()``).
@@ -433,8 +436,6 @@ class MultiFidelityDeepGP_EM:
                  fix_inducing=True, num_samples=100, seed=0,
                  minibatch_size=None, n_bucket=None, mesh=None, device=None,
                  dtype=None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         device = resolve_device(device)
         dtype = dtype or default_float()
         self.device, self.dtype = device, dtype
@@ -447,6 +448,7 @@ class MultiFidelityDeepGP_EM:
             minibatch_size = [minibatch_size] * len(X)
         self.minibatch_size = minibatch_size
         self.n_bucket = n_bucket
+        self.seed = seed
         self.generator = torch.Generator(device=device).manual_seed(seed)
         if Z is None:
             Z = self._make_inducing_points(X, Y)
@@ -464,6 +466,7 @@ class MultiFidelityDeepGP_EM:
             Gaussian.create(1.0, dtype=dtype, device=device))
         self.n_iter = n_iter
         self.fix_inducing = fix_inducing
+        self.mesh = training.on_mesh(self, mesh)
 
     def _as_input(self, X):
         return torch.as_tensor(X, dtype=self.dtype, device=self.device)
@@ -472,8 +475,27 @@ class MultiFidelityDeepGP_EM:
         """(loss_fn, batch) for the training loops. With ``minibatch_size``:
         per-fidelity uniform batches, the projection targets drawn with the
         next fidelity's rows. With ``n_bucket``: rows padded per fidelity
-        with 0/1 weights, X_red[f-1] in lockstep with fidelity f."""
+        with 0/1 weights, X_red[f-1] in lockstep with fidelity f. With
+        ``mesh``: this rank's blocks of those rows, padded to a multiple of
+        the ranks (and of ``n_bucket``), X_red[f-1] with fidelity f's."""
         Xs, Ys, Xr = list(self._X), list(self._Y), list(self._X_red)
+        if self.mesh is not None:
+            from ..parallel import data_parallel as dp
+
+            Xs, Ys, ws, nds = dp.pad_shard_fidelity_batch(
+                self.mesh, Xs, Ys, self.n_bucket)
+            # X_red[f-1] rows pair with fidelity f's rows: padded alike
+            Xr = tuple(dp.pad_shard_batch(self.mesh, self._X[f], Xr[f - 1],
+                                          self.n_bucket)[1]
+                       for f in range(1, len(Xs)))
+            batch = (Xs, Ys, Xr, ws, nds)
+            if self.minibatch_size is not None:
+                sizes = tuple(min(int(b), x.shape[0])
+                              for b, x in zip(self.minibatch_size, self._X))
+                return (dp.sharded_em_minibatch_loss(
+                    self.mesh, self.num_samples, sizes, train_upto), batch)
+            return (dp.sharded_em_loss(self.mesh, self.num_samples,
+                                       train_upto), batch)
         if self.minibatch_size is not None:
             sizes = tuple(min(int(b), x.shape[0])
                           for b, x in zip(self.minibatch_size, Xs))
@@ -534,7 +556,13 @@ class MultiFidelityDeepGP_EM:
 
     def predict_y_sharded(self, Xnew, num_samples, mesh=None,
                           chunk_size=None):
-        raise NotImplementedError(_NO_MESH)
+        """Data-parallel batch inference of the highest fidelity (see
+        ``DGP.predict_y_sharded``)."""
+        from ..parallel import serving
+
+        return serving.predict_y_sharded(
+            self, lambda m: serving.sharded_predict_y_em(m, num_samples),
+            Xnew, mesh, chunk_size)
 
     @torch.no_grad()
     def predict_density(self, Xnew, Ynew, num_samples):
@@ -595,8 +623,7 @@ class MultiFidelityDeepGP_EM:
         return m1, m2, m3
 
     def _checkpoint_fn(self, checkpoint_path):
-        return (training.make_checkpoint_fn(checkpoint_path)
-                if checkpoint_path else None)
+        return training.checkpoint_fn_of(self, checkpoint_path)
 
     def optimize_nat_adam(self, lr_adam=0.01, lr_gamma=0.01, iterations1=2000,
                           iterations2=5000, iterations3=7500, beta_1=0.9,

@@ -39,12 +39,17 @@ from ..layers.svgp import layer_kl, sample_from_conditional, stack_projections
 from ..ops.likelihoods import Gaussian, fidelity_variational_expectations
 from ..ops.transforms import positive, positive_inverse
 from . import training
-from .dgp import DGPParams, _like, get_qs, moment_matched, set_qs
+from .dgp import (
+    DGPParams,
+    _like,
+    get_qs,
+    moment_matched,
+    set_qs,
+    weighted_data_term,
+)
 from .mf_dgp import (
-    _NO_MESH,
     _draw,
     _source,
-    _weighted_data_term,
     _white_variance,
     compute_full_zs,
     coupled_kernel,
@@ -173,7 +178,7 @@ def predict_density(params: MODGPParams, X, Y, S: int, generator=None,
 @ieee_fp32()
 def elbo(params: MODGPParams, Xs, Ys, num_samples: int, generator=None,
          loop: int = 2, train_upto_objective: int = -1, row_weights=None,
-         num_data=None, noise=None):
+         num_data=None, noise=None, data_term=None):
     """Per-objective data terms (the model likelihood on the last
     objective, the White-kernel Gaussian on the others) minus the per-layer
     KLs. The KLs take inducing inputs recomputed first, their Kuu stack
@@ -186,7 +191,11 @@ def elbo(params: MODGPParams, Xs, Ys, num_samples: int, generator=None,
         entries) marking shape padding.
     :param num_data: optional per-objective full-dataset sizes; each data
         term is then scaled by N_f / batch_f.
+    :param data_term: ``(var_exp, row_weights) -> (row sum, row count)``
+        (``dgp.weighted_data_term`` by default; a sharded loss sums both
+        over the ranks).
     """
+    data_term = data_term or weighted_data_term
     noise = _source(noise)
     zs_full = compute_full_zs(params.layers, generator, pad_cols=1,
                               noise=noise)
@@ -207,7 +216,7 @@ def elbo(params: MODGPParams, Xs, Ys, num_samples: int, generator=None,
             var_exp = fidelity_variational_expectations(
                 Fmean, Fvar, Y, _white_variance(params.layers[objective]))
         w = None if row_weights is None else row_weights[objective]
-        term, eff = _weighted_data_term(var_exp, w)
+        term, eff = data_term(var_exp, w)
         scale = 1.0 if num_data is None else num_data[objective] / eff
         L = L + term * scale
         KL = KL + layer_kl(params.layers[objective], zs_full[objective],
@@ -267,8 +276,10 @@ class MultiObjDeepGP:
         batches and scales each data term by N_f / B_f.
     :param n_bucket: pad each objective's rows to the next multiple of this
         many with zero-weight rows.
-    :param mesh: data-parallel training is not ported yet: anything but None
-        raises.
+    :param mesh: a 1-D ``DeviceMesh`` (``parallel.mesh.make_mesh``): every
+        objective's rows then shard over its ranks, one process per rank
+        (``parallel.data_parallel.sharded_mo_loss``); the restarts' streams
+        and scores are the same on every rank.
     :param device: where the model lives and runs; the card unless given.
         With no card and no ``device``, construction raises.
     :param dtype: working dtype (default ``config.default_float()``).
@@ -280,8 +291,6 @@ class MultiObjDeepGP:
                  num_samples=10, white_variance=1e-6, seed=0,
                  minibatch_size=None, n_bucket=None, mesh=None, device=None,
                  dtype=None):
-        if mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         device = resolve_device(device)
         dtype = dtype or default_float()
         self.device, self.dtype = device, dtype
@@ -293,6 +302,7 @@ class MultiObjDeepGP:
             minibatch_size = [minibatch_size] * len(X)
         self.minibatch_size = minibatch_size
         self.n_bucket = n_bucket
+        self.seed = seed
         self.generator = torch.Generator(device=device).manual_seed(seed)
         if Z is None:
             Z = self._make_inducing_points(X, Y)
@@ -309,6 +319,7 @@ class MultiObjDeepGP:
         self.fix_inducing = fix_inducing
         # the multi-objective acquisition (EHVI) reads .model.propagate
         self.model = self
+        self.mesh = training.on_mesh(self, mesh)
 
     def _as_input(self, X):
         return torch.as_tensor(X, dtype=self.dtype, device=self.device)
@@ -316,8 +327,23 @@ class MultiObjDeepGP:
     def _loss_spec(self, train_upto: int = -1):
         """(loss_fn, batch) for the training loops. With ``minibatch_size``:
         per-objective uniform batches and the N_f / B_f scale. With
-        ``n_bucket``: rows padded per objective with 0/1 weights."""
+        ``n_bucket``: rows padded per objective with 0/1 weights. With
+        ``mesh``: this rank's blocks of every objective's rows, padded to a
+        multiple of the ranks (and of ``n_bucket``)."""
         Xs, Ys = list(self._X), list(self._Y)
+        if self.mesh is not None:
+            from ..parallel import data_parallel as dp
+
+            batch = dp.pad_shard_fidelity_batch(self.mesh, Xs, Ys,
+                                                self.n_bucket)
+            if self.minibatch_size is not None:
+                sizes = tuple(min(int(b), x.shape[0])
+                              for b, x in zip(self.minibatch_size, Xs))
+                return (dp.sharded_mo_minibatch_loss(
+                    self.mesh, self.num_samples, self.loop, sizes,
+                    train_upto), batch)
+            return (dp.sharded_mo_loss(self.mesh, self.num_samples,
+                                       self.loop, train_upto), batch)
         if self.minibatch_size is not None:
             sizes = tuple(min(int(b), x.shape[0])
                           for b, x in zip(self.minibatch_size, Xs))
@@ -367,7 +393,14 @@ class MultiObjDeepGP:
 
     def predict_y_sharded(self, Xnew, num_samples, mesh=None,
                           chunk_size=None):
-        raise NotImplementedError(_NO_MESH)
+        """Data-parallel batch inference of the last objective (see
+        ``DGP.predict_y_sharded``)."""
+        from ..parallel import serving
+
+        return serving.predict_y_sharded(
+            self, lambda m: serving.sharded_predict_y_mo(m, num_samples,
+                                                         self.loop),
+            Xnew, mesh, chunk_size)
 
     @torch.no_grad()
     def predict_density(self, Xnew, Ynew, num_samples):
@@ -395,8 +428,7 @@ class MultiObjDeepGP:
         return phase_masks(self.params)
 
     def _checkpoint_fn(self, checkpoint_path):
-        return (training.make_checkpoint_fn(checkpoint_path)
-                if checkpoint_path else None)
+        return training.checkpoint_fn_of(self, checkpoint_path)
 
     def optimize_nat_adam(self, lr_adam=0.01, lr_gamma=0.01, iterations1=2000,
                           iterations2=5000, iterations3=7500, messages=500,
@@ -439,7 +471,7 @@ class MultiObjDeepGP:
             return run(checkpoint_path)
         # restart 0 trains self.params from the generator's own stream
         params0 = copy.deepcopy(self.params)
-        key0 = _stream_key(self.generator)
+        key0 = self._shared(_stream_key(self.generator), torch.int64)
         eval_key = fold_in(key0, 0x5E1EC7)
         best = None
         for r in range(n_restarts):
@@ -447,11 +479,16 @@ class MultiObjDeepGP:
                 jitter = torch.Generator(device=self.device).manual_seed(
                     fold_in(key0, 0xD1CE + r))
                 self.params = _jitter_lengthscales(params0, jitter)
-                self.generator.manual_seed(fold_in(key0, r))
+                seed = fold_in(key0, r)
+                if self.mesh is not None:
+                    from ..parallel.data_parallel import rank_seed
+
+                    seed = rank_seed(self.mesh, seed)
+                self.generator.manual_seed(seed)
             losses = run(None if checkpoint_path is None
                          else f"{checkpoint_path}.r{r}")
-            score = self._restart_score("fit" if auto else restart_select,
-                                        eval_key)
+            score = self._shared(self._restart_score(
+                "fit" if auto else restart_select, eval_key))
             if messages:
                 print(f"restart {r}: score={score:.4f}")
             # a non-finite score never wins, and a finite one beats a
@@ -465,9 +502,20 @@ class MultiObjDeepGP:
                 break
         _, self.params, state, losses = best
         self.generator.set_state(state)
-        if checkpoint_path is not None:
-            training.make_checkpoint_fn(checkpoint_path)(self.params, -1)
+        save = self._checkpoint_fn(checkpoint_path)
+        if save is not None:
+            save(self.params, -1)
         return losses
+
+    def _shared(self, value, dtype=torch.float64):
+        """``value`` as the mesh's first rank has it (on one device,
+        ``value``): the restarts' key and scores, so that every rank takes
+        the same decisions (``parallel.data_parallel.from_first_rank``)."""
+        if self.mesh is None:
+            return value
+        from ..parallel.data_parallel import from_first_rank
+
+        return from_first_rank(self.mesh, value, dtype)
 
     @torch.no_grad()
     def _restart_score(self, criterion, eval_key):

@@ -12,7 +12,10 @@ sync per step).
 
 A loss is ``loss_fn(params, generator)`` or, with ``data`` given,
 ``loss_fn(params, generator, data)``; ``params`` is the model's
-``nn.Module`` and is updated in place.
+``nn.Module`` and is updated in place. A sharded loss
+(``parallel.data_parallel``) carries ``reduce_grads``: every gradient the
+loops take of it goes through that all-reduce before it is used, so every
+rank steps with the same bits.
 
 :func:`multistart_adam` is the counterpart of ``multistart_adam_engine``,
 the exact multi-fidelity models' multi-start training: the JAX package
@@ -153,6 +156,36 @@ def make_checkpoint_fn(path: str):
     return fn
 
 
+def checkpoint_fn_of(model, path):
+    """A wrapper's checkpoint callback: :func:`make_checkpoint_fn`, or None
+    without a path, and on a mesh on every rank but its first (the ranks
+    hold the same parameters; one file has one writer)."""
+    if not path:
+        return None
+    if model.mesh is not None:
+        from ..parallel.data_parallel import is_first_rank
+
+        if not is_first_rank(model.mesh):
+            return None
+    return make_checkpoint_fn(path)
+
+
+def on_mesh(model, mesh):
+    """Put a wrapper on ``mesh`` (a ``DeviceMesh``, or None for one
+    device): every rank takes the mesh's first rank's parameters
+    (``parallel.mesh.replicate``) and draws from its own generator, seeded
+    from ``model.seed`` and its mesh coordinates
+    (``parallel.data_parallel.rank_generator``). Returns the mesh."""
+    if mesh is not None:
+        from ..parallel.data_parallel import mesh_row_axes, rank_generator
+        from ..parallel.mesh import replicate
+
+        mesh_row_axes(mesh)
+        replicate(mesh, model.params)
+        model.generator = rank_generator(mesh, model.seed, model.device)
+    return mesh
+
+
 def bucket_rows(n: int, bucket: int) -> int:
     """Round n up to the next multiple of ``bucket``."""
     return -(-n // bucket) * bucket
@@ -268,13 +301,16 @@ def _checkpoint(checkpoint_fn, every, params, done, steps):
         checkpoint_fn(params, done)
 
 
-def _adam_step(opt, train, loss, inputs=None):
+def _adam_step(opt, train, loss, inputs=None, reduce_grads=None):
     """One optimizer step on ``train`` from ``loss``. Gradients are taken
-    for ``inputs`` (a superset of ``train``; by default ``train`` itself)
-    and returned."""
+    for ``inputs`` (a superset of ``train``; by default ``train`` itself),
+    reduced over the ranks where ``reduce_grads`` is given, and
+    returned."""
     inputs = train if inputs is None else inputs
-    grads = dict(zip(map(id, inputs),
-                     torch.autograd.grad(loss, inputs, allow_unused=True)))
+    grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+    if reduce_grads is not None:
+        grads = reduce_grads(grads)
+    grads = dict(zip(map(id, inputs), grads))
     for p in train:
         p.grad = grads[id(p)]
     opt.step()
@@ -320,6 +356,7 @@ def adam_run(
         return params, ({"loss": empty} if metrics_fn else empty)
 
     evaluate = _evaluator(loss_fn, data)
+    reduce = getattr(loss_fn, "reduce_grads", None)
     train = trainable_parameters(params, mask)
     everything = list(params.parameters()) if metrics_fn else None
     opt = masked_adam(params, mask, lr, b1, b2, eps)
@@ -327,7 +364,7 @@ def adam_run(
     with torch.enable_grad(), ieee_fp32():
         for i in range(steps):
             loss = evaluate(params, generator)
-            grads = _adam_step(opt, train, loss, everything)
+            grads = _adam_step(opt, train, loss, everything, reduce)
             _report(messages, label, i, loss)
             if metrics_fn is None:
                 trace.append(loss.detach())
@@ -387,6 +424,7 @@ def nat_adam_run(
         return params, _empty_trace(params)
 
     evaluate = _evaluator(loss_fn, data)
+    reduce = getattr(loss_fn, "reduce_grads", None)
     train = trainable_parameters(params, euclid_mask)
     opt = masked_adam(params, euclid_mask, lr_adam, b1, b2, eps)
     names = {id(p): name for name, p in params.named_parameters()}
@@ -395,7 +433,7 @@ def nat_adam_run(
     with torch.enable_grad(), ieee_fp32():
         for i in range(steps):
             loss = evaluate(params, generator)
-            _adam_step(opt, train, loss)
+            _adam_step(opt, train, loss, reduce_grads=reduce)
 
             state = (generator.get_state()
                      if guard_loss and generator is not None else None)
@@ -412,7 +450,8 @@ def nat_adam_run(
                     params, overrides, (evaluate, generator))
 
             new_qs = natgrad_step_multi(get_qs(params), nat_loss, gamma,
-                                        guard_loss=guard_loss)
+                                        guard_loss=guard_loss,
+                                        reduce_grads=reduce)
             set_qs(params, new_qs)
             _report(messages, label, i, loss)
             trace.append(loss.detach())

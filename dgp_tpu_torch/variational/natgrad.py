@@ -73,7 +73,7 @@ def natural_to_meanvarsqrt(theta1, theta2):
 
 
 def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
-                       guard_loss: bool = False):
+                       guard_loss: bool = False, reduce_grads=None):
     """One joint natural-gradient step over several layers' (q_mu, q_sqrt):
     one loss evaluation provides dL/deta for every pair, then each pair
     takes the step theta - gamma * dL/deta.
@@ -92,6 +92,9 @@ def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
         also fails keeps the previous q for the iteration. One extra loss
         evaluation per step, and one read of its verdict on the host (a
         device sync); default off, as in the JAX package.
+    :param reduce_grads: for a sharded loss, its all-reduce of the
+        gradients dL/deta over the ranks (every rank then takes the same
+        step; the guard reads the loss, which is already reduced).
     :return: list of updated (q_mu, q_sqrt), detached.
     """
     qs = [(m.detach(), torch.tril(L.detach())) for m, L in qs]
@@ -118,6 +121,8 @@ def natgrad_step_multi(qs, loss_fn, gamma: float, max_growth: float = 1e3,
     # a leaf the loss does not depend on has gradient 0
     flat = [torch.zeros_like(e) if g is None else g
             for e, g in zip(leaves, flat)]
+    if reduce_grads is not None:
+        flat = reduce_grads(flat)
     grads = list(zip(flat[0::2], flat[1::2]))
 
     @torch.no_grad()

@@ -1028,3 +1028,54 @@ def test_cls_heads_go_through_the_kernels(cuda):
     launched, models = chip_smoke.run_cls("card test")
     assert min(launched[:2] + launched[4:8]) > 0
     chip_smoke.compare_cls(*models)
+
+
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A world-size-1 NCCL process group and its 1-D mesh on the card."""
+    import torch.distributed as dist
+
+    from dgp_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{chip_smoke.free_port()}",
+        rank=0, world_size=1)
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white", [True, False])
+def test_sharded_loss_at_world_size_1(nccl_mesh, white):
+    """bench.py's model on a world-size-1 NCCL mesh: the sharded
+    loss-and-gradient through #1/#2 (whitened) or #5/#6, on one draw,
+    within chip_smoke.PAR_TOL of the unsharded one, with the launches of
+    one unsharded evaluation."""
+    single = chip_smoke.training_model(white=white)
+    sharded = chip_smoke.training_model(white=white, mesh=nccl_mesh)
+    for m in (single, sharded):
+        chip_smoke.perturb(m, np.random.default_rng(3))
+    path = "stationary" if white else "nonwhite"
+    worst, _, _ = chip_smoke.hold_sharded(
+        path, "dgp", single, sharded,
+        chip_smoke.expected_counts(path, 1, 2, loss=True))
+    assert worst <= chip_smoke.PAR_TOL
+
+
+@pytest.mark.cuda
+def test_sharded_request_at_world_size_1(nccl_mesh):
+    """A 1-layer whitened request (its moments do not depend on the draws)
+    through predict_y_sharded, whole and in chunks, equals predict_y within
+    chip_smoke.PAR_TOL; one #1 launch (and one #8) per chunk."""
+    one = chip_smoke.one_layer_model()
+    one_mesh = chip_smoke.one_layer_model(nccl_mesh)
+    X = np.random.default_rng(6).uniform(0, 1, size=(20_000, chip_smoke.DIN))
+    with torch.no_grad():
+        want = one.predict_y(X, chip_smoke.S)
+        for chunk in (None, 5_000):
+            chip_smoke.zero_counts()
+            got = one_mesh.predict_y_sharded(X, chip_smoke.S, chunk_size=chunk)
+            n = 1 if chunk is None else 4
+            assert chip_smoke.counts() == chip_smoke.expected_counts(
+                "stationary", n, 1)
+            chip_smoke.hold_request("1-layer request", got, want)

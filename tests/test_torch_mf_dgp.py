@@ -517,10 +517,12 @@ def test_convert_round_trips_the_mf_tree(n_fidelities):
 
 
 def test_sharded_paths_raise():
-    """Data-parallel training and sharded serving are not ported: they
-    raise rather than quietly run on one device."""
+    """As in dgp_tpu: predict_y_sharded with no mesh (given or built in)
+    raises ValueError; a mesh that is not a DeviceMesh is refused. (The
+    sharded paths themselves: tests/test_torch_parallel.py and
+    tests/test_torch_sharded_serving.py.)"""
     X, Y = data(2)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmf.MultiFidelityDeepGP(X, Y, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         port_model(2).predict_y_sharded(X[1], 3)

@@ -479,9 +479,10 @@ def test_minibatch_loss_is_unbiased(monkeypatch):
 
 def test_wrapper_defaults_and_sharded_paths():
     """The wrapper's defaults (Z[0] = [X_0, Y_1], Z[1] = X_1; model is the
-    wrapper itself; exactly two objectives out of propagate); data-parallel
-    training and sharded serving raise rather than quietly run on one
-    device."""
+    wrapper itself; exactly two objectives out of propagate); as in
+    dgp_tpu, predict_y_sharded with no mesh raises ValueError, and a mesh
+    that is not a DeviceMesh is refused (the sharded paths themselves:
+    tests/test_torch_parallel.py, tests/test_torch_sharded_serving.py)."""
     X, Y = data()
     model = port_model()
     assert model.model is model and model.name == "mo_dgp"
@@ -491,9 +492,9 @@ def test_wrapper_defaults_and_sharded_paths():
     mean, var = model.predict(ROWS)
     assert mean.shape == var.shape == (7, 1) and np.all(var > 0)
     assert tuple(model.predict_density(ROWS, np.sin(ROWS), 4).shape) == (7, 1)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tmo.MultiObjDeepGP(X, Y, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         model.predict_y_sharded(ROWS, 3)
 
 

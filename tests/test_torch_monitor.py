@@ -18,7 +18,6 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-import torch._dynamo  # noqa: F401  (the first torch.optim.Adam imports it)
 
 from dgp_tpu.layers.svgp import SVGPLayer as JSVGPLayer
 from dgp_tpu.models import dgp as jdgp
@@ -233,6 +232,10 @@ def test_grad_norms_and_training_metrics_match_reference():
 
 
 def test_steps_per_sec():
+    # the first torch.optim.Adam imports torch._dynamo (~2 s): here, not
+    # where the files that take reference_params import this one
+    import torch._dynamo  # noqa: F401
+
     rate, carry = profiling.steps_per_sec(lambda t: t + 1, torch.zeros(3),
                                           steps=5, warmup=2)
     assert rate > 0 and torch.equal(carry, torch.full((3,), 7.0))

@@ -290,7 +290,27 @@ Phases, each of which raises (exit code 1) on any fault:
              parameters and gradients must be bit-equal across the ranks).
              Launches as reckoned from each rank's rows; ms per sharded Adam
              step and request beside the unsharded ones, and profiles.
-14. timing — CUDA-event times of every kernel and of its plain version at
+14. examples — every section of examples_torch/ (quickstart, serving,
+             ask_tell, classification, mf_bo, mo_bo) on the card in float32
+             at budgets cut from the examples' (EX_*: steps, infills, DE
+             sizes; widths, samples and rows as the examples have them),
+             and the README's recipes (examples_torch/recipes.py): (a)
+             benchmarks/large_scale.py's N = 1,000,000 rows, B = 10,000, S =
+             10, a whitened RBF [8] model on a world-size-1 mesh, at M = 128
+             (#1/#2) and at M = 256 (every plan refuses it: no launch), its
+             Adam steps timed and profiled; (b) a checkpoint written inside
+             a natural-gradient phase, reloaded bit for bit into a fresh
+             model that trains on; (c) SO_BO saved after 2 infills, loaded
+             and run 1 more, equal bit for bit to the uninterrupted 3. #5 and
+             #6 at the examples' own shapes (EX_QUADFORM) with the repeat and
+             NaN runs, #7/#8 on the quickstart DGP's and serving's Kuu
+             stacks against their float64 twins. The examples' own asserts;
+             losses finite and falling; serving's whole and chunked
+             requests within 1e-6 of scale on zero normals; best traces
+             finite and never rising; the launches of #1-#8 after each
+             section as reckoned (the BO loops' from their recorded
+             operations: recorded_so_bo, recorded_loop, recorded_mo_loop).
+15. timing — CUDA-event times of every kernel and of its plain version at
              the layers' shapes (forwards n = 1,000,000, backwards
              n = 100,000), beside the bound of the work these inputs
              need at the rates of the kernel's route (#2/#4/#6 also phase
@@ -3077,17 +3097,19 @@ def recorded_loop(bo):
         (bo, "_fresh_batch_state", fresh, None)])
 
 
-def reckon_loop(bo, ops):
+def reckon_loop(bo, ops, iterations_DE=None):
     """counts() reckoned from a loop's recorded operations: each fit, loss,
     request and constraint fit as surrogate_launches counts it, and each
     pick's DE maximization, (1 + generations) evaluations of the criterion
     on the surrogate at the top fidelity (and, constrained, of each
-    constraint GPR)."""
+    constraint GPR); the generations are MFBO_RUN's unless given."""
     total = launch_vector()
     top = bo.n_fid - 1
+    generations = (MFBO_RUN["iterations_DE"] if iterations_DE is None
+                   else iterations_DE)
     for what, kind, f, steps in ops:
         if what == "pick":
-            evaluations = 1 + MFBO_RUN["iterations_DE"]
+            evaluations = 1 + generations
             one = add_counts(surrogate_launches(kind, "request", bo.n_fid, top),
                              *[surrogate_launches("gpr", "request")] * bo.n_con)
             total = add_counts(total, tuple(evaluations * c for c in one))
@@ -3524,17 +3546,14 @@ def run_mo(gpu):
             "likelihood and q in phase 3")
 
 
-def run_mo_restarts(gpu):
-    """One optimize_nat_adam(restarts="auto", max_restarts=MO_RESTARTS) at
-    MO_NAT: every candidate's fit score recorded with its parameters; one
-    schedule if the first scores at least MO_THRESHOLD, else MO_RESTARTS;
-    the kept parameters bit for bit those of the best finite score; the
-    launches reckoned as that many schedules and scores (mo_expected_counts).
-    Returns the path's launches."""
+@contextlib.contextmanager
+def restart_candidates():
+    """Record, in the yielded list, each MO-DGP restart candidate's fit
+    score and a copy of its parameters (MultiObjDeepGP._restart_score
+    wrapped: one per schedule of optimize_nat_adam(restarts=...)) while the
+    scope lasts."""
     from dgp_tpu_torch.models.mo_dgp import MultiObjDeepGP
 
-    zero_counts()
-    model = mo_model()
     seen = []
     score = MultiObjDeepGP._restart_score
 
@@ -3544,16 +3563,28 @@ def run_mo_restarts(gpu):
                          self.params.state_dict().items()}))
         return s
 
-    n1, n2, n3 = MO_NAT
     MultiObjDeepGP._restart_score = recording
     try:
-        with guard_evaluations() as guards:
-            losses, dt = timed(lambda: model.optimize_nat_adam(
-                iterations1=n1, iterations2=n2, iterations3=n3, messages=0,
-                restarts="auto", max_restarts=MO_RESTARTS,
-                restart_threshold=MO_THRESHOLD))
+        yield seen
     finally:
         MultiObjDeepGP._restart_score = score
+
+
+def run_mo_restarts(gpu):
+    """One optimize_nat_adam(restarts="auto", max_restarts=MO_RESTARTS) at
+    MO_NAT: every candidate's fit score recorded with its parameters; one
+    schedule if the first scores at least MO_THRESHOLD, else MO_RESTARTS;
+    the kept parameters bit for bit those of the best finite score; the
+    launches reckoned as that many schedules and scores (mo_expected_counts).
+    Returns the path's launches."""
+    zero_counts()
+    model = mo_model()
+    n1, n2, n3 = MO_NAT
+    with restart_candidates() as seen, guard_evaluations() as guards:
+        losses, dt = timed(lambda: model.optimize_nat_adam(
+            iterations1=n1, iterations2=n2, iterations3=n3, messages=0,
+            restarts="auto", max_restarts=MO_RESTARTS,
+            restart_threshold=MO_THRESHOLD))
     scores = [s for s, _ in seen]
     runs = 1 if scores[0] >= MO_THRESHOLD else MO_RESTARTS
     if len(scores) != runs or not bool(torch.isfinite(losses).all()):
@@ -4477,30 +4508,37 @@ PAR_ROUNDS = 3                   # timing rounds, sharded and not in turns
 PAR_TIMED_STEPS = 5              # Adam steps per timing round
 
 
-def free_port():
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def patched_randn(draw):
+    """torch.randn is draw(the real torch.randn, *args, **kwargs) while the
+    scope lasts: every unit normal of the port's models goes through it."""
+    real = torch.randn
+    torch.randn = lambda *args, **kwargs: draw(real, *args, **kwargs)
+    try:
+        yield
+    finally:
+        torch.randn = real
 
 
 def recorded_draws(fn):
-    """fn()'s result and every unit normal it drew, in order (torch.randn
-    wrapped: every draw of the port's models goes through it)."""
-    real, draws = torch.randn, []
+    """fn()'s result and every unit normal it drew, in order."""
+    draws = []
 
-    def randn(*args, **kwargs):
+    def record(real, *args, **kwargs):
         z = real(*args, **kwargs)
         draws.append(z.clone())
         return z
 
-    torch.randn = randn
-    try:
+    with patched_randn(record):
         out = fn()
-    finally:
-        torch.randn = real
     return out, draws
+
+
+def zero_normals():
+    """A scope in which every unit normal torch.randn draws is 0 (a
+    propagation then follows its means: no Monte-Carlo noise)."""
+    return patched_randn(lambda real, *shape, generator=None, **kw:
+                         torch.zeros(*shape, **kw))
 
 
 def rank_rows(z, axis, block, n_blocks):
@@ -4715,16 +4753,10 @@ def run_parallel_ws1(gpu):
     non-whitened model, the exact GPR, MF, EM and MO each through one
     sharded loss-and-gradient and a request. Returns the launches of the
     sharded path (the unsharded twins' evaluations not counted)."""
-    import torch.distributed as dist
+    from examples_torch.serving import process_group
 
-    from dgp_tpu_torch.parallel.mesh import make_mesh
-
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
-                            rank=0, world_size=1)
-    try:
-        return parallel_ws1_body(gpu, make_mesh())
-    finally:
-        dist.destroy_process_group()
+    with process_group(DEVICE) as mesh:
+        return parallel_ws1_body(gpu, mesh)
 
 
 def parallel_ws1_body(gpu, mesh):
@@ -4915,6 +4947,8 @@ def run_parallel_ws2(gpu, world=2):
 
     import torch.multiprocessing as mp
 
+    from examples_torch.serving import free_port
+
     folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "build", "parallel")
     os.makedirs(folder, exist_ok=True)
@@ -4977,7 +5011,414 @@ def run_parallel(gpu):
     return tuple(a + b for a, b in zip(ws1, ws2))
 
 
-# -- phase 14 -------------------------------------------------------------------
+# -- phase 14: the examples and the README's production recipes ------------------
+# examples_torch/ at budgets cut from the examples' (steps, infills, DE
+# sizes; the widths, samples and rows as the examples have them). The
+# quickstart: nb_DGP_regression's 3-layer DGP (M = 25, D = 1) 20 + 20
+# natural-gradient steps (200 + 400), the Park MF-DGP 10 / 10 / 20 (100 /
+# 100 / 200), the constrained GPR SO_BO 2 infills of 100 training steps and
+# DE 20 x 10 (3, 200, 50 x 50), the MO-DGP 10 steps (100; restarts "auto"
+# as the example) and EHVI at S 500; serving: 30 Adam steps (150);
+# ask/tell: 2 rounds of 3 at 100 steps, DE 20 x 10 (4, 500, 60 x 80), the
+# asynchronous part at 100 steps, DE 20 x 10 (300, 40 x 60);
+# classification 50 Adam steps (800); MF_BO: the AR(1) loop 2 infills (6)
+# of 8 starts x 100 steps (2,000), DE 20 x 10 (60 x 60), the PoF loop 1
+# infill (3) with its constraint GPR at 100 steps (2,000), the EM loop 1
+# infill (2) at schedule (10, 5, 5) ((50, 20, 50)); MO_BO: the GPR pair 1
+# infill (4) at 100 Adam steps (2,000), DE 20 x 10, S 200 (60 x 60), the
+# coupled MO-DGP 1 infill at schedule (10, 0, 0) ((100, 0, 0)), restarts=1
+# (the example: "auto"), DE 20 x 10 (30 x 30).
+EX_DGP, EX_MF, EX_MO, EX_SERVE, EX_CLS = (20, 20), (10, 10, 20), 10, 30, 50
+EX_TRAIN, EX_DE = 100, dict(popsize_DE=20, iterations_DE=10)
+EX_AR1 = {"type": "ar1", "n_starts": 8, "iterations": 100}
+EX_GPR_PAIR = {"type": "independent", "num_layers": 0, "kernels": "rbf",
+               "iterations": 100}
+# recipe (a) at full size: benchmarks/large_scale.py's N = 1,000,000 rows,
+# B = 10,000, S = 10; optimize_nat_adam (1,000, 5,000) cut to (10, 5) at
+# M = 128 and (10, 5) at M = 256; EX_TIMED Adam steps timed in 3 rounds;
+# recipe (b) 4 natural-gradient steps with a checkpoint after 2, the fresh
+# model 2 more; recipe (c) 2 + 1 infills of EX_TRAIN steps, DE EX_DE
+EX_N, EX_B, EX_LARGE_ITERS, EX_TIMED = 1_000_000, 10_000, (10, 5), 10
+# the examples' quadform shapes (D, M, n): the quickstart DGP's training
+# (10 samples x 50 rows) and request (100 x 50), serving's training (5 x
+# 200), its whole request (50 x 1,003) and a chunk (50 x 256), the
+# quickstart MO-DGP's losses (5 x 10) and EHVI (500 x 2)
+EX_QUADFORM = [(1, 25, 500), (1, 25, 5_000), (1, 16, 1_000),
+               (1, 16, 50_150), (1, 16, 12_800), (1, 10, 50), (1, 10, 1_000)]
+
+
+def check_examples_kernels():
+    """#5 and #6 at the examples' own shapes (EX_QUADFORM), with and
+    without t1, with the repeat and NaN runs; #7 and #8 on the quickstart
+    DGP's Kuu stack ([3, 25, 25]) and serving's ([2, 16, 16]) against their
+    float64 twins (the witness rule for L too). Returns the largest errors
+    [#5, #6, #7, #8]."""
+    from examples_torch import quickstart, serving
+
+    err = [0.0] * 4
+    for seed, (D, Mi, n) in enumerate(EX_QUADFORM):
+        for with_t1 in (False, True):
+            err[0] = max(err[0], check_quadform(D, Mi, n, with_t1, 620 + seed))
+            err[1] = max(err[1], check_quadform_backward(D, Mi, n, with_t1,
+                                                         720 + seed))
+    for name, model in (("quickstart DGP", quickstart.regression_model),
+                        ("serving", serving.model)):
+        m = model(device=DEVICE, dtype=torch.float32)
+        stack = kuu_twins(list(m.params.layers),
+                          [l.z for l in m.params.layers])
+        for inverse in (False, True):
+            err[2 + inverse] = max(err[2 + inverse], check_cholesky(
+                stack[0].shape[0], stack[0].shape[-1], 0, inverse, kuu=name,
+                stack=stack, witness=True))
+    return err
+
+
+@contextlib.contextmanager
+def recorded_so_bo():
+    """Reckon #7 for SO_BO loops on exact GPR surrogates while the scope
+    lasts (SO_BO's methods wrapped on the class, so loops built or loaded
+    inside count too): a GPR's training step factors its Gram once, a
+    believer mean once, and each pick evaluates the criterion on the
+    objective GPR and on every constraint GPR (1 + generations) times for
+    DE and (steps + 1) times for Adam. Yields {"c7": the count}."""
+    from dgp_tpu_torch.bo.so_bo import SO_BO
+
+    rec = {"c7": 0, "s": {}}
+    calls = []
+    propose, train, fantasy, next_key = (
+        SO_BO._propose, SO_BO.train_model, SO_BO._fantasy_mean,
+        SO_BO._next_run_key)
+
+    def train_model(self, model, iteration=3000):
+        if model.name != "gpr":
+            raise AssertionError("recorded_so_bo reckons GPR surrogates only")
+        rec["c7"] += iteration
+        return train(self, model, iteration)
+
+    def fantasy_mean(self, model, x_n):
+        rec["c7"] += 1
+        return fantasy(self, model, x_n)
+
+    def proposing(self, *args, **kwargs):
+        calls.append(kwargs)
+        try:
+            return propose(self, *args, **kwargs)
+        finally:
+            calls.pop()
+
+    def pick(self):
+        kw = calls[-1]
+        method = kw.get("IC_method", "DE+Adam")
+        evaluations = ((1 + kw.get("iterations_DE", 400)) * ("DE" in method)
+                       + (kw.get("iterations_adam", 1000) + 1)
+                       * ("Adam" in method))
+        n_con = self.C.shape[1] if self.problem.constraint else 0
+        rec["c7"] += evaluations * (1 + n_con)
+        return next_key(self)
+
+    with wrap_methods(rec, [
+            (SO_BO, "train_model", train_model, None),
+            (SO_BO, "_fantasy_mean", fantasy_mean, None),
+            (SO_BO, "_propose", proposing, None),
+            (SO_BO, "_next_run_key", pick, None)]):
+        yield rec
+
+
+@contextlib.contextmanager
+def recorded_loops(cls, recorder):
+    """While the scope lasts, every ``cls`` loop built or loaded is recorded
+    by ``recorder`` (recorded_loop, recorded_mo_loop) from its construction
+    on. Yields the [(loop, record)] list, in construction order."""
+    loops, scopes = [], []
+    init = cls.__init__
+
+    def recording(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        scopes.append(recorder(self))
+        loops.append((self, scopes[-1].__enter__()))
+
+    cls.__init__ = recording
+    try:
+        yield loops
+    finally:
+        cls.__init__ = init
+        for scope in reversed(scopes):
+            scope.__exit__(None, None, None)
+
+
+@contextlib.contextmanager
+def checkpoint_snapshots():
+    """Record, in the yielded list, a copy of the parameters each in-phase
+    checkpoint writes while the scope lasts (training.make_checkpoint_fn
+    wrapped)."""
+    from dgp_tpu_torch.models import training
+
+    snapshots = []
+    make = training.make_checkpoint_fn
+
+    def recording(path):
+        save = make(path)
+
+        def fn(params, done):
+            save(params, done)
+            snapshots.append((done, {k: v.clone() for k, v in
+                                     params.state_dict().items()}))
+        return fn
+
+    training.make_checkpoint_fn = recording
+    try:
+        yield snapshots
+    finally:
+        training.make_checkpoint_fn = make
+
+
+def ex_step(name, fn, expect, totals):
+    """Run one section of the examples phase with its prints captured, add
+    ``expect`` to the phase's reckoned launches and check them. Returns
+    (fn's result, seconds)."""
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, dt = timed(fn)
+    totals[0] = add_counts(totals[0], expect(out) if callable(expect)
+                           else expect)
+    check_launches("examples", name, totals[0])
+    return out, dt
+
+
+def check_loop_trace(tag, trace, floor=-math.inf):
+    trace = np.asarray(trace, dtype=float).ravel()
+    if not (np.all(np.isfinite(trace)) and np.all(np.diff(trace) <= 1e-12)
+            and trace.min() >= floor):
+        raise AssertionError(f"[examples] {tag}: bad best trace {trace}")
+
+
+def run_examples(gpu):
+    """The examples of examples_torch/ and the README's recipes through the
+    entry points a user calls, on the card in float32, at the EX_* budgets:
+    every section of quickstart, serving, ask_tell, classification, mf_bo
+    and mo_bo, and recipes (a) at full N and B (M = 128 through #1/#2, and
+    M = 256, where every kernel's plan refuses the shapes: no launch), (b)
+    and (c). Checks the examples' own asserts, every loss finite and
+    falling, serving's whole and chunked requests equal within 1e-6 of
+    scale on zero normals, the checkpoint reloaded bit for bit, the resumed
+    SO_BO equal to the uninterrupted one, and the launches of #1-#8 after
+    each section as reckoned. Times recipe (a)'s Adam steps at both M, with
+    the device's idle share. Returns counts()."""
+    from examples_torch import (ask_tell, classification, mf_bo, mo_bo,
+                                quickstart, recipes, serving)
+
+    t_phase = time.perf_counter()
+    f32 = dict(device=DEVICE, dtype=torch.float32)
+    zero_counts()
+    totals = [launch_vector()]
+    secs = {}
+    nonwhite = lambda n, layers: expected_counts("nonwhite", n, layers,  # noqa: E731
+                                                 loss=True)
+
+    # quickstart -------------------------------------------------------------
+    # the DGP: built (#7 per non-whitened layer), the initial ELBO and the
+    # predict (as requests), n1 + n2 Adam losses, and n2 natural-gradient
+    # evaluations of the last layer's q alone (ng_all=False: every layer's
+    # #5 and the #8, the last layer's #6 only)
+    n1, n2 = EX_DGP
+    (model, losses, rmse), secs["quickstart DGP"] = ex_step(
+        "quickstart DGP regression",
+        lambda: quickstart.dgp_regression(iterations=EX_DGP, **f32),
+        add_counts(launch_vector(c7=3), expected_counts("nonwhite", 2, 3),
+                   nonwhite(n1 + n2, 3), launch_vector(c5=3 * n2, c6=n2,
+                                                       c8=n2)), totals)
+    check_losses("examples", "quickstart DGP", losses, n1 + n2)
+    a, b, c = EX_MF
+    (model, losses, metrics), secs["quickstart MF-DGP"] = ex_step(
+        "quickstart MF-DGP",
+        lambda: quickstart.multi_fidelity(iterations=EX_MF, **f32),
+        mf_expected_counts(built=1, losses=a + b + 2 * c, requests=1), totals)
+    check_losses("examples", "quickstart MF-DGP", losses, a + b + c)
+    with recorded_so_bo() as rec:
+        bo, secs["quickstart SO_BO"] = ex_step(
+            "quickstart SO_BO", lambda: quickstart.bayesian_optimization(
+                infills=2, train_iterations=EX_TRAIN, **EX_DE, **f32),
+            lambda _: launch_vector(c7=rec["c7"]), totals)
+    check_loop_trace("quickstart SO_BO", bo.Ymin, 0.0625)
+    with restart_candidates() as seen:
+        (mo, losses, ehvi), secs["quickstart MO-DGP"] = ex_step(
+            "quickstart MO-DGP and EHVI",
+            lambda: quickstart.multi_objective(iterations=EX_MO, **f32),
+            lambda _: mo_expected_counts(built=1, losses=len(seen) * EX_MO,
+                                         scores=len(seen), requests=1),
+            totals)
+    check_losses("examples", "quickstart MO-DGP", losses, EX_MO)
+    if not (ehvi.shape == (2,) and np.all(np.isfinite(ehvi))
+            and np.all(ehvi >= 0)):
+        raise AssertionError(f"[examples] quickstart EHVI {ehvi}")
+    log(f"[examples] quickstart (float32): DGP {EX_DGP} steps "
+        f"{secs['quickstart DGP']:.2f} s, train RMSE {rmse:.4f}; MF-DGP "
+        f"{EX_MF} {secs['quickstart MF-DGP']:.2f} s, r2 {metrics['r2']:.4f}; "
+        f"SO_BO 2 infills {secs['quickstart SO_BO']:.2f} s, Ymin "
+        f"{float(bo.Ymin[-1]):.5f}; MO-DGP {EX_MO} steps, {len(seen)} "
+        f"schedules, {secs['quickstart MO-DGP']:.2f} s, EHVI "
+        f"{np.round(ehvi, 4)}; launches {COUNTED} {counts()} ({gpu})")
+
+    # serving ----------------------------------------------------------------
+    (trained, served), secs["serving"] = ex_step(
+        "serving: train and reload",
+        lambda: serving.train_and_reload(iterations=EX_SERVE, **f32),
+        add_counts(launch_vector(c7=4), nonwhite(EX_SERVE, 2)), totals)
+    if not all(torch.equal(p, q) for p, q in zip(
+            trained.params.parameters(), served.params.parameters())):
+        raise AssertionError("[examples] serving: the reloaded parameters "
+                             "differ from the trained ones")
+    chunks = -(-1003 // 256)
+    with serving.process_group(DEVICE) as mesh:
+        (whole, chunked), dt_req = ex_step(
+            "serving: requests", lambda: serving.requests(served, mesh),
+            expected_counts("nonwhite", 1 + chunks, 2), totals)
+        with zero_normals():
+            (w0, c0), _ = ex_step(
+                "serving: requests on zero normals",
+                lambda: serving.requests(served, mesh),
+                expected_counts("nonwhite", 1 + chunks, 2), totals)
+    err = 0.0
+    for a_, b_ in zip(w0, c0):
+        err = max(err, float((a_ - b_).abs().max() / a_.abs().max()))
+    if not (whole[0].shape == chunked[0].shape == (50, 1003, 1)
+            and all(bool(torch.isfinite(t).all()) for t in (*whole, *chunked))
+            and err <= 1e-6):
+        raise AssertionError(f"[examples] serving: whole and chunked "
+                             f"requests differ by {err:.3g} of scale")
+    log(f"[examples] serving: {EX_SERVE} Adam steps and the reload "
+        f"{secs['serving']:.2f} s; the 1,003-row sharded request whole and in "
+        f"{chunks} chunks of 256 {1e3 * dt_req:.1f} ms; on zero normals the "
+        f"two within {err:.3g} of scale ({gpu})")
+
+    # ask/tell ---------------------------------------------------------------
+    with recorded_so_bo() as rec:
+        (bo, seen), secs["ask_tell"] = ex_step(
+            "ask/tell", lambda: (lambda b: (b, ask_tell.asynchronous(
+                b, train_iterations=EX_TRAIN, **EX_DE)))(ask_tell.batches(
+                    rounds=2, batch_size=3, train_iterations=EX_TRAIN,
+                    **EX_DE, **f32)),
+            lambda _: launch_vector(c7=rec["c7"]), totals)
+    check_loop_trace("ask/tell", bo.Ymin, 0.397887)
+    if seen != [2, 1, 0] or bo.X.shape != (8 + 6 + 2, 2):
+        raise AssertionError(f"[examples] ask/tell: pending {seen}, "
+                             f"archive {bo.X.shape}")
+    log(f"[examples] ask/tell: 2 rounds of 3 and the asynchronous pair "
+        f"{secs['ask_tell']:.2f} s, best {float(bo.Ymin[-1]):.5f}, pending "
+        f"{seen}; #7 {rec['c7']} ({gpu})")
+
+    # classification ---------------------------------------------------------
+    (acc, logd, losses), secs["classification"] = ex_step(
+        "classification",
+        lambda: classification.main(iterations=EX_CLS, **f32),
+        cls_expected_counts(built=1, losses=EX_CLS, requests=2), totals)
+    check_losses("examples", "classification", losses, EX_CLS)
+    log(f"[examples] classification: {EX_CLS} Adam steps "
+        f"{secs['classification']:.2f} s, accuracy {acc:.3f}, mean "
+        f"log-density {logd:.3f} ({gpu})")
+
+    # mf_bo ------------------------------------------------------------------
+    de = EX_DE["iterations_DE"]
+    for name, run in (
+            ("main", lambda: mf_bo.main(infills=2, model_dic=EX_AR1, **EX_DE,
+                                        **f32)),
+            ("constrained", lambda: mf_bo.constrained_demo(
+                infills=1, model_dic=EX_AR1,
+                model_C_dic={"kernels": "rbf", "iterations": EX_TRAIN},
+                **EX_DE, **f32)),
+            ("variant dims", lambda: mf_bo.variant_dims_demo(
+                infills=1, schedule=(10, 5, 5), **EX_DE, **f32))):
+        with recorded_loops(mf_bo.MF_BO, recorded_loop) as loops:
+            bo, secs[f"mf_bo {name}"] = ex_step(
+                f"mf_bo {name}", run, lambda _: reckon_loop(
+                    loops[0][0], loops[0][1]["ops"], de), totals)
+        check_loop_trace(f"mf_bo {name}", bo.best_trace,
+                         FORRESTER_FLOOR if name != "variant dims"
+                         else -math.inf)
+        log(f"[examples] mf_bo {name}: {len(bo.fidelity_choices)} infills "
+            f"{secs[f'mf_bo {name}']:.2f} s, best {bo.best_trace[-1]:.4f}, "
+            f"fidelities {bo.fidelity_choices} ({gpu})")
+
+    # mo_bo ------------------------------------------------------------------
+    for name, run in (
+            ("GPR pair", lambda: mo_bo.main(infills=1, S=200,
+                                            model_dic=EX_GPR_PAIR, **EX_DE,
+                                            **f32)),
+            ("coupled", lambda: mo_bo.coupled(schedule=(10, 0, 0),
+                                              restarts=1, **EX_DE, **f32))):
+        with recorded_loops(mo_bo.MO_BO, recorded_mo_loop) as loops:
+            bo, secs[f"mo_bo {name}"] = ex_step(
+                f"mo_bo {name}", run, lambda _: reckon_mo_loop(
+                    loops[0][1]["ops"], loops[0][1]["guards"][0]), totals)
+        trace = np.asarray(bo.hv_trace)
+        if not (np.all(np.isfinite(trace)) and np.all(np.diff(trace) >= 0)):
+            raise AssertionError(f"[examples] mo_bo {name}: hypervolume "
+                                 f"{trace}")
+        log(f"[examples] mo_bo {name}: 1 infill {secs[f'mo_bo {name}']:.2f} "
+            f"s, hypervolume {trace[0]:.5f} -> {trace[-1]:.5f} ({gpu})")
+
+    # recipes ----------------------------------------------------------------
+    n1, n2 = EX_LARGE_ITERS
+    stationary = lambda n: expected_counts("stationary", n, 2, loss=True)  # noqa: E731
+    large = {}
+    with serving.process_group(DEVICE) as mesh:
+        for M in (128, 256):
+            kernels = M == 128
+            (model, losses, _), dt = ex_step(
+                f"recipe (a) M = {M}", lambda: recipes.minibatched_training(
+                    mesh, N=EX_N, M=M, B=EX_B, iterations=EX_LARGE_ITERS,
+                    **f32),
+                stationary(n1 + 2 * n2) if kernels else launch_vector(),
+                totals)
+            check_losses("examples", f"recipe (a) M = {M}", losses, n1 + n2)
+            run = lambda: model.optimize_adam(iterations=EX_TIMED,  # noqa: E731
+                                              messages=0, shrink_inner=False)
+            ms = [t / EX_TIMED for t in timed_rounds({M: run}, 3)[M]]
+            idle_share(f"recipe (a) M = {M}, {EX_TIMED} Adam steps", run, gpu,
+                       tag="examples")
+            # the warm-up call, 3 rounds and the profiled run
+            totals[0] = add_counts(totals[0], stationary(5 * EX_TIMED)
+                                   if kernels else launch_vector())
+            check_launches("examples", f"recipe (a) M = {M} timed",
+                           totals[0])
+            large[M] = model
+            log(f"[examples] recipe (a) N {EX_N:,}, B {EX_B:,}, S 10, M {M} "
+                f"({'#1/#2' if kernels else 'eager: no kernel launched'}): "
+                f"optimize_nat_adam {EX_LARGE_ITERS} {dt:.2f} s, loss "
+                f"{losses[0]:.1f} -> {losses[-1]:.1f}; Adam step ms "
+                f"{', '.join(f'{t:.3f}' for t in ms)} over {EX_TIMED} steps, "
+                f"3 rounds ({gpu})")
+        fresh = recipes.large_model(EX_N, 128, EX_B, mesh, **f32)
+        with checkpoint_snapshots() as snapshots:
+            (path, losses), dt = ex_step(
+                "recipe (b)", lambda: recipes.checkpointed_training(
+                    large[128], fresh, iterations=4, every=2, more=2),
+                stationary(2 * 4 + 2 * 2), totals)
+        reloaded = recipes.large_model(EX_N, 128, EX_B, mesh, **f32)
+        recipes.checkpoint.load(path, reloaded.params)
+        state = reloaded.params.state_dict()
+        if [done for done, _ in snapshots] != [2] or not all(
+                torch.equal(state[k], v) for k, v in snapshots[0][1].items()):
+            raise AssertionError("[examples] recipe (b): the checkpoint does "
+                                 "not reload bit for bit")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"[examples] recipe (b): losses {losses}")
+    with recorded_so_bo() as rec:
+        (resumed, whole), dt_c = ex_step(
+            "recipe (c)", lambda: recipes.bo_resume(
+                train_iterations=EX_TRAIN, **EX_DE, **f32),
+            lambda _: launch_vector(c7=rec["c7"]), totals)
+    log(f"[examples] recipe (b): a checkpoint after 2 of 4 natural-gradient "
+        f"steps reloaded bit for bit, 2 more steps {dt:.2f} s; recipe (c): "
+        f"SO_BO resumed after 2 infills equals the uninterrupted 3 bit for "
+        f"bit (Ymin {float(resumed.Ymin[-1]):.5f}) {dt_c:.2f} s ({gpu})")
+    log(f"[examples] phase: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{COUNTED} {counts()}, reckoned {totals[0]} ({gpu})")
+    return counts()
+
+
+# -- phase 15 -------------------------------------------------------------------
 
 
 def event_ms(fn, reps):
@@ -5736,6 +6177,10 @@ def main():
     paths.append(launched)
     compare_cls(*cls_models)
     paths.append(run_parallel(gpu))
+    ex_err = check_examples_kernels()
+    err_qf, err_qf_bwd = max(err_qf, ex_err[0]), max(err_qf_bwd, ex_err[1])
+    err_chol = [max(err_chol[0], ex_err[2]), max(err_chol[1], ex_err[3])]
+    paths.append(run_examples(gpu))
     launches = [sum(c[k] for c in paths) for k in range(11)]
     log(f"[paths] launches on the main paths {COUNTED}: {tuple(launches)}")
 

@@ -2,13 +2,18 @@
 
 Counterpart of ``dgp_tpu/config.py``. What carries over:
 
-* ``default_float()`` — the working dtype when a caller gives none
-  (float32, the dtype the card serves in). Nothing here ever calls
-  ``torch.set_default_dtype``: every tensor is made with an explicit dtype,
-  and CPU parity runs pass ``dtype=torch.float64``.
+* ``default_float()`` — the working dtype when a caller gives none:
+  what :func:`set_default_float` set, else float32 (the dtype the card
+  serves in). Nothing here ever calls ``torch.set_default_dtype`` (under
+  pytest-xdist that setting leaks into other tests): every tensor is made
+  with an explicit dtype, and CPU parity runs pass ``dtype=torch.float64``.
+  On the card, float64 takes the eager PyTorch route: every kernel's gate
+  asks for float32 tensors (``ops/cholesky.applicable``, the conditional
+  wrappers' ``applicable``).
 * ``default_jitter(dtype)`` — diagonal jitter before every Cholesky, 1e-6 in
-  float64 and 1e-4 in float32, as in the JAX package; :func:`jitter_scope`
-  sets one value for every dtype (a float64 run of a float32 model's own
+  float64 and 1e-4 in float32, as in the JAX package; a value set by
+  :func:`set_default_jitter` overrides both, and :func:`jitter_scope` sets
+  one for the length of a scope (a float64 run of a float32 model's own
   function).
 * ``use_kernels()`` — the counterpart of ``set_use_pallas``: whether the
   conditional may dispatch to the hand-written CUDA kernels. A kernel still
@@ -31,11 +36,26 @@ import contextlib
 
 import torch
 
-_STATE = {"use_kernels": True, "jitter": None}
+_STATE = {"use_kernels": True, "jitter": None, "float": None}
+
+
+def set_default_float(dtype) -> None:
+    """Set the working dtype of everything built without a ``dtype``
+    (``torch.float32`` or ``torch.float64``; process-wide). The jitter
+    follows it unless :func:`set_default_jitter` fixed one."""
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the working dtype is float32 or float64, not {dtype}")
+    _STATE["float"] = dtype
 
 
 def default_float():
-    return torch.float32
+    return torch.float32 if _STATE["float"] is None else _STATE["float"]
+
+
+def set_default_jitter(value: float) -> None:
+    """Fix the diagonal jitter for every dtype (process-wide)."""
+    _STATE["jitter"] = float(value)
 
 
 def default_jitter(dtype=None) -> float:

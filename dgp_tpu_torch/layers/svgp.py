@@ -18,7 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..config import default_float, default_jitter
+from ..config import default_float
 from ..ops.conditionals import (
     conditional_diag,
     conditional_full,
@@ -26,8 +26,7 @@ from ..ops.conditionals import (
     precompute_projections,
     reparameterize,
 )
-from ..ops.cholesky import cholesky
-from ..ops.linalg import eye_like
+from ..ops.linalg import safe_cholesky
 from ..ops.means import MeanFunction, Zero
 from ..variational.gaussian import gauss_kl
 
@@ -52,6 +51,11 @@ class SVGPLayer(nn.Module):
     @property
     def augmented(self) -> bool:
         return self.z_left is not None
+
+    @property
+    def num_inducing(self) -> int:
+        base = self.z if self.z is not None else self.z_left
+        return base.shape[0]
 
 
 def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
@@ -82,7 +86,7 @@ def make_svgp_layer(kernel, Z, num_outputs, mean_function=None, *,
         else:
             Z_init = Z if Z_full_init is None else torch.as_tensor(
                 Z_full_init, dtype=dtype, device=Z.device)
-            Lu = cholesky(kernel.K(Z_init) + default_jitter(dtype) * eye)
+            Lu = safe_cholesky(kernel.K(Z_init))
         q_sqrt = Lu[None].repeat(num_outputs, 1, 1)
     return SVGPLayer(kernel, None if augmented else Z, q_mu, q_sqrt,
                      mean_function, num_outputs, white=white,
@@ -162,8 +166,7 @@ def layer_kl(layer: SVGPLayer, Z, Lu=None):
     if layer.white:
         return gauss_kl(layer.q_mu, layer.q_sqrt, Lu=None)
     if Lu is None:
-        Kuu = layer.kernel.K(Z)
-        Lu = cholesky(Kuu + default_jitter(Z.dtype) * eye_like(Kuu))
+        Lu = safe_cholesky(layer.kernel.K(Z))
     return gauss_kl(layer.q_mu, layer.q_sqrt, Lu=Lu)
 
 

@@ -6,9 +6,9 @@ non-dominated sort, an O(n^2) Python loop in
 :func:`dgp_tpu_torch.bo.ehvi._ndc_numpy`) to an O(n log n) sweep in
 ``pareto.cpp``, the port's own copy of the JAX package's source;
 ``bo.ehvi.NDC`` dispatches archives of 512 rows or more to it. The
-library's 2-D hypervolume (``_hv_2d``) is held to ``HV_calcul`` by the
-tests alone: nothing in the port calls it, and it differs from
-``HV_calcul`` on out-of-box fronts. This is host code, not a device
+library's 2-D hypervolume (:func:`hv_2d`) is public, as in the JAX
+package, but nothing in the port calls it: it differs from ``HV_calcul``
+on out-of-box fronts. This is host code, not a device
 kernel: the archive lives in numpy on the host.
 
 The library builds on first use with ``g++ -O3 -fPIC -shared -std=c++17``
@@ -117,8 +117,8 @@ def nd_sort_2d(Y, C, obj1_ascending=True):
     return nd if obj1_ascending else nd[::-1]
 
 
-def _hv_2d(ND, Y, bounds):
-    """The library's ``hv_2d``: ``bo.ehvi.HV_calcul`` **for an in-box front**:
+def hv_2d(ND, Y, bounds):
+    """Fast path for ``bo.ehvi.HV_calcul`` **assuming an in-box front**:
     points of ``ND`` outside the (U1, U2) reference corner are skipped and
     the rest summed, whereas HV_calcul returns 0 for the whole front when
     any ND point exceeds both bounds and zeroes segments per its staircase

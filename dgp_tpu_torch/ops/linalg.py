@@ -6,9 +6,25 @@ from __future__ import annotations
 
 import torch
 
+from ..config import default_jitter
+from .cholesky import cholesky
+
 
 def eye_like(K):
     return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def add_jitter(K, jitter=None):
+    """K + jitter I (``config.default_jitter`` of K's dtype by default)."""
+    jitter = default_jitter(K.dtype) if jitter is None else jitter
+    return K + jitter * eye_like(K)
+
+
+def safe_cholesky(K, jitter=None):
+    """Cholesky of K + jitter I, batched over leading dims: kernel #7 where
+    its gate holds (``ops/cholesky.cholesky``). A matrix that is not
+    positive definite gives NaN, never an exception."""
+    return cholesky(add_jitter(K, jitter))
 
 
 def tri_solve(L, B, lower=True):

@@ -29,3 +29,7 @@ def positive_inverse(value):
     """Positive -> unconstrained (for initialization)."""
     return inv_softplus(value)
 
+
+def tril(mat):
+    """Lower-triangular mask, applied wherever a q_sqrt-like factor is used."""
+    return torch.tril(mat)

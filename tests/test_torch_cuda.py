@@ -1033,15 +1033,10 @@ def test_cls_heads_go_through_the_kernels(cuda):
 @pytest.fixture
 def nccl_mesh(cuda):
     """A world-size-1 NCCL process group and its 1-D mesh on the card."""
-    import torch.distributed as dist
+    from examples_torch.serving import process_group
 
-    from dgp_tpu_torch.parallel.mesh import make_mesh
-
-    dist.init_process_group(
-        "nccl", init_method=f"tcp://localhost:{chip_smoke.free_port()}",
-        rank=0, world_size=1)
-    yield make_mesh()
-    dist.destroy_process_group()
+    with process_group("cuda") as mesh:
+        yield mesh
 
 
 @pytest.mark.cuda
@@ -1079,3 +1074,55 @@ def test_sharded_request_at_world_size_1(nccl_mesh):
             assert chip_smoke.counts() == chip_smoke.expected_counts(
                 "stationary", n, 1)
             chip_smoke.hold_request("1-layer request", got, want)
+
+
+@pytest.mark.cuda
+def test_safe_cholesky_goes_through_the_cholesky_kernel(cuda):
+    """ops.linalg.safe_cholesky on a [4, 128, 128] stack: one launch of #7,
+    L within chip_smoke.TOL of scale of the float64 factor of the same
+    jittered stack, and NaN (no exception) for an indefinite matrix."""
+    from dgp_tpu_torch.ops import linalg
+
+    A = chip_smoke.spd_stack(4, 128, 3)
+    before = tch.Cholesky.launches
+    L = linalg.safe_cholesky(A)
+    assert tch.Cholesky.launches == before + 1 and L.dtype == torch.float32
+    want = torch.linalg.cholesky(linalg.add_jitter(A.double(), 1e-4))
+    assert float((L.double() - want).abs().max()) <= (
+        chip_smoke.TOL * float(want.abs().max()))
+    bad = A.clone()
+    bad[2] -= 1e3 * torch.eye(128, device=A.device)
+    L = linalg.safe_cholesky(bad)
+    assert torch.isnan(L[2].diagonal()).any() and torch.isfinite(L[0]).all()
+
+
+@pytest.mark.cuda
+def test_top_level_entry_points_build_on_the_card(cuda):
+    """The top-level exports of dgp_tpu_torch build on the card when no
+    device is given, in float32 unless set_default_float says otherwise."""
+    import dgp_tpu_torch as dgp
+    from dgp_tpu_torch.bo.problems import get
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(8, 1))
+    Y = np.sin(4 * X)
+    kern = dgp.kernels.RBF.create(lengthscales=[1.0])
+    models = [dgp.DGP(X, Y, X[:4], [kern, kern], [1]),
+              dgp.GPR((X, Y), kern),
+              dgp.MultiFidelityDeepGP([X, X[:4]], [Y, Y[:4]]),
+              dgp.MultiObjDeepGP([X, X.copy()], [Y, np.cos(4 * X)], loop=1),
+              dgp.AR1CoKriging(([X, X[:4]], [Y, Y[:4]]))]
+    for model in models:
+        tensors = list(model.params.parameters())
+        assert tensors and all(t.is_cuda and t.dtype == torch.float32
+                               for t in tensors), type(model).__name__
+    mo_bo = dgp.MO_BO(problem=get("multi_obj_1D_4"), DoE_size=4)
+    assert mo_bo.device.type == "cuda"
+    saved = dict(dgp.config._STATE)
+    try:
+        dgp.set_default_float(torch.float64)
+        model = dgp.DGP(X, Y, X[:4], [kern, kern], [1])
+        assert {(p.is_cuda, p.dtype) for p in model.params.parameters()} == {
+            (True, torch.float64)}
+    finally:
+        dgp.config._STATE.update(saved)

@@ -143,7 +143,7 @@ def test_native_sweep_matches_numpy(seed):
     Yf, Cf = archive(100, seed, frac_infeasible=0.0)
     nd = tehvi.NDC(Yf, Cf)
     bounds = (-5.0, -5.0, 2.5, 2.5)
-    assert tnative._hv_2d(nd, Yf, bounds) == pytest.approx(
+    assert tnative.hv_2d(nd, Yf, bounds) == pytest.approx(
         tehvi.HV_calcul(nd, Yf, bounds), rel=1e-12)
 
 
@@ -153,7 +153,7 @@ def test_native_edge_cases():
     Yd = [np.array([[0.0], [0.0], [1.0]]), np.array([[1.0], [1.0], [0.0]])]
     C = -np.ones((3, 1))
     assert sorted(tnative.nd_sort_2d(Yd, C)) == sorted(tehvi.NDC(Yd, C))
-    assert tnative._hv_2d([], Yd, (0.0, 0.0, 2.0, 2.0)) == 0.0
+    assert tnative.hv_2d([], Yd, (0.0, 0.0, 2.0, 2.0)) == 0.0
     # built under the repository's build/, named by the source's hash
     assert tnative.library_path().endswith(".so")
     assert tnative.available() and tnative.build() == tnative.library_path()

@@ -39,7 +39,8 @@ FORBIDDEN = re.compile(
 
 
 def port_sources():
-    for base in (PKG, os.path.join(ROOT, "compat_torch")):
+    for base in (PKG, os.path.join(ROOT, "compat_torch"),
+                 os.path.join(ROOT, "examples_torch")):
         for base, _, files in os.walk(base):
             for f in files:
                 if f.endswith(".py"):
@@ -69,7 +70,11 @@ def test_no_jax_imports_in_port():
             "../compat_torch/validate_robust_regression.py",
             "../compat_torch/validate_dgp_regression.py",
             "../compat_torch/validate_bo.py", "parallel/mesh.py",
-            "parallel/data_parallel.py", "parallel/serving.py"} <= rel
+            "parallel/data_parallel.py", "parallel/serving.py",
+            "../compat_torch/benchmark_mf.py",
+            *(f"../examples_torch/{name}.py" for name in (
+                "quickstart", "serving", "ask_tell", "classification",
+                "mf_bo", "mo_bo", "recipes"))} <= rel
     bad = []
     for path in sources:
         with open(path) as f:
@@ -187,6 +192,12 @@ assert bool(torch.isfinite(sharded.optimize_adam(iterations=2,
                                                  messages=0)).all())
 assert sharded.predict_y_sharded(X, 3, chunk_size=8)[0].shape == (3, 20, 1)
 dist.destroy_process_group()
+import dgp_tpu_torch as dgp
+assert dgp.DGP is DGP and dgp.summary is monitor.summary and dgp.parallel
+import examples_torch.quickstart, examples_torch.serving
+import examples_torch.ask_tell, examples_torch.classification
+import examples_torch.mf_bo, examples_torch.mo_bo, examples_torch.recipes
+import compat_torch.benchmark_mf
 assert not any(k.split(".")[0] in ("jax", "dgp_tpu") and sys.modules[k]
                for k in list(sys.modules))
 print("ok")
